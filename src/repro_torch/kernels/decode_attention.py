@@ -1,0 +1,89 @@
+"""Decode attention: wrapper of the Hopper kernel
+``csrc/decode_attention.cu`` and its plain PyTorch version.
+
+The kernel replaces the Pallas TPU kernel ``repro.kernels.decode_attention``
+with flash-decoding: split-K partials in parallel, then a merge pass. It
+reads the engine's (B, S, Hkv, D) cache slice in place through its strides
+and ``cache_len`` on the device. ``plain`` is the same function in plain
+PyTorch (``kernels.ref.decode_attention_ref``); the wrapper never falls
+back to it.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build, ref
+from repro_torch.kernels.flash_attention import DTYPES, HEAD_DIMS
+
+plain = ref.decode_attention_ref
+stats = {"launches": 0}
+MAX_GROUP = 16
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = _build.library("decode_attention")
+    fn = lib.decode_attention_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.decode_attention_chunk.argtypes = []
+    lib.decode_attention_chunk.restype = ctypes.c_int
+    return fn, lib.decode_attention_chunk()
+
+
+def decode_attention(q, k_cache, v_cache, cache_len):
+    """q: (B, 1, Hq, D); caches (B, S, Hkv, D); cache_len: (B,) int32, all
+    CUDA tensors (q and the caches of one dtype, float32 or bfloat16).
+    Returns a new (B, 1, Hq, D) tensor in q's dtype."""
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
+                    ("cache_len", cache_len)):
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError(f"{name} must be on q's CUDA device, got {t.device}")
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.dim() != 4 or t.stride(3) != 1:
+            raise ValueError(f"{name} must be 4-D with a contiguous last axis")
+        if t.dtype != q.dtype:
+            raise ValueError(f"{name} is {t.dtype}, q is {q.dtype}")
+    if q.dtype not in DTYPES:
+        raise ValueError(f"dtype {q.dtype} not supported; take {list(DTYPES)}")
+    b, one, hq, d = q.shape
+    _, s, hkv, _ = k_cache.shape
+    if one != 1 or k_cache.shape != v_cache.shape or k_cache.shape[0] != b \
+            or k_cache.shape[3] != d:
+        raise ValueError(f"shapes q {tuple(q.shape)}, caches "
+                         f"{tuple(k_cache.shape)}/{tuple(v_cache.shape)} "
+                         f"do not match")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not supported; take {HEAD_DIMS}")
+    if hkv == 0 or hq % hkv or hq // hkv > MAX_GROUP:
+        raise ValueError(f"{hq} query heads over {hkv} KV heads: the group "
+                         f"must be an integer up to {MAX_GROUP}")
+    if cache_len.dtype != torch.int32 or cache_len.shape != (b,) \
+            or not cache_len.is_contiguous():
+        raise ValueError(f"cache_len must be a contiguous ({b},) int32 tensor")
+    out = torch.empty((b, 1, hq, d), dtype=q.dtype, device=q.device)
+    if b == 0 or s == 0:
+        return out.zero_()
+    fn, chunk = _lib()
+    nsplit = -(-s // chunk)
+    scratch = torch.empty(b * hq * nsplit * (d + 2), dtype=torch.float32,
+                          device=q.device)
+    strides = (ctypes.c_longlong * 10)(
+        q.stride(0), q.stride(2), *k_cache.stride()[:3],
+        *v_cache.stride()[:3], out.stride(0), out.stride(2))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                 cache_len.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                 DTYPES[q.dtype], b, s, hq, hkv, d, strides,
+                 float(d ** -0.5), stream)
+    if err:
+        raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
+                           f"error {err}")
+    stats["launches"] += 1
+    return out

@@ -1,0 +1,55 @@
+"""Uniform model interface over the port's zoo.
+
+``build(cfg)`` returns a :class:`ModelBundle` exposing init / prefill /
+decode_step / init_cache. Only decoder-only configs are ported so far;
+encoder-decoder configs raise.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from repro_torch.configs import ModelConfig
+from repro_torch.models import transformer
+
+
+@dataclasses.dataclass
+class ModelBundle:
+    cfg: ModelConfig
+    init: Callable             # (generator=None, device="cuda", dtype) -> params
+    prefill: Callable          # (params, batch, max_len, **kw) -> (logits, cache)
+    decode_step: Callable      # (params, cache, token, **kw) -> (logits, cache)
+    init_cache: Callable       # (batch, max_len, dtype, ...) -> cache
+
+
+def build(cfg: ModelConfig) -> ModelBundle:
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-decoder models are not ported yet")
+    return _build_decoder(cfg)
+
+
+def _build_decoder(cfg: ModelConfig) -> ModelBundle:
+    transformer.check_supported(cfg)
+
+    def init_fn(generator=None, device="cuda", dtype=torch.float32):
+        return transformer.init(cfg, generator=generator, device=device,
+                                dtype=dtype)
+
+    def prefill_fn(params, batch, max_len=None, *, dtype=torch.bfloat16):
+        return transformer.prefill(params, cfg, batch["tokens"],
+                                   prefix_embeds=batch.get("prefix_embeds"),
+                                   max_len=max_len, dtype=dtype)
+
+    def decode_fn(params, cache, token, *, dtype=torch.bfloat16):
+        return transformer.decode_step(params, cfg, cache, token, dtype=dtype)
+
+    def init_cache(batch, max_len, dtype=torch.bfloat16, per_slot_pos=False,
+                   kv_dtype=None, device="cuda"):
+        return transformer.init_cache(cfg, batch, max_len, dtype,
+                                      per_slot_pos=per_slot_pos,
+                                      kv_dtype=kv_dtype, device=device)
+
+    return ModelBundle(cfg, init_fn, prefill_fn, decode_fn, init_cache)

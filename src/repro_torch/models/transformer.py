@@ -1,0 +1,155 @@
+"""Decoder-only transformer LM of the port: the dense GQA family.
+
+A Python loop over layers replaces ``lax.scan``; weights keep the stacked
+``layer`` axis and each step takes its layer's views. MLA, SSM, hybrid,
+MoE, the int8 cache and prefix embeddings raise ``NotImplementedError``:
+they come with later slices.
+
+Public surface (used by registry / launch / engine):
+  init(cfg, generator=, device=)          -> param tree
+  forward(params, cfg, tokens)            -> logits (B, S, V) fp32
+  init_cache(cfg, batch, max_len, dtype)  -> {"k", "v", "pos"}
+  prefill(params, cfg, tokens, max_len=)  -> (last-position logits, cache)
+  decode_step(params, cfg, cache, token)  -> (logits, cache updated in place)
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs import ATTN_GQA, FAMILY_DENSE, ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import common as cm
+from repro_torch.models import ffn as ffn_mod
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    if (cfg.family != FAMILY_DENSE or cfg.attn_type != ATTN_GQA
+            or cfg.moe is not None or cfg.ssm is not None
+            or cfg.mla is not None or cfg.is_encoder_decoder
+            or cfg.n_prefix_embeds):
+        raise NotImplementedError(
+            f"{cfg.name}: only the dense GQA decoder is ported so far")
+
+
+def init(cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
+         device="cuda", dtype=torch.float32):
+    check_supported(cfg)
+    kw = dict(device=device, dtype=dtype)
+    lead = (cfg.n_layers,)
+    p = {
+        "embed": cm.embedding(generator, cfg.vocab_size, cfg.d_model, **kw),
+        "layers": {
+            "attn_norm": cm.rmsnorm_init(cfg.d_model, lead=lead, **kw),
+            "attn": attn.gqa_init(generator, cfg, lead=lead, **kw),
+            "ffn_norm": cm.rmsnorm_init(cfg.d_model, lead=lead, **kw),
+            "ffn": ffn_mod.swiglu_init(generator, cfg.d_model, cfg.d_ff,
+                                       lead=lead, **kw),
+        },
+        "final_norm": cm.rmsnorm_init(cfg.d_model, **kw),
+    }
+    if not cfg.tie_embeddings:
+        p["unembed"] = cm.dense(generator, cfg.d_model, cfg.vocab_size, **kw)
+    return p
+
+
+def layer_windows(cfg: ModelConfig):
+    """Per-layer sliding window (0 = full attention), or None."""
+    if cfg.sliding_window <= 0:
+        return None
+    return [0 if i in cfg.full_attn_layers else cfg.sliding_window
+            for i in range(cfg.n_layers)]
+
+
+def _block_forward(lp, x, cfg, window, positions, kv_out=None):
+    """One layer over the full sequence. kv_out: (k, v) cache slices
+    (B, max_len, Hkv, D) that receive this layer's keys and values."""
+    h = cm.rmsnorm(lp["attn_norm"], x, cfg.rms_eps)
+    x = x + attn.gqa_forward(lp["attn"], h, cfg, positions=positions,
+                             window=window, kv_out=kv_out)
+    h = cm.rmsnorm(lp["ffn_norm"], x, cfg.rms_eps)
+    return x + ffn_mod.swiglu(lp["ffn"], h)
+
+
+def embed_inputs(params, cfg, tokens, prefix_embeds=None,
+                 dtype=torch.bfloat16):
+    if prefix_embeds is not None:
+        raise NotImplementedError("prefix embeddings (VLM) are not ported yet")
+    return params["embed"]["embedding"][tokens.long()].to(dtype)
+
+
+def unembed(params, cfg, x):
+    if cfg.tie_embeddings:
+        emb = params["embed"]["embedding"]
+        return torch.matmul(x, emb.to(x.dtype).T).float()
+    return cm.apply_dense(params["unembed"], x).float()
+
+
+def forward(params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
+            dtype=torch.bfloat16):
+    """tokens: (B, S) int. Returns logits (B, S, vocab) f32."""
+    x = embed_inputs(params, cfg, tokens, prefix_embeds, dtype)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    windows = layer_windows(cfg)
+    for i in range(cfg.n_layers):
+        x = _block_forward(cm.layer_params(params["layers"], i), x, cfg,
+                           windows[i] if windows else 0, positions)
+    x = cm.rmsnorm(params["final_norm"], x, cfg.rms_eps)
+    return unembed(params, cfg, x)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, per_slot_pos: bool = False,
+               kv_dtype=None, device="cuda"):
+    """{"k", "v"}: (L, batch, max_len, Hkv, D) zeros; "pos": a (batch,)
+    int32 vector with per_slot_pos (every slot at its own depth, for
+    continuous batching), else a 0-dim one."""
+    check_supported(cfg)
+    if kv_dtype is not None:
+        raise NotImplementedError("the int8 KV cache is not ported yet")
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    pos_shape = (batch,) if per_slot_pos else ()
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": torch.zeros(pos_shape, dtype=torch.int32, device=device)}
+
+
+def prefill(params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
+            max_len: Optional[int] = None, dtype=torch.bfloat16):
+    """Full-sequence forward that also builds the decode cache. Returns
+    (logits of the last position (B, 1, V) f32, cache with pos = seq)."""
+    x = embed_inputs(params, cfg, tokens, prefix_embeds, dtype)
+    b, seq = x.shape[0], x.shape[1]
+    max_len = max_len or seq
+    cache = init_cache(cfg, b, max_len, dtype, device=x.device)
+    positions = torch.arange(seq, device=x.device)[None, :]
+    windows = layer_windows(cfg)
+    for i in range(cfg.n_layers):
+        x = _block_forward(cm.layer_params(params["layers"], i), x, cfg,
+                           windows[i] if windows else 0, positions,
+                           kv_out=(cache["k"][i], cache["v"][i]))
+    x = cm.rmsnorm(params["final_norm"], x, cfg.rms_eps)
+    cache["pos"].fill_(min(seq, max_len))
+    return unembed(params, cfg, x[:, -1:]), cache
+
+
+def decode_step(params, cfg: ModelConfig, cache, token, *,
+                dtype=torch.bfloat16):
+    """token: (B, 1) int. Writes each slot's new K/V into ``cache`` in place
+    and advances ``cache["pos"]`` by one. Returns (logits (B,1,V) f32,
+    cache)."""
+    pos = cache["pos"]
+    x = params["embed"]["embedding"][token.long()].to(dtype)
+    windows = layer_windows(cfg)
+    for i in range(cfg.n_layers):
+        lp = cm.layer_params(params["layers"], i)
+        h = cm.rmsnorm(lp["attn_norm"], x, cfg.rms_eps)
+        a, _, _ = attn.gqa_decode(lp["attn"], h, cache["k"][i], cache["v"][i],
+                                  pos, cfg, window=windows[i] if windows else 0)
+        x = x + a
+        h = cm.rmsnorm(lp["ffn_norm"], x, cfg.rms_eps)
+        x = x + ffn_mod.swiglu(lp["ffn"], h)
+    x = cm.rmsnorm(params["final_norm"], x, cfg.rms_eps)
+    cache["pos"] = pos + 1
+    return unembed(params, cfg, x), cache
