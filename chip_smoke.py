@@ -8,8 +8,10 @@ non-zero):
 1. environment: the card's name and power limit; TF32 off.
 2. build: nvcc builds the port's CUDA kernels from ``src/repro_torch/csrc``.
 3. kernels: each kernel against its plain PyTorch version on the card over
-   qwen2-0.5b's heads (14 query over 2 KV, head_dim 64) in fp32 and bf16,
-   then its time at the serve path's shapes beside the plain version's, one
+   qwen2-0.5b's heads (14 query over 2 KV, head_dim 64; reduced: 4 over 2,
+   head_dim 16) in fp32 and bf16, at every prefill length the serve phase
+   gives the kernel and at longer ones, then its time at the serve path's
+   shapes beside the plain version's, one
    PyTorch library call's (``scaled_dot_product_attention``) and the card's
    bound for the same work.
 4. serve: full-width qwen2-0.5b (24 layers, d_model 896, vocab 151936, seeded
@@ -38,16 +40,24 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# Dense peaks of the card (NVIDIA data sheets): device memory bytes/s and
+# Dense peaks of the H100 SXM (NVIDIA data sheet): device memory bytes/s and
 # FLOP/s by input type. fp32 is the CUDA-core rate: the kernels run fp32
 # FMAs, not TF32 tensor cores.
-PEAKS = {
-    "sxm": {"bytes": 3.35e12, "float32": 67e12, "bfloat16": 989e12},
-    "pcie": {"bytes": 2.0e12, "float32": 51e12, "bfloat16": 756e12},
-}
-TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+PEAKS = {"bytes": 3.35e12, "float32": 67e12, "bfloat16": 989e12}
+# A kernel's output against its plain version's, element by element:
+# |kernel - plain| <= atol + rtol * |plain|. Both compute in fp32 and round
+# the output once. In fp32 only the order of the sums differs (~1e-7 at these
+# magnitudes). In bf16 the two fp32 results round at most one bf16 step
+# apart, and a step is at most 2^-7 |x|; so the limit follows each element,
+# and a kernel that drops or double-counts keys fails even where the outputs
+# are ~0.01 (long rows over 0.5 * randn values).
+TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (1e-5, 2.0 ** -7)}
 LOGITS_ATOL = 1e-3
 N_LAYERS = 24
+# (Hq, Hkv, D) of qwen2-0.5b at full width (what chip_smoke serves) and
+# reduced (the serve launcher's default): one case per head_dim the kernels
+# are built for.
+FULL_HEADS, REDUCED_HEADS = (14, 2, 64), (4, 2, 16)
 
 
 def emit(obj):
@@ -80,6 +90,30 @@ def max_err(a, b):
     return (a.float() - b.float()).abs().max().item()
 
 
+def held(got, want, dtype):
+    """(max |got - want|, whether every element is within TOL[dtype])."""
+    atol, rtol = TOL[dtype]
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    return err.max().item(), bool((err <= atol + rtol * want.abs()).all())
+
+
+def tol_text(dtype):
+    atol, rtol = TOL[dtype]
+    return f"{atol} + {rtol} * |plain|" if rtol else f"{atol}"
+
+
+def served_prefill_lengths():
+    """Prompt lengths, padded for prefill, of the serve phase's requests."""
+    from repro_torch.data.tokenizer import ByteTokenizer
+    from repro_torch.engine.engine import PREFILL_ALIGN
+    from repro_torch.launch.serve import DEMO_PROMPTS
+    tok = ByteTokenizer()
+    lens = [len(tok.encode(DEMO_PROMPTS[i % len(DEMO_PROMPTS)] + f" [{i}]"))
+            for i in range(8)]
+    return lens, sorted({-(-n // PREFILL_ALIGN) * PREFILL_ALIGN for n in lens})
+
+
 def phase_environment():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -97,7 +131,10 @@ def phase_environment():
     emit({"phase": "environment", "device": name, "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device_count": torch.cuda.device_count()})
-    return name, PEAKS["pcie" if "PCIe" in name else "sxm"]
+    if "H100" not in name or "HBM3" not in name:
+        raise RuntimeError(f"{name}: the kernels target the H100 SXM and the "
+                           f"bounds use its peaks")
+    return name
 
 
 def phase_build():
@@ -124,50 +161,64 @@ def attn_inputs(gen, b, s, hq, hkv, d, dtype, layers=1):
     return rn(b, s, hq, d), rn(layers, b, s, hkv, d)[-1], rn(layers, b, s, hkv, d)[-1]
 
 
-def phase_kernels(peaks):
+def flash_cases():
+    """(heads, case, B, S, causal, window): qwen2-0.5b's heads at every
+    prefill length the serve phase gives the kernel and at the sweep's
+    shapes; the reduced heads at a few of them."""
+    full = [("causal", 1, s, True, 0) for s in served_prefill_lengths()[1]]
+    full += [("causal", 1, 160, True, 0), ("causal", 1, 2048, True, 0),
+             ("padded", 2, 40, True, 0), ("window", 1, 160, True, 24),
+             ("noncausal", 1, 160, False, 0),
+             ("noncausal_window", 1, 160, False, 24)]
+    small = [("causal", 1, 96, True, 0), ("padded", 2, 40, True, 0),
+             ("window", 1, 160, True, 24), ("noncausal_window", 1, 160, False, 24)]
+    return ([(FULL_HEADS, *c) for c in full]
+            + [(REDUCED_HEADS, *c) for c in small])
+
+
+DECODE_CASES = [(FULL_HEADS, b, s) for b in (4, 32) for s in (160, 4096)] \
+    + [(REDUCED_HEADS, 4, 160)]
+
+
+def phase_kernels():
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator("cuda").manual_seed(0)
-    hq, hkv, d = 14, 2, 64
     failures = []
     for dtype in (torch.float32, torch.bfloat16):
-        for case, b, s, causal, window in (
-                ("causal", 1, 64, True, 0), ("causal", 1, 160, True, 0),
-                ("causal", 1, 2048, True, 0), ("padded", 2, 40, True, 0),
-                ("window", 1, 160, True, 24), ("noncausal", 1, 160, False, 0),
-                ("noncausal_window", 1, 160, False, 24)):
+        for (hq, hkv, d), case, b, s, causal, window in flash_cases():
             q, k, v = attn_inputs(gen, b, s, hq, hkv, d, dtype, layers=2)
             kw = dict(causal=causal, window=window, q_offset=0, sk_valid=s)
-            err = max_err(fa.flash_attention(q, k, v, **kw),
-                          fa.plain(q, k, v, **kw))
-            ok = err <= TOL[dtype]
+            err, ok = held(fa.flash_attention(q, k, v, **kw),
+                           fa.plain(q, k, v, **kw), dtype)
             emit({"phase": "kernel", "kernel": "flash_attention", "case": case,
-                  "dtype": str(dtype), "B": b, "S": s, "window": window,
-                  "max_abs_err": err, "tol": TOL[dtype], "ok": ok})
+                  "dtype": str(dtype), "B": b, "S": s, "Hq": hq, "Hkv": hkv,
+                  "D": d, "window": window, "max_abs_err": err,
+                  "tol": tol_text(dtype), "ok": ok})
             if not ok:
-                failures.append(("flash_attention", case, str(dtype), s, err))
-        for b in (4, 32):
-            for s in (160, 4096):
-                q, kc, vc = attn_inputs(gen, b, s, hq, hkv, d, dtype, layers=2)
-                q = q[:, :1]
-                lens = torch.randint(1, s + 1, (b,), generator=gen,
-                                     device="cuda").to(torch.int32)
-                lens[0], lens[1], lens[2] = 1, s, 0
-                got = dec.decode_attention(q, kc, vc, lens)
-                err = max_err(got, dec.plain(q, kc, vc, lens))
-                zero = got[2].abs().max().item()
-                ok = err <= TOL[dtype] and zero == 0.0
-                emit({"phase": "kernel", "kernel": "decode_attention",
-                      "case": "ragged", "dtype": str(dtype), "B": b, "S": s,
-                      "cache_len": lens.tolist()[:8], "max_abs_err": err,
-                      "zero_len_row_max": zero, "tol": TOL[dtype], "ok": ok})
-                if not ok:
-                    failures.append(("decode_attention", str(dtype), b, s, err))
+                failures.append(("flash_attention", case, str(dtype), s, d, err))
+        for (hq, hkv, d), b, s in DECODE_CASES:
+            q, kc, vc = attn_inputs(gen, b, s, hq, hkv, d, dtype, layers=2)
+            q = q[:, :1]
+            lens = torch.randint(1, s + 1, (b,), generator=gen,
+                                 device="cuda").to(torch.int32)
+            lens[0], lens[1], lens[2] = 1, s, 0
+            got = dec.decode_attention(q, kc, vc, lens)
+            err, ok = held(got, dec.plain(q, kc, vc, lens), dtype)
+            zero = got[2].abs().max().item()
+            ok = ok and zero == 0.0
+            emit({"phase": "kernel", "kernel": "decode_attention",
+                  "case": "ragged", "dtype": str(dtype), "B": b, "S": s,
+                  "Hq": hq, "Hkv": hkv, "D": d,
+                  "cache_len": lens.tolist()[:8], "max_abs_err": err,
+                  "zero_len_row_max": zero, "tol": tol_text(dtype), "ok": ok})
+            if not ok:
+                failures.append(("decode_attention", str(dtype), b, s, d, err))
     torch.cuda.synchronize()
     if failures:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{failures}")
-    return time_kernels(gen, peaks)
+    return time_kernels(gen)
 
 
 KERNELS = {
@@ -180,14 +231,14 @@ KERNELS = {
 }
 
 
-def time_flash(gen, peaks, s, dtype):
+def time_flash(gen, s, dtype):
     """Causal prefill of one sequence of s tokens: kernel, plain version and
     SDPA timed on the same inputs; the bound counts q, k, v read once, o
     written once and 4 * D FLOPs per causal (query, key) pair."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
-    hq, hkv, d = 14, 2, 64
+    hq, hkv, d = FULL_HEADS
     q, k, v = attn_inputs(gen, 1, s, hq, hkv, d, dtype, layers=N_LAYERS)
     kw = dict(causal=True, window=0, q_offset=0, sk_valid=s)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -197,10 +248,10 @@ def time_flash(gen, peaks, s, dtype):
         lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                enable_gqa=True),
         nbytes=(2 * s * hq * d + 2 * s * hkv * d) * q.element_size(),
-        flops=4 * d * hq * (s * (s + 1) // 2), peaks=peaks)
+        flops=4 * d * hq * (s * (s + 1) // 2))
 
 
-def time_decode(gen, peaks, s, cache_len, dtype):
+def time_decode(gen, s, cache_len, dtype):
     """One decode step over len(cache_len) slots of an s-entry cache slice:
     kernel, plain version and SDPA with a boolean mask on the same inputs;
     the bound counts q, the valid K/V rows and cache_len read once, o
@@ -208,7 +259,7 @@ def time_decode(gen, peaks, s, cache_len, dtype):
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_attention as dec
-    hq, hkv, d, b = 14, 2, 64, len(cache_len)
+    (hq, hkv, d), b = FULL_HEADS, len(cache_len)
     q, kc, vc = attn_inputs(gen, b, s, hq, hkv, d, dtype, layers=N_LAYERS)
     q = q[:, :1].contiguous()
     lens = torch.tensor(cache_len, dtype=torch.int32, device="cuda")
@@ -224,15 +275,18 @@ def time_decode(gen, peaks, s, cache_len, dtype):
         lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                enable_gqa=True),
         nbytes=(2 * b * hq * d + 2 * n_valid * hkv * d) * q.element_size()
-        + 4 * b, flops=4 * d * hq * n_valid, peaks=peaks)
+        + 4 * b, flops=4 * d * hq * n_valid)
 
 
-def timing_row(name, shape, dtype, kernel, plain, library, *, nbytes, flops,
-               peaks):
-    t_bytes = nbytes / peaks["bytes"] * 1e3
-    t_ops = flops / peaks[str(dtype).split(".")[-1]] * 1e3
+def timing_row(name, shape, dtype, kernel, plain, library, *, nbytes, flops):
+    t_bytes = nbytes / PEAKS["bytes"] * 1e3
+    t_ops = flops / PEAKS[str(dtype).split(".")[-1]] * 1e3
+    err, ok = held(kernel(), plain(), dtype)
+    if not ok:
+        raise AssertionError(f"{name} at {shape} {dtype}: max error {err} "
+                             f"beyond {tol_text(dtype)}")
     row = dict(name=name, **KERNELS[name], shape=f"{shape} {dtype}",
-               max_abs_err=max_err(kernel(), plain()), ms=cuda_ms(kernel),
+               max_abs_err=err, ms=cuda_ms(kernel),
                plain_ms=cuda_ms(plain), library_ms=cuda_ms(library),
                bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations")
@@ -240,7 +294,7 @@ def timing_row(name, shape, dtype, kernel, plain, library, *, nbytes, flops,
     return row
 
 
-def time_kernels(gen, peaks):
+def time_kernels(gen):
     """Times at the serve path's shapes, in fp32 (the engine's dtype):
     prefill of the longest served prompt (96 tokens after padding to 16),
     and a decode step over 4 slots of the 160-entry cache with the slots
@@ -248,18 +302,12 @@ def time_kernels(gen, peaks):
     line. Then times at long shapes, where the bound is more than launch
     latency: a 2048-token prefill (fp32 and bf16) and a decode step over
     32 slots of a 4096-entry cache."""
-    from repro_torch.data.tokenizer import ByteTokenizer
-    from repro_torch.engine.engine import PREFILL_ALIGN
-    from repro_torch.launch.serve import DEMO_PROMPTS
-    tok = ByteTokenizer()
-    lens = [len(tok.encode(DEMO_PROMPTS[i % 4] + f" [{i}]")) for i in range(8)]
-    s = -(-max(lens) // PREFILL_ALIGN) * PREFILL_ALIGN
-    rows = [time_flash(gen, peaks, s, torch.float32),
-            time_decode(gen, peaks, 160, [n + 12 for n in lens[:4]],
-                        torch.float32)]
+    lens, padded = served_prefill_lengths()
+    rows = [time_flash(gen, max(padded), torch.float32),
+            time_decode(gen, 160, [n + 12 for n in lens[:4]], torch.float32)]
     for dtype in (torch.float32, torch.bfloat16):
-        time_flash(gen, peaks, 2048, dtype)
-    time_decode(gen, peaks, 4096, list(range(128, 4097, 128)), torch.float32)
+        time_flash(gen, 2048, dtype)
+    time_decode(gen, 4096, list(range(128, 4097, 128)), torch.float32)
     return rows
 
 
@@ -376,9 +424,9 @@ def phase_profile(engine):
 
 
 def main():
-    name, peaks = phase_environment()
+    name = phase_environment()
     phase_build()
-    rows = phase_kernels(peaks)
+    rows = phase_kernels()
     engine = phase_serve(rows)
     phase_cross_check(engine)
     phase_profile(engine)

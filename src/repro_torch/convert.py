@@ -17,7 +17,7 @@ import torch
 
 
 def params_from_numpy(flat: Dict[str, Tuple[np.ndarray, tuple]], *,
-                      device="cuda", dtype=None):
+                      device="cuda"):
     tree: dict = {}
     for path, (arr, axes) in flat.items():
         arr = np.asarray(arr)
@@ -30,8 +30,5 @@ def params_from_numpy(flat: Dict[str, Tuple[np.ndarray, tuple]], *,
         node = tree
         for k in keys[:-1]:
             node = node.setdefault(k, {})
-        t = torch.tensor(arr, device=device)
-        if dtype is not None and t.is_floating_point():
-            t = t.to(dtype)
-        node[keys[-1]] = t
+        node[keys[-1]] = torch.tensor(arr, device=device)
     return tree

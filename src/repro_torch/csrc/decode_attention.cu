@@ -183,9 +183,7 @@ template <typename T>
 cudaError_t by_dim(int D, const Args& a, int B, cudaStream_t stream) {
   switch (D) {
     case 16: return launch<T, 16>(a, B, stream);
-    case 32: return launch<T, 32>(a, B, stream);
     case 64: return launch<T, 64>(a, B, stream);
-    case 128: return launch<T, 128>(a, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }

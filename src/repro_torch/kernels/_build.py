@@ -14,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -40,35 +41,32 @@ def _library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
+def _compile(name: str, out: Path) -> None:
+    """One ``nvcc`` run into a temporary file, renamed into place when it
+    succeeds. The compiler's output (with ``-Xptxas -v``'s register and
+    shared-memory report) goes to a ``.log`` beside the library."""
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    out.with_suffix(".log").write_text(proc.stdout)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
+    os.replace(tmp, out)
+
+
 def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
     """Build the named sources that are not up to date, one ``nvcc`` each,
-    all started together. The compiler's output (with ``-Xptxas -v``'s
-    register and shared-memory report) goes to a ``.log`` beside each
-    library. Returns {name: library path}."""
+    all started together; every one has ended when this returns. Returns
+    {name: library path}."""
     paths = {n: _library_path(n) for n in names}
-    jobs = {}
-    try:
-        for name, out in paths.items():
-            if out.exists():
-                continue
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-            jobs[name] = (tmp, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True))
-        for name, (tmp, proc) in jobs.items():
-            log, _ = proc.communicate()
-            paths[name].with_suffix(".log").write_text(log)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
-            os.replace(tmp, paths[name])
-    finally:
-        for tmp, proc in jobs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            tmp.unlink(missing_ok=True)
+    todo = {n: p for n, p in paths.items() if not p.exists()}
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with ThreadPoolExecutor(max_workers=len(todo)) as pool:
+            for job in [pool.submit(_compile, n, p) for n, p in todo.items()]:
+                job.result()
     return paths
 
 
