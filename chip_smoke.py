@@ -6,14 +6,18 @@ Phases, one JSON line each (any failure raises and the script exits
 non-zero):
 
 1. environment: the card's name and power limit; TF32 off.
-2. build: nvcc builds the port's CUDA kernels from ``src/repro_torch/csrc``.
-3. kernels: each kernel against its plain PyTorch version on the card over
-   qwen2-0.5b's heads (14 query over 2 KV, head_dim 64; reduced: 4 over 2,
-   head_dim 16) in fp32 and bf16, at every prefill length the serve phase
-   gives the kernel and at longer ones, then its time at the serve path's
-   shapes beside the plain version's, one
-   PyTorch library call's (``scaled_dot_product_attention``) and the card's
-   bound for the same work.
+2. build: nvcc builds the port's CUDA kernels from ``src/repro_torch/csrc``,
+   one process per source, all started together.
+3. kernels: each kernel against its plain PyTorch version on the card, in
+   fp32 and bf16. The attention kernels run over qwen2-0.5b's heads (14
+   query over 2 KV, head_dim 64; reduced: 4 over 2, head_dim 16) at every
+   prefill length the serve and semantic phases give them (16 to 160) and
+   at longer ones; ``rowwise_cosine`` over 256-wide unit rows at 1 to 18891
+   rows (the whole ``game`` table), against full rows and against one
+   anchor row. Then each kernel's time at its path's shapes beside the
+   plain version's, one PyTorch library call's
+   (``scaled_dot_product_attention``; ``torch.mv`` for the cosine) and the
+   card's bound for the same work.
 4. serve: full-width qwen2-0.5b (24 layers, d_model 896, vocab 151936, seeded
    random weights) serves 8 requests through ``GenerationEngine`` and
    ``ContinuousBatcher``; every prefill must launch ``flash_attention`` once
@@ -22,6 +26,15 @@ non-zero):
    same weights on the CPU (plain path), fp32.
 6. profile: torch.profiler over 4 more requests on the served engine; the
    card's busy and idle share and its time by kind of kernel.
+7. semantic: ``serve --semantic movie --serve 4 --cascade --no-reduced``
+   (q1-q4 over 32 rows; m1 is full-width qwen2-0.5b, the cascade scores
+   every filter morsel with ``rowwise_cosine``). Every query must finish;
+   ``rowwise_cosine`` must launch once per ``tier0-embed`` call and the
+   attention kernels once per layer per prefill and decode tick. The same
+   queries then run reduced on the CPU: per-query results, per-tier calls
+   and cascade stats must be equal. Then the single-query mode (q1, m1
+   only), and the streaming run once more under torch.profiler for the
+   card's idle share.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the rest
@@ -54,6 +67,13 @@ PEAKS = {"bytes": 3.35e12, "float32": 67e12, "bfloat16": 989e12}
 TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (1e-5, 2.0 ** -7)}
 LOGITS_ATOL = 1e-3
 N_LAYERS = 24
+# rowwise_cosine: the embedding width (core.semhash.DIM) and the row counts
+# it is checked at: a morsel at --slots 4 is 16 rows, and 18891 rows is the
+# whole game table, the largest cascade pass these datasets give.
+EMBED_DIM = 256
+COSINE_ROWS = (1, 16, 127, 133, 18891)
+SEMANTIC = ["--semantic", "movie", "--slots", "4", "--requests", "8"]
+STREAMING = SEMANTIC + ["--serve", "4", "--cascade"]
 # (Hq, Hkv, D) of qwen2-0.5b at full width (what chip_smoke serves) and
 # reduced (the serve launcher's default): one case per head_dim the kernels
 # are built for.
@@ -163,10 +183,12 @@ def attn_inputs(gen, b, s, hq, hkv, d, dtype, layers=1):
 
 def flash_cases():
     """(heads, case, B, S, causal, window): qwen2-0.5b's heads at every
-    prefill length the serve phase gives the kernel and at the sweep's
+    prefill length the serve and semantic phases give the kernel (prompts
+    pad to a multiple of PREFILL_ALIGN = 16 and are cut at max_len 160, so
+    16 to 160; the serve phase's are 64, 80 and 96) and at the sweep's
     shapes; the reduced heads at a few of them."""
-    full = [("causal", 1, s, True, 0) for s in served_prefill_lengths()[1]]
-    full += [("causal", 1, 160, True, 0), ("causal", 1, 2048, True, 0),
+    full = [("causal", 1, s, True, 0) for s in range(16, 161, 16)]
+    full += [("causal", 1, 2048, True, 0),
              ("padded", 2, 40, True, 0), ("window", 1, 160, True, 24),
              ("noncausal", 1, 160, False, 0),
              ("noncausal_window", 1, 160, False, 24)]
@@ -214,11 +236,44 @@ def phase_kernels():
                   "zero_len_row_max": zero, "tol": tol_text(dtype), "ok": ok})
             if not ok:
                 failures.append(("decode_attention", str(dtype), b, s, d, err))
+        check_rowwise(gen, dtype, failures)
     torch.cuda.synchronize()
     if failures:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{failures}")
     return time_kernels(gen)
+
+
+def unit_rows(gen, m, dtype):
+    """m random rows of EMBED_DIM, L2-normalized, as the embedder gives."""
+    x = torch.randn(m, EMBED_DIM, generator=gen, device="cuda")
+    return (x / x.norm(dim=1, keepdim=True)).to(dtype)
+
+
+def check_rowwise(gen, dtype, failures):
+    """rowwise_cosine against its plain version at every COSINE_ROWS, with
+    b as full rows and as one (D,) anchor; M = 0 gives (0,) and no launch."""
+    from repro_torch.kernels import similarity as sim
+    for m in COSINE_ROWS:
+        a, b = unit_rows(gen, m, dtype), unit_rows(gen, m, dtype)
+        for case, other in (("rows", b), ("anchor", b[0])):
+            err, ok = held(sim.rowwise_cosine(a, other),
+                           sim.plain(a, other), dtype)
+            emit({"phase": "kernel", "kernel": "rowwise_cosine",
+                  "case": case, "dtype": str(dtype), "M": m,
+                  "D": EMBED_DIM, "max_abs_err": err, "tol": tol_text(dtype),
+                  "ok": ok})
+            if not ok:
+                failures.append(("rowwise_cosine", case, str(dtype), m, err))
+    before = sim.stats["launches"]
+    empty = sim.rowwise_cosine(unit_rows(gen, 0, dtype),
+                               unit_rows(gen, 1, dtype)[0])
+    ok = tuple(empty.shape) == (0,) and sim.stats["launches"] == before
+    emit({"phase": "kernel", "kernel": "rowwise_cosine", "case": "empty",
+          "dtype": str(dtype), "M": 0, "shape": list(empty.shape),
+          "launched": sim.stats["launches"] - before, "ok": ok})
+    if not ok:
+        failures.append(("rowwise_cosine", "empty", str(dtype)))
 
 
 KERNELS = {
@@ -228,6 +283,9 @@ KERNELS = {
     "decode_attention": dict(
         route="cuda", source="src/repro_torch/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:69"),
+    "rowwise_cosine": dict(
+        route="cuda", source="src/repro_torch/csrc/similarity.cu",
+        replaces="src/repro/kernels/similarity.py:82"),
 }
 
 
@@ -278,6 +336,21 @@ def time_decode(gen, s, cache_len, dtype):
         + 4 * b, flops=4 * d * hq * n_valid)
 
 
+def time_rowwise(gen, m):
+    """One cascade pass: m unit rows against one anchor row, fp32, as
+    EmbeddingBackend.scores gives them to the kernel. The bound counts a
+    and the anchor read once, the scores written once and 2 FLOPs per
+    element pair; the library call is cuBLAS's GEMV."""
+    from repro_torch.kernels import similarity as sim
+    a = unit_rows(gen, m, torch.float32)
+    anchor = unit_rows(gen, 1, torch.float32)[0]
+    return timing_row(
+        "rowwise_cosine", f"M={m} D={EMBED_DIM} anchor", torch.float32,
+        lambda: sim.rowwise_cosine(a, anchor), lambda: sim.plain(a, anchor),
+        lambda: torch.mv(a, anchor),
+        nbytes=(m * EMBED_DIM + EMBED_DIM + m) * 4, flops=2 * m * EMBED_DIM)
+
+
 def timing_row(name, shape, dtype, kernel, plain, library, *, nbytes, flops):
     t_bytes = nbytes / PEAKS["bytes"] * 1e3
     t_ops = flops / PEAKS[str(dtype).split(".")[-1]] * 1e3
@@ -298,16 +371,19 @@ def time_kernels(gen):
     """Times at the serve path's shapes, in fp32 (the engine's dtype):
     prefill of the longest served prompt (96 tokens after padding to 16),
     and a decode step over 4 slots of the 160-entry cache with the slots
-    midway through their 24 new tokens. These rows go into the kernels
-    line. Then times at long shapes, where the bound is more than launch
-    latency: a 2048-token prefill (fp32 and bf16) and a decode step over
-    32 slots of a 4096-entry cache."""
+    midway through their 24 new tokens; one cascade morsel of 16 rows. These
+    rows go into the kernels line. Then times at long shapes, where the
+    bound is more than launch latency: a 2048-token prefill (fp32 and
+    bf16), a decode step over 32 slots of a 4096-entry cache and a cascade
+    pass over the whole game table."""
     lens, padded = served_prefill_lengths()
     rows = [time_flash(gen, max(padded), torch.float32),
-            time_decode(gen, 160, [n + 12 for n in lens[:4]], torch.float32)]
+            time_decode(gen, 160, [n + 12 for n in lens[:4]], torch.float32),
+            time_rowwise(gen, 16)]
     for dtype in (torch.float32, torch.bfloat16):
         time_flash(gen, 2048, dtype)
     time_decode(gen, 4096, list(range(128, 4097, 128)), torch.float32)
+    time_rowwise(gen, COSINE_ROWS[-1])
     return rows
 
 
@@ -338,11 +414,14 @@ def phase_serve(rows):
     if len(finished) != 8 or not all(r.output_ids for r in finished.values()):
         raise AssertionError("not every request finished with output")
     want = {"flash_attention": N_LAYERS * st["prefills"],
-            "decode_attention": N_LAYERS * st["decode_steps"]}
-    if counts != want or not all(counts.values()):
+            "decode_attention": N_LAYERS * st["decode_steps"],
+            "rowwise_cosine": 0}
+    if counts != want or not (counts["flash_attention"]
+                              and counts["decode_attention"]):
         raise AssertionError(f"launch counts {counts}, expected {want}")
     for r in rows:
-        r["launches"] = counts[r["name"]]
+        if r["name"] in ("flash_attention", "decode_attention"):
+            r["launches"] = counts[r["name"]]
     return engine
 
 
@@ -382,45 +461,168 @@ def phase_cross_check(engine):
         raise AssertionError("card and CPU prefill logits disagree")
 
 
-def phase_profile(engine):
-    """Where serve time goes: torch.profiler over 4 more requests (prefills
-    and decode ticks) on the served engine. Device busy time is the union
-    of the card's kernel and copy intervals; the rest of the wall is the
-    card waiting on the host."""
+def profiled(run):
+    """Run ``run()`` under torch.profiler and return the card's activity:
+    busy time is the union of its kernel and copy intervals; the rest of
+    the wall is the card waiting on the host. The device intervals are read
+    from the profiler's raw records: building its event tree over the
+    semantic run's million kernels would take minutes."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3,
+                    e.name())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA)
+    if not spans:
+        raise AssertionError("the profiler recorded no device activity")
+    busy, end = 0.0, float("-inf")
+    by_kind = {"attention kernels": 0.0, "rowwise_cosine": 0.0,
+               "matmul": 0.0, "other": 0.0}
+    for start, stop, name in spans:
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+        kind = ("attention kernels" if "flash_fwd" in name or "decode_" in name
+                else "rowwise_cosine" if "rowwise_kernel" in name
+                else "matmul" if "gemm" in name.lower() or "gemv" in name.lower()
+                else "other")
+        by_kind[kind] += stop - start
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+            "device_idle_share": 1.0 - busy / wall_us,
+            "device_ms_by_kind": {k: v / 1e3 for k, v in by_kind.items()},
+            "device_kernels": len(spans)}
 
+
+def phase_profile(engine):
+    """Where serve time goes: torch.profiler over 4 more requests (prefills
+    and decode ticks) on the served engine."""
     from repro_torch.engine import ContinuousBatcher
     from repro_torch.launch.serve import DEMO_PROMPTS
     batcher = ContinuousBatcher(engine)
     for i in range(4):
         batcher.submit(DEMO_PROMPTS[i], max_new_tokens=8)
     steps0 = engine.stats["decode_steps"]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        batcher.run()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    if not spans:
-        raise AssertionError("the profiler recorded no device activity")
-    busy, end = 0.0, float("-inf")
-    by_kind = {"attention kernels": 0.0, "matmul": 0.0, "other": 0.0}
-    for start, stop, name in spans:
-        busy += max(0.0, stop - max(start, end))
-        end = max(end, stop)
-        kind = ("attention kernels" if "flash_fwd" in name or "decode_" in name
-                else "matmul" if "gemm" in name.lower() or "gemv" in name.lower()
-                else "other")
-        by_kind[kind] += stop - start
+    activity = profiled(batcher.run)
     emit({"phase": "profile", "requests": 4,
-          "decode_steps": engine.stats["decode_steps"] - steps0,
-          "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
-          "device_idle_share": 1.0 - busy / wall_us,
-          "device_ms_by_kind": {k: v / 1e3 for k, v in by_kind.items()},
-          "device_kernels": len(spans)})
+          "decode_steps": engine.stats["decode_steps"] - steps0, **activity})
+
+
+def run_semantic(flags):
+    """What ``serve --semantic`` runs, keeping the engine and context for
+    the checks: returns (query handles, or the one query's result; engine;
+    ExecutionContext; host seconds to the card's last work)."""
+    from repro_torch.launch import serve
+    args = serve.build_parser().parse_args(flags)
+    table, cfg, engine, ctx = serve._semantic_context(args)
+    drive = serve.serve_queries if args.serve else serve.serve_query
+    t0 = time.perf_counter()
+    out = drive(args, table, cfg, engine, ctx)
+    if args.device == "cuda":
+        torch.cuda.synchronize()
+    return out, engine, ctx, time.perf_counter() - t0
+
+
+def query_keys(handles):
+    """Per query: (name, result, per-tier calls, cascade stats), the parts
+    the card's run and the CPU's must share."""
+    keys = []
+    for h in handles:
+        if not h.done() or h.failed() or h.rejected():
+            raise AssertionError(f"query {h.name} did not finish: {h.state}")
+        res = h.result()
+        value = (("reduce", repr(res.scalar)) if res.is_reduce else
+                 {k: list(map(repr, v)) for k, v in
+                  sorted(res.table.columns.items())})
+        keys.append((h.name, value,
+                     {t: u.calls for t, u in sorted(h.meter.by_tier.items())},
+                     res.cascade_stats))
+    return keys
+
+
+def attention_launches(engine):
+    return {"flash_attention": N_LAYERS * engine.stats["prefills"],
+            "decode_attention": N_LAYERS * engine.stats["decode_steps"]}
+
+
+def phase_semantic(rows):
+    """The streaming semantic path on the card at full width, its launch
+    counts, and the same queries reduced on the CPU."""
+    from repro_torch.core import cost_model
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    handles, engine, ctx, seconds = run_semantic(
+        STREAMING + ["--no-reduced", "--device", "cuda"])
+    counts = ops.launch_counts()
+    keys = query_keys(handles)
+    tiers = {t: u.calls for t, u in sorted(ctx.meter.by_tier.items())}
+    want = {**attention_launches(engine),
+            "rowwise_cosine": tiers.get(cost_model.EMBED_TIER_NAME, 0)}
+    lats = [h.latency_s for h in handles]
+    emit({"phase": "semantic", "flags": STREAMING + ["--no-reduced"],
+          "arch": engine.bundle.cfg.name,
+          "n_layers": engine.bundle.cfg.n_layers,
+          "d_model": engine.bundle.cfg.d_model, "queries": len(handles),
+          "wall_s": seconds,
+          "makespan_s": max(h.submitted_s + h.latency_s for h in handles)
+          - min(h.submitted_s for h in handles),
+          "p50_s": float(np.percentile(lats, 50)),
+          "p95_s": float(np.percentile(lats, 95)),
+          "latency_s": {h.name: h.latency_s for h in handles},
+          "engine": engine.stats, "occupancy": engine.occupancy,
+          "tier_calls": tiers,
+          "cascade": {k[0]: k[3] for k in keys}, "launches": counts})
+    if counts != want or not all(counts.values()):
+        raise AssertionError(f"launch counts {counts}, expected {want}")
+    cpu_handles, _, cpu_ctx, cpu_seconds = run_semantic(
+        STREAMING + ["--reduced", "--device", "cpu"])
+    same = query_keys(cpu_handles) == keys
+    emit({"phase": "semantic_cpu_check", "flags": STREAMING + ["--reduced"],
+          "device": "cpu", "host_s": cpu_seconds,
+          "tier_calls": {t: u.calls for t, u in
+                         sorted(cpu_ctx.meter.by_tier.items())},
+          "equal_to_card": same})
+    if not same:
+        raise AssertionError("the card's semantic run and the CPU's differ "
+                             "in results, per-tier calls or cascade stats")
+    for r in rows:
+        if r["name"] == "rowwise_cosine":
+            r["launches"] = counts["rowwise_cosine"]
+
+
+def phase_semantic_single():
+    """The single-query mode: q1 (a map) on m1 alone, at full width."""
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    res, engine, ctx, seconds = run_semantic(
+        SEMANTIC + ["--no-reduced", "--device", "cuda"])
+    counts = ops.launch_counts()
+    want = {**attention_launches(engine), "rowwise_cosine": 0}
+    emit({"phase": "semantic_single", "flags": SEMANTIC + ["--no-reduced"],
+          "rows": res.rows_processed, "wall_s": res.wall_s, "host_s": seconds,
+          "tier_calls": {t: u.calls for t, u in ctx.meter.by_tier.items()},
+          "engine": engine.stats, "launches": counts})
+    if counts != want or not counts["flash_attention"]:
+        raise AssertionError(f"launch counts {counts}, expected {want}")
+
+
+def phase_semantic_profile():
+    """The streaming semantic run once more under torch.profiler: the
+    card's busy and idle share over the whole run, model build excluded."""
+    from repro_torch.launch import serve
+    args = serve.build_parser().parse_args(
+        STREAMING + ["--no-reduced", "--device", "cuda"])
+    table, cfg, engine, ctx = serve._semantic_context(args)
+    activity = profiled(
+        lambda: serve.serve_queries(args, table, cfg, engine, ctx))
+    emit({"phase": "semantic_profile", "flags": STREAMING + ["--no-reduced"],
+          "engine": engine.stats,
+          "tier_calls": {t: u.calls for t, u in ctx.meter.by_tier.items()},
+          **activity})
 
 
 def main():
@@ -430,6 +632,9 @@ def main():
     engine = phase_serve(rows)
     phase_cross_check(engine)
     phase_profile(engine)
+    phase_semantic(rows)
+    phase_semantic_single()
+    phase_semantic_profile()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))

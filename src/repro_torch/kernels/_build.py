@@ -14,13 +14,14 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("flash_attention", "decode_attention")
+SOURCES = ("flash_attention", "decode_attention", "similarity")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -70,7 +71,17 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
     return paths
 
 
+_load_lock = threading.Lock()
+
+
 @functools.lru_cache(maxsize=None)
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+def _load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(build([name])[name]))
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed.
+    Callers on several threads at once (the cascade's tier-0 workers) wait
+    for one build."""
+    with _load_lock:
+        return _load(name)

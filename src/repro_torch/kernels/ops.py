@@ -1,7 +1,8 @@
-"""Public attention entry points of the port, in the model layout.
+"""Public kernel entry points of the port: attention in the model layout,
+and row-wise cosine.
 
 Signatures follow ``repro.kernels.ops``: q (B, Sq, Hq, D), k/v (B, Sk,
-Hkv, D). Dispatch is by device: a CPU tensor goes to the kernel's plain
+Hkv, D); a/b (M, D). Dispatch is by device: a CPU tensor goes to the kernel's plain
 version, a CUDA tensor to the Hopper kernel, which raises on what it cannot
 take. The JAX wrappers pad to block multiples and slice back; the Hopper
 kernels mask their ragged edges themselves, so the only pad rules carried
@@ -15,8 +16,10 @@ import torch
 
 from repro_torch.kernels import decode_attention as dec_mod
 from repro_torch.kernels import flash_attention as fa_mod
+from repro_torch.kernels import similarity as sim_mod
 
-_KERNELS = {"flash_attention": fa_mod, "decode_attention": dec_mod}
+_KERNELS = {"flash_attention": fa_mod, "decode_attention": dec_mod,
+            "rowwise_cosine": sim_mod}
 
 
 def launch_counts() -> dict:
@@ -48,3 +51,11 @@ def decode_attention(q, k_cache, v_cache, cache_len):
     lens = torch.as_tensor(cache_len, dtype=torch.int32, device=q.device)
     lens = lens.reshape(-1).expand(q.shape[0]).contiguous()
     return dec_mod.decode_attention(q, k_cache, v_cache, lens)
+
+
+def rowwise_cosine(a, b):
+    """Aligned pairs (M, D), (M, D) -> (M,) fp32 cosine (rows
+    pre-normalized); b may be one (D,) row read against every row of a."""
+    if a.is_cuda:
+        return sim_mod.rowwise_cosine(a, b)
+    return sim_mod.plain(a, b)

@@ -1,7 +1,7 @@
-"""Plain PyTorch attention: the kernels' reference versions.
+"""Plain PyTorch versions of the kernels: attention and row-wise cosine.
 
-These follow the Hopper kernels (and the Pallas kernels they replace), not
-``repro.kernels.ref``, where the two differ:
+The attention versions follow the Hopper kernels (and the Pallas kernels
+they replace), not ``repro.kernels.ref``, where the two differ:
 
 * a row with no valid key gives 0, where ``repro.kernels.ref`` gives the
   mean of V (the Pallas kernels divide an empty accumulator by 1);
@@ -68,3 +68,10 @@ def decode_attention_ref(q, k_cache, v_cache, cache_len, *, window=0):
     p = _masked_softmax(sc, valid[:, None, None, :])
     o = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
     return o.reshape(b, 1, hq, d).to(q.dtype)
+
+
+def rowwise_cosine_ref(a, b):
+    """a: (M, D); b: (M, D), or (D,) for one row against every row of a.
+    Returns (M,) float32: the dot product of each aligned pair of rows, in
+    fp32 (the rows are L2-normalized, so it is their cosine)."""
+    return (a.float() * b.float()).sum(dim=-1)

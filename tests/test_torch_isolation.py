@@ -49,15 +49,20 @@ def test_scan_catches_forbidden_imports(tmp_path):
 def test_entry_points_default_to_cuda():
     from repro_torch import convert
     from repro_torch.configs import get_config, reduced
+    from repro_torch.core import cascade, semhash
     from repro_torch.engine import GenerationEngine
     from repro_torch.launch import serve
     from repro_torch.models import registry, transformer
     bundle = registry.build(reduced(get_config("qwen2-0.5b")))
     for fn in (transformer.init, transformer.init_cache, bundle.init,
                bundle.init_cache, GenerationEngine.__init__,
-               convert.params_from_numpy):
+               convert.params_from_numpy, cascade.EmbeddingBackend.__init__,
+               semhash.semantic_equal_batch):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     assert serve.build_parser().parse_args([]).device == "cuda"
+    assert serve.build_parser().parse_args(
+        ["--semantic", "movie", "--serve", "4", "--cascade"]).device == "cuda"
+    assert cascade.CascadeRouter().backend.device == torch.device("cuda")
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

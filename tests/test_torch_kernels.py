@@ -159,7 +159,9 @@ def test_cpu_path_launches_no_kernel():
     ops.reset_launch_counts()
     ops.flash_attention(q, q, q)
     ops.decode_attention(q[:, :1], q, q, 3)
-    assert ops.launch_counts() == {"flash_attention": 0, "decode_attention": 0}
+    ops.rowwise_cosine(q[0, :, 0], q[0, 0, 0])
+    assert ops.launch_counts() == {"flash_attention": 0, "decode_attention": 0,
+                                   "rowwise_cosine": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
