@@ -14,10 +14,15 @@ non-zero):
    prefill length the serve and semantic phases give them (16 to 160) and
    at longer ones; ``rowwise_cosine`` over 256-wide unit rows at 1 to 18891
    rows (the whole ``game`` table), against full rows and against one
-   anchor row. Then each kernel's time at its path's shapes beside the
-   plain version's, one PyTorch library call's
-   (``scaled_dot_product_attention``; ``torch.mv`` for the cosine) and the
-   card's bound for the same work.
+   anchor row; ``ssd_scan`` over mamba2-1.3b's heads (64 of head_dim 64,
+   d_state 128, one group; reduced: 8 of 16, d_state 16) at every prefill
+   length 16 to 160, a ragged 272 and 2048, with and without an initial
+   state, and at a two-group case; ``cosine_matrix`` at the JAX tests'
+   shapes, 4096 x 4096 and M = 0. Then each kernel's time at its path's
+   shapes beside the plain version's, one PyTorch library call's
+   (``scaled_dot_product_attention``; ``torch.mv`` and ``torch.matmul`` for
+   the cosines; none computes the SSD scan) and the card's bound for the
+   same work.
 4. serve: full-width qwen2-0.5b (24 layers, d_model 896, vocab 151936, seeded
    random weights) serves 8 requests through ``GenerationEngine`` and
    ``ContinuousBatcher``; every prefill must launch ``flash_attention`` once
@@ -26,7 +31,14 @@ non-zero):
    same weights on the CPU (plain path), fp32.
 6. profile: torch.profiler over 4 more requests on the served engine; the
    card's busy and idle share and its time by kind of kernel.
-7. semantic: ``serve --semantic movie --serve 4 --cascade --no-reduced``
+7. serve_ssm, cross_check_ssm, profile_ssm: phases 4-6 for full-width
+   mamba2-1.3b (48 layers, d_model 2048, 64 SSM heads, vocab 50280): every
+   prefill must launch ``ssd_scan`` once per layer and nothing else; the
+   card's prefill logits and final SSM state against the CPU's.
+8. cosine_api: ``kernels.ops.cosine_matrix``, the kernel's only entry point
+   in the package, over the embedded plots of the whole movie table against
+   themselves, held against the numpy product ``core.semhash.cosine_matrix``.
+9. semantic: ``serve --semantic movie --serve 4 --cascade --no-reduced``
    (q1-q4 over 32 rows; m1 is full-width qwen2-0.5b, the cascade scores
    every filter morsel with ``rowwise_cosine``). Every query must finish;
    ``rowwise_cosine`` must launch once per ``tier0-embed`` call and the
@@ -67,6 +79,7 @@ PEAKS = {"bytes": 3.35e12, "float32": 67e12, "bfloat16": 989e12}
 TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (1e-5, 2.0 ** -7)}
 LOGITS_ATOL = 1e-3
 N_LAYERS = 24
+SSM_LAYERS = 48
 # rowwise_cosine: the embedding width (core.semhash.DIM) and the row counts
 # it is checked at: a morsel at --slots 4 is 16 rows, and 18891 rows is the
 # whole game table, the largest cascade pass these datasets give.
@@ -78,6 +91,18 @@ STREAMING = SEMANTIC + ["--serve", "4", "--cascade"]
 # reduced (the serve launcher's default): one case per head_dim the kernels
 # are built for.
 FULL_HEADS, REDUCED_HEADS = (14, 2, 64), (4, 2, 16)
+# (H, P, N, G) of the SSD scan: mamba2-1.3b at full width and reduced, and a
+# two-group case of the JAX sweep
+SSM_FULL, SSM_REDUCED, SSM_GROUPED = (64, 64, 128, 1), (8, 16, 16, 1), \
+    (4, 32, 16, 2)
+SSM_SERVE = ["--arch", "mamba2-1.3b", "--no-reduced", "--requests", "8",
+             "--slots", "4", "--max-len", "160", "--max-new", "24",
+             "--device", "cuda"]
+QWEN_SERVE = ["--no-reduced", "--requests", "8", "--slots", "4",
+              "--max-len", "160", "--max-new", "24", "--device", "cuda"]
+# cosine_matrix: the shapes of tests/test_kernels.py and one large product
+MATRIX_SHAPES = [(128, 128, 256), (130, 70, 256), (16, 16, 64), (1, 67, 256),
+                 (127, 67, 256), (129, 67, 256), (4096, 4096, 256)]
 
 
 def emit(obj):
@@ -121,6 +146,27 @@ def held(got, want, dtype):
 def tol_text(dtype):
     atol, rtol = TOL[dtype]
     return f"{atol} + {rtol} * |plain|" if rtol else f"{atol}"
+
+
+def ssd_held(got, want, dtype):
+    """(max error, within tolerance) of one output of the SSD scan:
+    |kernel - plain| <= 1e-4 + 2^-17 max|plain|, plus 2^-7 |plain| in bf16.
+    The plain version runs the model's chunk (up to 256 steps), whose fp32
+    running log-decay reaches ~50 at these inputs and so carries ~3e-6 of
+    relative error into each decay factor; the kernel's chunk is 64. The
+    two agree to a few parts in 1e-6 of the output's scale, and a dropped or
+    misplaced term moves the output by O(1). In bf16 one rounding of y
+    comes on top (the state stays fp32)."""
+    got, want, rtol = got.float(), want.float(), TOL[dtype][1]
+    atol = 1e-4 + 2.0 ** -17 * want.abs().max().item()
+    err = (got - want).abs()
+    return err.max().item(), bool((err <= atol + rtol * want.abs()).all())
+
+
+def expect(**launches):
+    """Every kernel's launch count 0, but those named."""
+    from repro_torch.kernels import ops
+    return {**{name: 0 for name in ops.launch_counts()}, **launches}
 
 
 def served_prefill_lengths():
@@ -237,6 +283,8 @@ def phase_kernels():
             if not ok:
                 failures.append(("decode_attention", str(dtype), b, s, d, err))
         check_rowwise(gen, dtype, failures)
+        check_ssd(gen, dtype, failures)
+        check_matrix(gen, dtype, failures)
     torch.cuda.synchronize()
     if failures:
         raise AssertionError(f"kernels disagree with their plain versions: "
@@ -244,9 +292,9 @@ def phase_kernels():
     return time_kernels(gen)
 
 
-def unit_rows(gen, m, dtype):
-    """m random rows of EMBED_DIM, L2-normalized, as the embedder gives."""
-    x = torch.randn(m, EMBED_DIM, generator=gen, device="cuda")
+def unit_rows(gen, m, dtype, d=EMBED_DIM):
+    """m random rows of d (the embedder's EMBED_DIM), L2-normalized."""
+    x = torch.randn(m, d, generator=gen, device="cuda")
     return (x / x.norm(dim=1, keepdim=True)).to(dtype)
 
 
@@ -276,6 +324,91 @@ def check_rowwise(gen, dtype, failures):
         failures.append(("rowwise_cosine", "empty", str(dtype)))
 
 
+def ssd_cases():
+    """(heads, case, B, S, with an initial state): mamba2-1.3b's heads at
+    every prefill length the serve phases give the kernel (prompts pad to a
+    multiple of 16 and are cut at max_len 160; the served ones pad to 64, 80
+    and 96), a ragged last chunk (272 = 4 x 64 + 16) and 2048; the reduced
+    heads; two B/C groups."""
+    full = [("prefill", 1, s, False) for s in range(16, 161, 16)]
+    full += [("prefill_init", 1, 96, True), ("ragged", 1, 272, False),
+             ("ragged_init", 1, 272, True), ("long", 1, 2048, False),
+             ("long_init", 1, 2048, True)]
+    return ([(SSM_FULL, *c) for c in full]
+            + [(SSM_REDUCED, "reduced", 2, 96, False),
+               (SSM_REDUCED, "reduced_init", 2, 96, True),
+               (SSM_GROUPED, "grouped", 2, 128, False),
+               (SSM_GROUPED, "grouped_init", 2, 128, True)])
+
+
+def ssd_inputs(gen, b, s, heads, dtype, init=False):
+    """The JAX tests' scales: dA = -|N(0, 1)| * 0.2 (fp32), dx, B, C and the
+    initial state N(0, 1)."""
+    h, p, n, g = heads
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+    dx, B, C = rn(b, s, h, p).to(dtype), rn(b, s, g, n).to(dtype), \
+        rn(b, s, g, n).to(dtype)
+    return dx, -rn(b, s, h).abs() * 0.2, B, C, rn(b, h, n, p) if init else None
+
+
+def ssd_check(dtype):
+    """Compare (y, state) of the kernel with the plain version's."""
+    def check(got, want):
+        ey, oky = ssd_held(got[0], want[0], dtype)
+        es, oks = ssd_held(got[1], want[1], torch.float32)
+        return max(ey, es), oky and oks
+    return check
+
+
+def check_ssd(gen, dtype, failures):
+    """ssd_scan (its own chunk of 64) against the plain version at the
+    model's chunk, y and the final state."""
+    from repro_torch.kernels import ssd_scan as ssd
+    for heads, case, b, s, init in ssd_cases():
+        args = ssd_inputs(gen, b, s, heads, dtype, init)
+        got = ssd.ssd_scan(*args)
+        want = ssd.plain(*args, chunk=ssd.model_chunk(s))
+        err_y, ok_y = ssd_held(got[0], want[0], dtype)
+        err_s, ok_s = ssd_held(got[1], want[1], torch.float32)
+        emit({"phase": "kernel", "kernel": "ssd_scan", "case": case,
+              "dtype": str(dtype), "B": b, "S": s, "H": heads[0],
+              "P": heads[1], "N": heads[2], "G": heads[3],
+              "plain_chunk": ssd.model_chunk(s), "max_abs_err_y": err_y,
+              "max_abs_y": want[0].float().abs().max().item(),
+              "max_abs_err_state": err_s,
+              "tol": "1e-4 + 2^-17 max|plain|"
+              + (" + 2^-7 |plain| (y)" if dtype != torch.float32 else ""),
+              "ok": ok_y and ok_s})
+        if not (ok_y and ok_s):
+            failures.append(("ssd_scan", case, str(dtype), s, err_y, err_s))
+
+
+def check_matrix(gen, dtype, failures):
+    """cosine_matrix against its plain version over unit rows; both sum in
+    fp32 into fp32 (atol 1e-5, as tests/test_kernels.py holds the Pallas
+    kernel); M = 0 gives (0, N) and no launch."""
+    from repro_torch.kernels import similarity as sim
+    for m, n, d in MATRIX_SHAPES:
+        a, b = unit_rows(gen, m, dtype, d), unit_rows(gen, n, dtype, d)
+        err = max_err(sim.cosine_matrix(a, b), sim.plain_matrix(a, b))
+        ok = err <= 1e-5
+        emit({"phase": "kernel", "kernel": "cosine_matrix", "case": "unit",
+              "dtype": str(dtype), "M": m, "N": n, "D": d,
+              "max_abs_err": err, "tol": 1e-5, "ok": ok})
+        if not ok:
+            failures.append(("cosine_matrix", str(dtype), m, n, d, err))
+    before = sim.matrix_stats["launches"]
+    empty = sim.cosine_matrix(unit_rows(gen, 0, dtype), unit_rows(gen, 5, dtype))
+    ok = tuple(empty.shape) == (0, 5) and sim.matrix_stats["launches"] == before
+    emit({"phase": "kernel", "kernel": "cosine_matrix", "case": "empty",
+          "dtype": str(dtype), "M": 0, "N": 5, "shape": list(empty.shape),
+          "launched": sim.matrix_stats["launches"] - before, "ok": ok})
+    if not ok:
+        failures.append(("cosine_matrix", "empty", str(dtype)))
+
+
 KERNELS = {
     "flash_attention": dict(
         route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
@@ -286,6 +419,12 @@ KERNELS = {
     "rowwise_cosine": dict(
         route="cuda", source="src/repro_torch/csrc/similarity.cu",
         replaces="src/repro/kernels/similarity.py:82"),
+    "cosine_matrix": dict(
+        route="cuda", source="src/repro_torch/csrc/similarity.cu",
+        replaces="src/repro/kernels/similarity.py:45"),
+    "ssd_scan": dict(
+        route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan.py:69"),
 }
 
 
@@ -351,16 +490,55 @@ def time_rowwise(gen, m):
         nbytes=(m * EMBED_DIM + EMBED_DIM + m) * 4, flops=2 * m * EMBED_DIM)
 
 
-def timing_row(name, shape, dtype, kernel, plain, library, *, nbytes, flops):
+def time_ssd(gen, s):
+    """One layer's scan of one sequence of s steps at mamba2-1.3b's heads,
+    fp32 (the engine's dtype): kernel and plain version on the same inputs.
+    No single PyTorch call computes the scan, so there is no library time.
+    The bound counts dx, dA, B, C read once, y and the final state written
+    once, and 5 N P FLOPs per (step, head): the sequential recurrence
+    (state * decay + B (x) dx, then C . state), the fewest of the exact
+    forms; the chunked form the kernel runs does more."""
+    from repro_torch.kernels import ssd_scan as ssd
+    h, p, n, g = SSM_FULL
+    args = ssd_inputs(gen, 1, s, SSM_FULL, torch.float32)
+    chunk = ssd.model_chunk(s)
+    return timing_row(
+        "ssd_scan", f"B=1 S={s} H={h} P={p} N={n} G={g}", torch.float32,
+        lambda: ssd.ssd_scan(*args), lambda: ssd.plain(*args, chunk=chunk),
+        None, nbytes=(2 * s * h * p + s * h + 2 * s * g * n + h * n * p) * 4,
+        flops=5 * s * h * n * p, check=ssd_check(torch.float32))
+
+
+def time_matrix(gen, m, n):
+    """All pairs of m and n unit rows of EMBED_DIM, fp32: kernel, plain
+    version and torch.matmul (cuBLAS SGEMM, TF32 off). The bound counts a
+    and b read once, the (m, n) output written once and 2 D FLOPs per
+    output."""
+    from repro_torch.kernels import similarity as sim
+    a, b = unit_rows(gen, m, torch.float32), unit_rows(gen, n, torch.float32)
+    return timing_row(
+        "cosine_matrix", f"M={m} N={n} D={EMBED_DIM}", torch.float32,
+        lambda: sim.cosine_matrix(a, b), lambda: sim.plain_matrix(a, b),
+        lambda: torch.matmul(a, b.T),
+        nbytes=((m + n) * EMBED_DIM + m * n) * 4, flops=2 * m * n * EMBED_DIM)
+
+
+def timing_row(name, shape, dtype, kernel, plain, library, *, nbytes, flops,
+               check=None):
+    """Time kernel, plain version and library call (None: no single PyTorch
+    call computes the function) after holding the kernel against the plain
+    version (``check(got, want) -> (max error, ok)``; default: ``held``)."""
     t_bytes = nbytes / PEAKS["bytes"] * 1e3
     t_ops = flops / PEAKS[str(dtype).split(".")[-1]] * 1e3
-    err, ok = held(kernel(), plain(), dtype)
+    check = check or (lambda got, want: held(got, want, dtype))
+    err, ok = check(kernel(), plain())
     if not ok:
         raise AssertionError(f"{name} at {shape} {dtype}: max error {err} "
-                             f"beyond {tol_text(dtype)}")
+                             f"beyond its tolerance")
     row = dict(name=name, **KERNELS[name], shape=f"{shape} {dtype}",
                max_abs_err=err, ms=cuda_ms(kernel),
-               plain_ms=cuda_ms(plain), library_ms=cuda_ms(library),
+               plain_ms=cuda_ms(plain),
+               library_ms=cuda_ms(library) if library else None,
                bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations")
     emit({"phase": "kernel_timing", **row})
@@ -379,31 +557,33 @@ def time_kernels(gen):
     lens, padded = served_prefill_lengths()
     rows = [time_flash(gen, max(padded), torch.float32),
             time_decode(gen, 160, [n + 12 for n in lens[:4]], torch.float32),
-            time_rowwise(gen, 16)]
+            time_rowwise(gen, 16), time_matrix(gen, 16, 16),
+            time_ssd(gen, max(padded))]
     for dtype in (torch.float32, torch.bfloat16):
         time_flash(gen, 2048, dtype)
     time_decode(gen, 4096, list(range(128, 4097, 128)), torch.float32)
     time_rowwise(gen, COSINE_ROWS[-1])
+    time_matrix(gen, 4096, 4096)
+    time_ssd(gen, 2048)
     return rows
 
 
-def phase_serve(rows):
+def run_serve(phase, flags):
+    """``serve`` in token mode with ``flags``, its launch counts read around
+    it; emits the phase's line and returns (engine, launch counts)."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
-    args = serve.build_parser().parse_args(
-        ["--no-reduced", "--requests", "8", "--slots", "4", "--max-len", "160",
-         "--max-new", "24", "--device", "cuda"])
+    args = serve.build_parser().parse_args(flags)
     ops.reset_launch_counts()
     finished, engine, seconds = serve.serve_tokens(args)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
-    st = engine.stats
+    st, cfg = engine.stats, engine.bundle.cfg
     lats = sorted(r.done_s - r.submitted_s for r in finished.values())
     new_toks = sum(len(r.output_ids) for r in finished.values())
-    emit({"phase": "serve", "arch": engine.bundle.cfg.name,
-          "n_layers": engine.bundle.cfg.n_layers,
-          "d_model": engine.bundle.cfg.d_model,
-          "vocab": engine.bundle.cfg.vocab_size, "requests": len(finished),
+    emit({"phase": phase, "arch": cfg.name, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+          "params": cfg.param_count(), "requests": len(finished),
           "seconds": seconds, "new_tokens": new_toks,
           "new_tok_per_s": new_toks / seconds,
           "p50_s": float(np.percentile(lats, 50)),
@@ -412,24 +592,44 @@ def phase_serve(rows):
           "decode_steps": st["decode_steps"], "prefill_s": st["prefill_s"],
           "decode_s": st["decode_s"], "launches": counts})
     if len(finished) != 8 or not all(r.output_ids for r in finished.values()):
-        raise AssertionError("not every request finished with output")
-    want = {"flash_attention": N_LAYERS * st["prefills"],
-            "decode_attention": N_LAYERS * st["decode_steps"],
-            "rowwise_cosine": 0}
+        raise AssertionError(f"{phase}: not every request finished with output")
+    return engine, counts
+
+
+def set_launches(rows, counts, *names):
+    for r in rows:
+        if r["name"] in names:
+            r["launches"] = counts[r["name"]]
+
+
+def phase_serve(rows):
+    engine, counts = run_serve("serve", QWEN_SERVE)
+    want = expect(**attention_launches(engine))
     if counts != want or not (counts["flash_attention"]
                               and counts["decode_attention"]):
         raise AssertionError(f"launch counts {counts}, expected {want}")
-    for r in rows:
-        if r["name"] in ("flash_attention", "decode_attention"):
-            r["launches"] = counts[r["name"]]
+    set_launches(rows, counts, "flash_attention", "decode_attention")
     return engine
 
 
-def phase_cross_check(engine):
+def phase_serve_ssm(rows):
+    """Full-width mamba2-1.3b: every prefill launches ``ssd_scan`` once per
+    layer; decode is plain PyTorch (the reference has no kernel for it), and
+    no other kernel runs."""
+    engine, counts = run_serve("serve_ssm", SSM_SERVE)
+    want = expect(ssd_scan=SSM_LAYERS * engine.stats["prefills"])
+    if counts != want or not counts["ssd_scan"]:
+        raise AssertionError(f"launch counts {counts}, expected {want}")
+    set_launches(rows, counts, "ssd_scan")
+    return engine
+
+
+def phase_cross_check(engine, phase="cross_check", state_leaf=None):
     """Prefill logits of one prompt on the card (kernels) and on the CPU
-    (plain path) from the same fp32 weights. Tolerance: sums in another
-    order over 24 layers move fp32 logits by ~1e-5; 1e-3 leaves a wide
-    margin below any real fault."""
+    (plain path) from the same fp32 weights, and with ``state_leaf`` that
+    cache leaf too (the SSM's final state). Tolerance: sums in another
+    order over 24 or 48 layers move fp32 logits by ~1e-5; 1e-3 leaves a
+    wide margin below any real fault."""
     from repro_torch.data.tokenizer import ByteTokenizer
     from repro_torch.engine.engine import PREFILL_ALIGN
     from repro_torch.launch.serve import DEMO_PROMPTS
@@ -441,24 +641,32 @@ def phase_cross_check(engine):
         return {k: to_cpu(v) if isinstance(v, dict) else v.cpu()
                 for k, v in tree.items()}
 
-    gpu, _ = bundle.prefill(engine.params,
-                            {"tokens": torch.as_tensor(ids, device="cuda")},
-                            dtype=torch.float32)
-    cpu, _ = bundle.prefill(to_cpu(engine.params),
-                            {"tokens": torch.as_tensor(ids)},
-                            dtype=torch.float32)
+    gpu, gcache = bundle.prefill(
+        engine.params, {"tokens": torch.as_tensor(ids, device="cuda")},
+        dtype=torch.float32)
+    cpu, ccache = bundle.prefill(to_cpu(engine.params),
+                                 {"tokens": torch.as_tensor(ids)},
+                                 dtype=torch.float32)
     gpu = gpu.cpu()
     err = max_err(gpu, cpu)
     finite = bool(torch.isfinite(gpu).all())
     same_argmax = int(gpu[0, -1].argmax()) == int(cpu[0, -1].argmax())
-    emit({"phase": "cross_check", "tokens": ids.shape[1],
-          "logits_shape": list(gpu.shape), "max_abs_err": err,
-          "atol": LOGITS_ATOL, "finite": finite,
-          "max_abs_logit": gpu.abs().max().item(),
-          "argmax_equal": same_argmax})
-    if not (finite and err <= LOGITS_ATOL and same_argmax
-            and tuple(gpu.shape) == (1, 1, bundle.cfg.vocab_size)):
-        raise AssertionError("card and CPU prefill logits disagree")
+    line = {"phase": phase, "tokens": ids.shape[1],
+            "logits_shape": list(gpu.shape), "max_abs_err": err,
+            "atol": LOGITS_ATOL, "finite": finite,
+            "max_abs_logit": gpu.abs().max().item(),
+            "argmax_equal": same_argmax}
+    ok = (finite and err <= LOGITS_ATOL and same_argmax
+          and tuple(gpu.shape) == (1, 1, bundle.cfg.vocab_size))
+    if state_leaf:
+        state_err = max_err(gcache[state_leaf].cpu(), ccache[state_leaf])
+        line.update({f"{state_leaf}_max_abs_err": state_err,
+                     f"{state_leaf}_max_abs": ccache[state_leaf].abs().max()
+                     .item()})
+        ok = ok and state_err <= LOGITS_ATOL
+    emit(line)
+    if not ok:
+        raise AssertionError(f"{phase}: card and CPU prefill disagree")
 
 
 def profiled(run):
@@ -482,13 +690,16 @@ def profiled(run):
     if not spans:
         raise AssertionError("the profiler recorded no device activity")
     busy, end = 0.0, float("-inf")
-    by_kind = {"attention kernels": 0.0, "rowwise_cosine": 0.0,
-               "matmul": 0.0, "other": 0.0}
+    by_kind = {"attention kernels": 0.0, "ssd_scan": 0.0,
+               "rowwise_cosine": 0.0, "cosine_matrix": 0.0, "matmul": 0.0,
+               "other": 0.0}
     for start, stop, name in spans:
         busy += max(0.0, stop - max(start, end))
         end = max(end, stop)
         kind = ("attention kernels" if "flash_fwd" in name or "decode_" in name
+                else "ssd_scan" if "ssd_scan_kernel" in name
                 else "rowwise_cosine" if "rowwise_kernel" in name
+                else "cosine_matrix" if "matrix_kernel" in name
                 else "matmul" if "gemm" in name.lower() or "gemv" in name.lower()
                 else "other")
         by_kind[kind] += stop - start
@@ -498,7 +709,7 @@ def profiled(run):
             "device_kernels": len(spans)}
 
 
-def phase_profile(engine):
+def phase_profile(engine, phase="profile"):
     """Where serve time goes: torch.profiler over 4 more requests (prefills
     and decode ticks) on the served engine."""
     from repro_torch.engine import ContinuousBatcher
@@ -506,10 +717,12 @@ def phase_profile(engine):
     batcher = ContinuousBatcher(engine)
     for i in range(4):
         batcher.submit(DEMO_PROMPTS[i], max_new_tokens=8)
-    steps0 = engine.stats["decode_steps"]
+    before = dict(engine.stats)
     activity = profiled(batcher.run)
-    emit({"phase": "profile", "requests": 4,
-          "decode_steps": engine.stats["decode_steps"] - steps0, **activity})
+    emit({"phase": phase, "requests": 4,
+          "prefills": engine.stats["prefills"] - before["prefills"],
+          "decode_steps": engine.stats["decode_steps"]
+          - before["decode_steps"], **activity})
 
 
 def run_semantic(flags):
@@ -560,8 +773,8 @@ def phase_semantic(rows):
     counts = ops.launch_counts()
     keys = query_keys(handles)
     tiers = {t: u.calls for t, u in sorted(ctx.meter.by_tier.items())}
-    want = {**attention_launches(engine),
-            "rowwise_cosine": tiers.get(cost_model.EMBED_TIER_NAME, 0)}
+    want = expect(**attention_launches(engine),
+                  rowwise_cosine=tiers.get(cost_model.EMBED_TIER_NAME, 0))
     lats = [h.latency_s for h in handles]
     emit({"phase": "semantic", "flags": STREAMING + ["--no-reduced"],
           "arch": engine.bundle.cfg.name,
@@ -576,7 +789,8 @@ def phase_semantic(rows):
           "engine": engine.stats, "occupancy": engine.occupancy,
           "tier_calls": tiers,
           "cascade": {k[0]: k[3] for k in keys}, "launches": counts})
-    if counts != want or not all(counts.values()):
+    if counts != want or not all(counts[k] for k in (
+            "flash_attention", "decode_attention", "rowwise_cosine")):
         raise AssertionError(f"launch counts {counts}, expected {want}")
     cpu_handles, _, cpu_ctx, cpu_seconds = run_semantic(
         STREAMING + ["--reduced", "--device", "cpu"])
@@ -589,9 +803,7 @@ def phase_semantic(rows):
     if not same:
         raise AssertionError("the card's semantic run and the CPU's differ "
                              "in results, per-tier calls or cascade stats")
-    for r in rows:
-        if r["name"] == "rowwise_cosine":
-            r["launches"] = counts["rowwise_cosine"]
+    set_launches(rows, counts, "rowwise_cosine")
 
 
 def phase_semantic_single():
@@ -601,7 +813,7 @@ def phase_semantic_single():
     res, engine, ctx, seconds = run_semantic(
         SEMANTIC + ["--no-reduced", "--device", "cuda"])
     counts = ops.launch_counts()
-    want = {**attention_launches(engine), "rowwise_cosine": 0}
+    want = expect(**attention_launches(engine))
     emit({"phase": "semantic_single", "flags": SEMANTIC + ["--no-reduced"],
           "rows": res.rows_processed, "wall_s": res.wall_s, "host_s": seconds,
           "tier_calls": {t: u.calls for t, u in ctx.meter.by_tier.items()},
@@ -625,13 +837,57 @@ def phase_semantic_profile():
           **activity})
 
 
+def phase_cosine_api(rows):
+    """``kernels.ops.cosine_matrix``, the kernel's one entry point (the JAX
+    package calls its Pallas ``cosine_matrix`` only from ``ops`` and the
+    tests): the whole movie table's plots, embedded as the semantic layer
+    embeds them, against themselves, on the card; held against the numpy
+    product ``core.semhash.cosine_matrix`` (atol 1e-5)."""
+    from repro_torch.core import semhash
+    from repro_torch.data import load_dataset
+    from repro_torch.kernels import ops
+    table, _ = load_dataset("movie")
+    emb = semhash.embed(table.columns["Plot"])
+    a = torch.as_tensor(emb, device="cuda")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = ops.cosine_matrix(a, a).cpu().numpy()
+    seconds = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    want_sim = semhash.cosine_matrix(emb, emb)
+    err = float(np.abs(got - want_sim).max())
+    emit({"phase": "cosine_api", "rows": len(emb), "D": emb.shape[1],
+          "shape": list(got.shape), "host_s": seconds, "max_abs_err": err,
+          "atol": 1e-5, "diag_min": float(np.diag(got).min()),
+          "launches": counts})
+    want = expect(cosine_matrix=1)
+    if counts != want:
+        raise AssertionError(f"launch counts {counts}, expected {want}")
+    if got.shape != (table.n_rows, table.n_rows) or err > 1e-5:
+        raise AssertionError("cosine_matrix on the card disagrees with the "
+                             "numpy product")
+    set_launches(rows, counts, "cosine_matrix")
+
+
+def qwen2_phases(rows):
+    engine = phase_serve(rows)
+    phase_cross_check(engine)
+    phase_profile(engine)
+
+
+def ssm_phases(rows):
+    engine = phase_serve_ssm(rows)
+    phase_cross_check(engine, "cross_check_ssm", state_leaf="ssm_state")
+    phase_profile(engine, "profile_ssm")
+
+
 def main():
     name = phase_environment()
     phase_build()
     rows = phase_kernels()
-    engine = phase_serve(rows)
-    phase_cross_check(engine)
-    phase_profile(engine)
+    qwen2_phases(rows)
+    ssm_phases(rows)
+    phase_cosine_api(rows)
     phase_semantic(rows)
     phase_semantic_single()
     phase_semantic_profile()

@@ -144,7 +144,7 @@ class ModelConfig:
         return self._attn_params() + ffn + 2 * c.d_model
 
 
-ARCH_IDS = ("qwen2-0.5b",)
+ARCH_IDS = ("qwen2-0.5b", "mamba2-1.3b")
 
 
 def _mod_name(arch_id: str) -> str:

@@ -4,15 +4,16 @@ The slot runtime of ``repro.engine.engine``:
 
   * a fixed slot-batched decode cache (``init_cache(..., per_slot_pos=True)``)
     — every slot decodes at its own depth; each decode step writes every
-    slot's new K/V row in place at its own position
+    slot's new K/V row (or its new SSM state) in place
   * prefill runs per request (B=1, right-padded to a multiple of
-    ``PREFILL_ALIGN``) and is copied into its slot of every cache layer
+    ``PREFILL_ALIGN``) and is copied into its slot of every cache leaf
   * decode steps run over all slots every tick; idle slots are parked at
     position 0 and decode garbage that the next insert overwrites
 
 As in the reference, the first generated token is the argmax of the logits
 at the last *padded* prompt position, so greedy outputs match it token for
-token.
+token. In an SSM the pad tokens also run through the recurrence, so the
+state spliced into the slot has seen them; the port keeps that too.
 """
 from __future__ import annotations
 
@@ -85,8 +86,11 @@ class GenerationEngine:
         logits, cache1 = self.bundle.prefill(self.params, {"tokens": tokens},
                                              max_len=self.max_len,
                                              dtype=self.dtype)
-        self.cache["k"][:, slot] = cache1["k"][:, 0]
-        self.cache["v"][:, slot] = cache1["v"][:, 0]
+        # every leaf but pos has the slot (batch) axis at dim 1: K/V for
+        # attention layers, ssm_state and conv_buf for SSM layers
+        for name, leaf in self.cache.items():
+            if name != "pos":
+                leaf[:, slot] = cache1[name][:, 0]
         # prefill padded the prompt; the next position is len(ids)
         self.cache["pos"][slot] = len(ids)
         nxt = torch.argmax(logits[0, -1])

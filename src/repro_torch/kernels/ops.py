@@ -1,8 +1,9 @@
 """Public kernel entry points of the port: attention in the model layout,
-and row-wise cosine.
+the SSD scan, and cosine similarity.
 
 Signatures follow ``repro.kernels.ops``: q (B, Sq, Hq, D), k/v (B, Sk,
-Hkv, D); a/b (M, D). Dispatch is by device: a CPU tensor goes to the kernel's plain
+Hkv, D); dx (B, S, H, P), dA (B, S, H), B/C (B, S, G, N); a (M, D), b (M, D)
+or (N, D). Dispatch is by device: a CPU tensor goes to the kernel's plain
 version, a CUDA tensor to the Hopper kernel, which raises on what it cannot
 take. The JAX wrappers pad to block multiples and slice back; the Hopper
 kernels mask their ragged edges themselves, so the only pad rules carried
@@ -17,19 +18,22 @@ import torch
 from repro_torch.kernels import decode_attention as dec_mod
 from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import similarity as sim_mod
+from repro_torch.kernels import ssd_scan as ssd_mod
 
-_KERNELS = {"flash_attention": fa_mod, "decode_attention": dec_mod,
-            "rowwise_cosine": sim_mod}
+# each kernel's launch count, by kernel name
+_KERNELS = {"flash_attention": fa_mod.stats, "decode_attention": dec_mod.stats,
+            "rowwise_cosine": sim_mod.stats,
+            "cosine_matrix": sim_mod.matrix_stats, "ssd_scan": ssd_mod.stats}
 
 
 def launch_counts() -> dict:
     """Kernel launches since the last reset, by kernel name."""
-    return {name: mod.stats["launches"] for name, mod in _KERNELS.items()}
+    return {name: st["launches"] for name, st in _KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in _KERNELS.values():
-        mod.stats["launches"] = 0
+    for st in _KERNELS.values():
+        st["launches"] = 0
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
@@ -59,3 +63,21 @@ def rowwise_cosine(a, b):
     if a.is_cuda:
         return sim_mod.rowwise_cosine(a, b)
     return sim_mod.plain(a, b)
+
+
+def ssd_scan(dx, dA, B, C, initial_state=None, *, chunk: int = 0):
+    """dx (B, S, H, P); dA (B, S, H); B/C (B, S, G, N). Returns (y,
+    final_state (B, H, N, P) fp32). The plain version takes the JAX chunk
+    rule (``chunk`` or min(256, S), halved until it divides S); the kernel
+    takes any S with its own chunk, and ignores ``chunk``."""
+    if dx.is_cuda:
+        return ssd_mod.ssd_scan(dx, dA, B, C, initial_state)
+    return ssd_mod.plain(dx, dA, B, C, initial_state,
+                         chunk=ssd_mod.model_chunk(dx.shape[1], chunk))
+
+
+def cosine_matrix(a, b):
+    """(M, D) x (N, D) -> (M, N) fp32 cosine (rows pre-normalized)."""
+    if a.is_cuda:
+        return sim_mod.cosine_matrix(a, b)
+    return sim_mod.plain_matrix(a, b)

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the kernels: attention and row-wise cosine.
+"""Plain PyTorch versions of the kernels: attention, the SSD scan's
+sequential recurrence and cosine similarity.
 
 The attention versions follow the Hopper kernels (and the Pallas kernels
 they replace), not ``repro.kernels.ref``, where the two differ:
@@ -75,3 +76,33 @@ def rowwise_cosine_ref(a, b):
     Returns (M,) float32: the dot product of each aligned pair of rows, in
     fp32 (the rows are L2-normalized, so it is their cosine)."""
     return (a.float() * b.float()).sum(dim=-1)
+
+
+def ssd_ref(dx, dA, B, C, initial_state=None):
+    """Naive sequential SSD recurrence (fp32 state), the test oracle of the
+    chunked scan. dx: (B, S, H, P) inputs pre-scaled by dt; dA: (B, S, H)
+    log-decay per step; B/C: (B, S, G, N), head h reads group
+    h // (H // G). Returns (y (B, S, H, P) in dx's dtype, final state
+    (B, H, N, P) fp32)."""
+    b, s, h, p = dx.shape
+    rep = h // B.shape[2]
+    Bh = B.float().repeat_interleave(rep, dim=2)            # (B, S, H, N)
+    Ch = C.float().repeat_interleave(rep, dim=2)
+    dxf, dAf = dx.float(), dA.float()
+    state = (torch.zeros((b, h, B.shape[3], p), dtype=torch.float32,
+                         device=dx.device)
+             if initial_state is None else initial_state.float())
+    ys = []
+    for t in range(s):
+        upd = torch.einsum("bhn,bhp->bhnp", Bh[:, t], dxf[:, t])
+        state = state * torch.exp(dAf[:, t])[:, :, None, None] + upd
+        ys.append(torch.einsum("bhn,bhnp->bhp", Ch[:, t], state))
+    y = (torch.stack(ys, dim=1) if ys
+         else torch.zeros_like(dxf))
+    return y.to(dx.dtype), state
+
+
+def cosine_matrix_ref(a, b):
+    """a: (M, D), b: (N, D), rows L2-normalized. Returns (M, N) float32:
+    every pair's dot product, in fp32."""
+    return a.float() @ b.float().T

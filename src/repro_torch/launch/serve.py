@@ -4,11 +4,14 @@ through the Hopper kernels; ``--device cpu`` runs the kernels' plain
 versions.
 
 **Token serving** (default; no ``--semantic``): continuous-batching
-generation over a zoo model — reports throughput, slot occupancy and
-per-request latency percentiles::
+generation over a zoo model (``--arch``: qwen2-0.5b, the default, or
+mamba2-1.3b) — reports throughput, slot occupancy and per-request latency
+percentiles::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --no-reduced \\
         --requests 8 --slots 4 --max-new 24
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \\
+        --no-reduced
 
 **One semantic query** (``--semantic <dataset>``): the dataset's first
 workload query runs through the execution runtime

@@ -1,14 +1,17 @@
-"""Decoder-only transformer LM of the port: the dense GQA family.
+"""Decoder-only LM of the port: the dense GQA family and the attention-free
+SSM family (Mamba2).
 
 A Python loop over layers replaces ``lax.scan``; weights keep the stacked
-``layer`` axis and each step takes its layer's views. MLA, SSM, hybrid,
-MoE, the int8 cache and prefix embeddings raise ``NotImplementedError``:
-they come with later slices.
+``layer`` axis and each step takes its layer's views. MLA, hybrid, MoE, the
+int8 cache and prefix embeddings raise ``NotImplementedError``: they come
+with later slices.
 
 Public surface (used by registry / launch / engine):
   init(cfg, generator=, device=)          -> param tree
   forward(params, cfg, tokens)            -> logits (B, S, V) fp32
-  init_cache(cfg, batch, max_len, dtype)  -> {"k", "v", "pos"}
+  init_cache(cfg, batch, max_len, dtype)  -> {"k", "v"} (GQA) or
+                                             {"ssm_state", "conv_buf"} (SSM),
+                                             and "pos"
   prefill(params, cfg, tokens, max_len=)  -> (last-position logits, cache)
   decode_step(params, cfg, cache, token)  -> (logits, cache updated in place)
 """
@@ -18,19 +21,24 @@ from typing import Optional
 
 import torch
 
-from repro_torch.configs import ATTN_GQA, FAMILY_DENSE, ModelConfig
+from repro_torch.configs import (ATTN_GQA, ATTN_NONE, FAMILY_DENSE,
+                                 FAMILY_SSM, ModelConfig)
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import ssm as ssm_mod
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    if (cfg.family != FAMILY_DENSE or cfg.attn_type != ATTN_GQA
-            or cfg.moe is not None or cfg.ssm is not None
-            or cfg.mla is not None or cfg.is_encoder_decoder
-            or cfg.n_prefix_embeds):
+    dense = (cfg.family == FAMILY_DENSE and cfg.attn_type == ATTN_GQA
+             and cfg.ssm is None)
+    ssm = (cfg.family == FAMILY_SSM and cfg.attn_type == ATTN_NONE
+           and cfg.ssm is not None)
+    if (not (dense or ssm) or cfg.moe is not None or cfg.mla is not None
+            or cfg.is_encoder_decoder or cfg.n_prefix_embeds):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense GQA decoder is ported so far")
+            f"{cfg.name}: only the dense GQA decoder and the SSM (Mamba2) "
+            f"family are ported so far")
 
 
 def init(cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
@@ -38,15 +46,20 @@ def init(cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
     check_supported(cfg)
     kw = dict(device=device, dtype=dtype)
     lead = (cfg.n_layers,)
+    layers = {}
+    if cfg.attn_type == ATTN_GQA:
+        layers["attn_norm"] = cm.rmsnorm_init(cfg.d_model, lead=lead, **kw)
+        layers["attn"] = attn.gqa_init(generator, cfg, lead=lead, **kw)
+    if cfg.ssm is not None:
+        layers["ssm_norm"] = cm.rmsnorm_init(cfg.d_model, lead=lead, **kw)
+        layers["ssm"] = ssm_mod.mamba2_init(generator, cfg, lead=lead, **kw)
+    if cfg.d_ff > 0:
+        layers["ffn_norm"] = cm.rmsnorm_init(cfg.d_model, lead=lead, **kw)
+        layers["ffn"] = ffn_mod.swiglu_init(generator, cfg.d_model, cfg.d_ff,
+                                            lead=lead, **kw)
     p = {
         "embed": cm.embedding(generator, cfg.vocab_size, cfg.d_model, **kw),
-        "layers": {
-            "attn_norm": cm.rmsnorm_init(cfg.d_model, lead=lead, **kw),
-            "attn": attn.gqa_init(generator, cfg, lead=lead, **kw),
-            "ffn_norm": cm.rmsnorm_init(cfg.d_model, lead=lead, **kw),
-            "ffn": ffn_mod.swiglu_init(generator, cfg.d_model, cfg.d_ff,
-                                       lead=lead, **kw),
-        },
+        "layers": layers,
         "final_norm": cm.rmsnorm_init(cfg.d_model, **kw),
     }
     if not cfg.tie_embeddings:
@@ -62,14 +75,27 @@ def layer_windows(cfg: ModelConfig):
             for i in range(cfg.n_layers)]
 
 
-def _block_forward(lp, x, cfg, window, positions, kv_out=None):
-    """One layer over the full sequence. kv_out: (k, v) cache slices
-    (B, max_len, Hkv, D) that receive this layer's keys and values."""
-    h = cm.rmsnorm(lp["attn_norm"], x, cfg.rms_eps)
-    x = x + attn.gqa_forward(lp["attn"], h, cfg, positions=positions,
-                             window=window, kv_out=kv_out)
-    h = cm.rmsnorm(lp["ffn_norm"], x, cfg.rms_eps)
-    return x + ffn_mod.swiglu(lp["ffn"], h)
+def _block_forward(lp, x, cfg, window, positions, cache=None):
+    """One layer over the full sequence. ``cache``: this layer's slices of
+    the decode cache (``k``/``v`` (B, max_len, Hkv, D); ``ssm_state``,
+    ``conv_buf``), which receive its keys and values or its final SSM state
+    and conv tail (prefill)."""
+    if "attn" in lp:
+        h = cm.rmsnorm(lp["attn_norm"], x, cfg.rms_eps)
+        kv_out = None if cache is None else (cache["k"], cache["v"])
+        x = x + attn.gqa_forward(lp["attn"], h, cfg, positions=positions,
+                                 window=window, kv_out=kv_out)
+    elif "ssm" in lp:
+        h = cm.rmsnorm(lp["ssm_norm"], x, cfg.rms_eps)
+        s, (state, buf) = ssm_mod.mamba2_forward(lp["ssm"], h, cfg)
+        if cache is not None:
+            cache["ssm_state"].copy_(state)
+            cache["conv_buf"].copy_(buf)
+        x = x + s
+    if "ffn" in lp:
+        h = cm.rmsnorm(lp["ffn_norm"], x, cfg.rms_eps)
+        x = x + ffn_mod.swiglu(lp["ffn"], h)
+    return x
 
 
 def embed_inputs(params, cfg, tokens, prefix_embeds=None,
@@ -102,17 +128,30 @@ def forward(params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, per_slot_pos: bool = False,
                kv_dtype=None, device="cuda"):
-    """{"k", "v"}: (L, batch, max_len, Hkv, D) zeros; "pos": a (batch,)
-    int32 vector with per_slot_pos (every slot at its own depth, for
-    continuous batching), else a 0-dim one."""
+    """Zeros. GQA: "k", "v" (L, batch, max_len, Hkv, D). SSM: "ssm_state"
+    (L, batch, H, N, P) fp32 and "conv_buf" (L, batch, W-1, conv_ch) in
+    ``dtype``. Dim 1 of every leaf but "pos" is the batch (slot) axis.
+    "pos": a (batch,) int32 vector with per_slot_pos (every slot at its own
+    depth, for continuous batching), else a 0-dim one."""
     check_supported(cfg)
     if kv_dtype is not None:
         raise NotImplementedError("the int8 KV cache is not ported yet")
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    L = cfg.n_layers
+    c = {}
+    if cfg.attn_type == ATTN_GQA:
+        shape = (L, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        c["k"] = torch.zeros(shape, dtype=dtype, device=device)
+        c["v"] = torch.zeros(shape, dtype=dtype, device=device)
+    if cfg.ssm is not None:
+        _, nh, conv_ch = ssm_mod.dims(cfg)
+        s = cfg.ssm
+        c["ssm_state"] = torch.zeros((L, batch, nh, s.d_state, s.head_dim),
+                                     dtype=torch.float32, device=device)
+        c["conv_buf"] = torch.zeros((L, batch, s.conv_width - 1, conv_ch),
+                                    dtype=dtype, device=device)
     pos_shape = (batch,) if per_slot_pos else ()
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-            "pos": torch.zeros(pos_shape, dtype=torch.int32, device=device)}
+    c["pos"] = torch.zeros(pos_shape, dtype=torch.int32, device=device)
+    return c
 
 
 def prefill(params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
@@ -128,7 +167,8 @@ def prefill(params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
     for i in range(cfg.n_layers):
         x = _block_forward(cm.layer_params(params["layers"], i), x, cfg,
                            windows[i] if windows else 0, positions,
-                           kv_out=(cache["k"][i], cache["v"][i]))
+                           cache={k: v[i] for k, v in cache.items()
+                                  if k != "pos"})
     x = cm.rmsnorm(params["final_norm"], x, cfg.rms_eps)
     cache["pos"].fill_(min(seq, max_len))
     return unembed(params, cfg, x[:, -1:]), cache
@@ -136,20 +176,30 @@ def prefill(params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
 
 def decode_step(params, cfg: ModelConfig, cache, token, *,
                 dtype=torch.bfloat16):
-    """token: (B, 1) int. Writes each slot's new K/V into ``cache`` in place
-    and advances ``cache["pos"]`` by one. Returns (logits (B,1,V) f32,
-    cache)."""
+    """token: (B, 1) int. Writes each slot's new K/V (or its new SSM state
+    and conv tail) into ``cache`` in place and advances ``cache["pos"]`` by
+    one. Returns (logits (B,1,V) f32, cache)."""
     pos = cache["pos"]
     x = params["embed"]["embedding"][token.long()].to(dtype)
     windows = layer_windows(cfg)
     for i in range(cfg.n_layers):
         lp = cm.layer_params(params["layers"], i)
-        h = cm.rmsnorm(lp["attn_norm"], x, cfg.rms_eps)
-        a, _, _ = attn.gqa_decode(lp["attn"], h, cache["k"][i], cache["v"][i],
-                                  pos, cfg, window=windows[i] if windows else 0)
-        x = x + a
-        h = cm.rmsnorm(lp["ffn_norm"], x, cfg.rms_eps)
-        x = x + ffn_mod.swiglu(lp["ffn"], h)
+        if "attn" in lp:
+            h = cm.rmsnorm(lp["attn_norm"], x, cfg.rms_eps)
+            a, _, _ = attn.gqa_decode(lp["attn"], h, cache["k"][i],
+                                      cache["v"][i], pos, cfg,
+                                      window=windows[i] if windows else 0)
+            x = x + a
+        elif "ssm" in lp:
+            h = cm.rmsnorm(lp["ssm_norm"], x, cfg.rms_eps)
+            s, state, buf = ssm_mod.mamba2_decode(
+                lp["ssm"], h, cache["ssm_state"][i], cache["conv_buf"][i], cfg)
+            cache["ssm_state"][i] = state
+            cache["conv_buf"][i] = buf
+            x = x + s
+        if "ffn" in lp:
+            h = cm.rmsnorm(lp["ffn_norm"], x, cfg.rms_eps)
+            x = x + ffn_mod.swiglu(lp["ffn"], h)
     x = cm.rmsnorm(params["final_norm"], x, cfg.rms_eps)
     cache["pos"] = pos + 1
     return unembed(params, cfg, x), cache

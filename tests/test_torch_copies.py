@@ -23,6 +23,7 @@ COPIES = [
     "core/dataframe.py", "data/__init__.py", "data/oracle.py",
     "data/movie.py", "data/estate.py", "data/game.py", "data/workloads.py",
     "data/tokenizer.py", "launch/query_server.py", "analysis/qerror.py",
+    "configs/qwen2_0_5b.py", "configs/mamba2_1_3b.py",
 ]
 # Ported, not copied, so not held to the copy rule:
 # * core/semhash.py: semantic_equal_batch runs on an explicit device through

@@ -52,14 +52,18 @@ def test_entry_points_default_to_cuda():
     from repro_torch.core import cascade, semhash
     from repro_torch.engine import GenerationEngine
     from repro_torch.launch import serve
-    from repro_torch.models import registry, transformer
+    from repro_torch.models import registry, ssm, transformer
     bundle = registry.build(reduced(get_config("qwen2-0.5b")))
+    ssm_bundle = registry.build(reduced(get_config("mamba2-1.3b")))
     for fn in (transformer.init, transformer.init_cache, bundle.init,
-               bundle.init_cache, GenerationEngine.__init__,
+               bundle.init_cache, ssm_bundle.init, ssm_bundle.init_cache,
+               ssm.mamba2_init, GenerationEngine.__init__,
                convert.params_from_numpy, cascade.EmbeddingBackend.__init__,
                semhash.semantic_equal_batch):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     assert serve.build_parser().parse_args([]).device == "cuda"
+    assert serve.build_parser().parse_args(
+        ["--arch", "mamba2-1.3b", "--no-reduced"]).device == "cuda"
     assert serve.build_parser().parse_args(
         ["--semantic", "movie", "--serve", "4", "--cascade"]).device == "cuda"
     assert cascade.CascadeRouter().backend.device == torch.device("cuda")

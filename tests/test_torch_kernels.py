@@ -160,8 +160,11 @@ def test_cpu_path_launches_no_kernel():
     ops.flash_attention(q, q, q)
     ops.decode_attention(q[:, :1], q, q, 3)
     ops.rowwise_cosine(q[0, :, 0], q[0, 0, 0])
+    ops.cosine_matrix(q[0, :, 0], q[0, :, 1])
+    ops.ssd_scan(q, q[..., 0], q[:, :, :1], q[:, :, :1])
     assert ops.launch_counts() == {"flash_attention": 0, "decode_attention": 0,
-                                   "rowwise_cosine": 0}
+                                   "rowwise_cosine": 0, "cosine_matrix": 0,
+                                   "ssd_scan": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

@@ -1,10 +1,11 @@
-"""The port's row-wise cosine against the JAX package's.
+"""The port's cosine similarity (row-wise and all-pairs) against the JAX
+package's.
 
-On the CPU ``kernels.ops.rowwise_cosine`` runs the kernel's plain version;
-the JAX side runs the Pallas kernel body in interpret mode. Both sum fp32
-products, in another order: atol 1e-5, as ``tests/test_kernels.py`` holds
-the Pallas kernel against its reference. The kernel-vs-plain case needs the
-card and skips without one.
+On the CPU ``kernels.ops.rowwise_cosine`` and ``kernels.ops.cosine_matrix``
+run the kernels' plain versions; the JAX side runs the Pallas kernel bodies
+in interpret mode. Both sum fp32 products, in another order: atol 1e-5, as
+``tests/test_kernels.py`` holds the Pallas kernels against their reference.
+The kernel-vs-plain cases need the card and skip without one.
 """
 import numpy as np
 import pytest
@@ -12,6 +13,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.core import semhash as jsemhash  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import similarity as jsim  # noqa: E402
 from repro_torch.core import semhash  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -49,17 +51,47 @@ def test_anchor_row_equals_explicit_broadcast(m):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
 
 
+# the shapes of tests/test_kernels.py: its sweep, and M = 1, 127, 129
+# against N = 67 (the JAX module itself takes any M and N)
+MATRIX_SHAPES = [(128, 128, 256), (130, 70, 256), (16, 16, 64),
+                 (1, 67, 256), (127, 67, 256), (129, 67, 256)]
+
+
+@pytest.mark.parametrize("m,n,d", MATRIX_SHAPES)
+def test_cosine_matrix_matches_pallas(m, n, d):
+    rng = np.random.default_rng(m * 7 + n + d)
+    a, b = unit_rows(rng, m, d), unit_rows(rng, n, d)
+    got = ops.cosine_matrix(torch.from_numpy(a), torch.from_numpy(b))
+    assert got.shape == (m, n) and got.dtype == torch.float32
+    for want in (jops.cosine_matrix(a, b),
+                 jsim.cosine_matrix(a, b, interpret=True)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+def test_cosine_matrix_empty_and_bf16():
+    """M = 0 gives (0, N); bf16 rows are summed in fp32 into fp32."""
+    rng = np.random.default_rng(11)
+    b = torch.from_numpy(unit_rows(rng, 5, 64))
+    assert ops.cosine_matrix(b[:0], b).shape == (0, 5)
+    got = ops.cosine_matrix(b.bfloat16(), b.bfloat16())
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, b.bfloat16().float() @ b.bfloat16().float().T)
+
+
 def test_wrapper_refuses_cpu_tensors():
-    """The wrapper launches the kernel or raises; only ops dispatches CPU
-    tensors to the plain version."""
+    """The wrappers launch their kernels or raise; only ops dispatches CPU
+    tensors to the plain versions."""
     a = torch.zeros(4, 256)
-    before = ops.launch_counts()["rowwise_cosine"]
+    before = ops.launch_counts()
     with pytest.raises(ValueError, match="CUDA"):
         sim.rowwise_cosine(a, a)
     with pytest.raises(ValueError, match="CUDA"):
         sim.rowwise_cosine(a, a[0])
+    with pytest.raises(ValueError, match="CUDA"):
+        sim.cosine_matrix(a, a)
     ops.rowwise_cosine(a, a[0])
-    assert ops.launch_counts()["rowwise_cosine"] == before
+    ops.cosine_matrix(a, a)
+    assert ops.launch_counts() == before
 
 
 def test_semantic_equal_batch_matches_jax():
@@ -95,3 +127,20 @@ def test_kernel_matches_plain_on_card(cuda, dtype):
                                        rtol=1e-5)
     empty = torch.zeros(0, 256, device=cuda, dtype=dtype)
     assert sim.rowwise_cosine(empty, empty[0:0]).shape == (0,)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cosine_matrix_kernel_matches_plain_on_card(cuda, dtype):
+    """The shapes of tests/test_kernels.py, a ragged D (250) and M = 0; both
+    sum in fp32, in another order."""
+    g = torch.Generator(cuda).manual_seed(0)
+    for m, n, d in MATRIX_SHAPES + [(37, 45, 250), (600, 130, 256)]:
+        a = torch.randn(m, d, generator=g, device=cuda)
+        b = torch.randn(n, d, generator=g, device=cuda)
+        a = (a / a.norm(dim=1, keepdim=True)).to(dtype)
+        b = (b / b.norm(dim=1, keepdim=True)).to(dtype)
+        torch.testing.assert_close(sim.cosine_matrix(a, b),
+                                   sim.plain_matrix(a, b), atol=1e-5, rtol=0)
+    empty = torch.zeros(0, 256, device=cuda, dtype=dtype)
+    assert sim.cosine_matrix(empty, b).shape == (0, b.shape[0])
