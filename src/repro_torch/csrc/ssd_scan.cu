@@ -12,10 +12,14 @@
 // kernel took the model's chunk, up to 256) and any S: the last chunk is
 // ragged, its missing steps read as dA = 0, B = C = dx = 0.
 //
-// What bounds it on an H100: at the served prefill (B = 1, S ~ 100, H = 64,
-// P = 64, N = 128) the sequential recurrence needs 5 S H N P = 0.25 GFLOP,
-// 3.8 us on the 67 TFLOP/s fp32 CUDA cores, against 5.4 MB of memory
-// traffic (1.6 us at 3.35 TB/s): operations. This first version runs the
+// What bounds it on an H100: at the served prefill (B = 1, S = 96, H = 64,
+// P = 64, N = 128) the least work of an exact form is the chunked form at a
+// chunk of ~11 steps, with the scores C . B^T shared by a group's heads:
+// per step and head 4 N P (C . state and the state update) + L P (the
+// causal scores times dx) + N P / L (the state's decay), ~4.19 S H N P =
+// 0.21 GFLOP, 3.1 us on the 67 TFLOP/s fp32 CUDA cores (the sequential
+// recurrence needs 5 S H N P), against 5.4 MB of memory traffic (1.6 us at
+// 3.35 TB/s): operations. This first version runs the
 // chunked form with fp32 FMAs on the CUDA cores (the fp32 path stays exact
 // fp32). What the design does about the bound:
 // * one block per (head, batch) walks its chunks in order; the N x P fp32

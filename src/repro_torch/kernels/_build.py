@@ -79,6 +79,17 @@ def _load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(build([name])[name]))
 
 
+LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(stats: dict) -> None:
+    """Add one to a wrapper's launch count. The engine's dispatcher threads
+    and the cascade's tier-0 workers launch kernels at once, so every count
+    changes under one lock."""
+    with LAUNCH_LOCK:
+        stats["launches"] += 1
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed.
     Callers on several threads at once (the cascade's tier-0 workers) wait

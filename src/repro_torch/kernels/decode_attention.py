@@ -85,5 +85,5 @@ def decode_attention(q, k_cache, v_cache, cache_len):
     if err:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {err}")
-    stats["launches"] += 1
+    _build.count_launch(stats)
     return out

@@ -86,5 +86,5 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error "
                            f"{err}")
-    stats["launches"] += 1
+    _build.count_launch(stats)
     return out

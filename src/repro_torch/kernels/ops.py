@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import decode_attention as dec_mod
 from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import similarity as sim_mod
@@ -32,8 +33,9 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
-    for st in _KERNELS.values():
-        st["launches"] = 0
+    with _build.LAUNCH_LOCK:
+        for st in _KERNELS.values():
+            st["launches"] = 0
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):

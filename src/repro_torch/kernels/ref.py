@@ -79,19 +79,19 @@ def rowwise_cosine_ref(a, b):
 
 
 def ssd_ref(dx, dA, B, C, initial_state=None):
-    """Naive sequential SSD recurrence (fp32 state), the test oracle of the
-    chunked scan. dx: (B, S, H, P) inputs pre-scaled by dt; dA: (B, S, H)
-    log-decay per step; B/C: (B, S, G, N), head h reads group
-    h // (H // G). Returns (y (B, S, H, P) in dx's dtype, final state
-    (B, H, N, P) fp32)."""
+    """Naive sequential SSD recurrence, the test oracle of the chunked scan:
+    fp32 state, or fp64 throughout when dx is fp64. dx: (B, S, H, P)
+    inputs pre-scaled by dt; dA: (B, S, H) log-decay per step; B/C:
+    (B, S, G, N), head h reads group h // (H // G). Returns (y (B, S, H, P)
+    in dx's dtype, final state (B, H, N, P) fp32 or fp64)."""
     b, s, h, p = dx.shape
     rep = h // B.shape[2]
-    Bh = B.float().repeat_interleave(rep, dim=2)            # (B, S, H, N)
-    Ch = C.float().repeat_interleave(rep, dim=2)
-    dxf, dAf = dx.float(), dA.float()
-    state = (torch.zeros((b, h, B.shape[3], p), dtype=torch.float32,
-                         device=dx.device)
-             if initial_state is None else initial_state.float())
+    acc = torch.promote_types(dx.dtype, torch.float32)
+    Bh = B.to(acc).repeat_interleave(rep, dim=2)            # (B, S, H, N)
+    Ch = C.to(acc).repeat_interleave(rep, dim=2)
+    dxf, dAf = dx.to(acc), dA.to(acc)
+    state = (torch.zeros((b, h, B.shape[3], p), dtype=acc, device=dx.device)
+             if initial_state is None else initial_state.to(acc))
     ys = []
     for t in range(s):
         upd = torch.einsum("bhn,bhp->bhnp", Bh[:, t], dxf[:, t])

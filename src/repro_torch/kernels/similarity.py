@@ -12,13 +12,12 @@ functions in plain PyTorch (``kernels.ref``); the wrappers never fall back
 to them.
 
 The cascade calls ``rowwise_cosine`` from several tier-0 worker threads at
-once, so the launch counts are incremented under a lock.
+once; the launch counts change under ``_build.count_launch``'s lock.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 
 import torch
 
@@ -29,7 +28,6 @@ plain = ref.rowwise_cosine_ref
 plain_matrix = ref.cosine_matrix_ref
 stats = {"launches": 0}          # rowwise_cosine
 matrix_stats = {"launches": 0}   # cosine_matrix
-_stats_lock = threading.Lock()
 
 
 @functools.lru_cache(maxsize=None)
@@ -89,8 +87,7 @@ def rowwise_cosine(a, b):
     if err:
         raise RuntimeError(f"rowwise_cosine kernel launch failed: CUDA error "
                            f"{err}")
-    with _stats_lock:
-        stats["launches"] += 1
+    _build.count_launch(stats)
     return out
 
 
@@ -118,6 +115,5 @@ def cosine_matrix(a, b):
     if err:
         raise RuntimeError(f"cosine_matrix kernel launch failed: CUDA error "
                            f"{err}")
-    with _stats_lock:
-        matrix_stats["launches"] += 1
+    _build.count_launch(matrix_stats)
     return out

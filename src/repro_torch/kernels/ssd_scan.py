@@ -159,5 +159,5 @@ def ssd_scan(dx, dA, B, C, initial_state=None):
             strides, stream)
     if err:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
-    stats["launches"] += 1
+    _build.count_launch(stats)
     return y, fin

@@ -167,6 +167,29 @@ def test_cpu_path_launches_no_kernel():
                                    "ssd_scan": 0}
 
 
+def test_launch_counts_are_exact_across_threads():
+    """Every wrapper counts through ``_build.count_launch``: launches from
+    several threads at once (the engine's dispatchers, the cascade's tier-0
+    workers) are all counted, and a reset clears every kernel's count."""
+    import threading
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ssd_scan as ssd
+    ops.reset_launch_counts()
+
+    def launch():
+        for _ in range(2000):
+            _build.count_launch(ssd.stats)
+    threads = [threading.Thread(target=launch) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert ops.launch_counts()["ssd_scan"] == 16000
+    ops.reset_launch_counts()
+    assert set(ops.launch_counts().values()) == {0}
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     """A wrapper launches its kernel or raises: it never runs the plain
     version on the tensors it was given."""

@@ -92,6 +92,22 @@ def test_port_recurrence_matches_jax_recurrence():
                                rtol=1e-6)
 
 
+def test_recurrence_runs_in_fp64_when_given_fp64():
+    """``ref.ssd_ref`` keeps fp64 inputs in fp64 (the on-card oracle that
+    says whether the kernel or the plain version carries a difference),
+    and its fp32 run agrees with that to a few fp32 ulps."""
+    dx, dA, B, C = torched(*inputs(9, 1, 96, 4, 16, 1, 32))
+    init = torch.from_numpy(np.random.default_rng(10).normal(
+        size=(1, 4, 32, 16)))
+    y64, st64 = ref.ssd_ref(dx.double(), dA.double(), B.double(), C.double(),
+                            init)
+    y, st = ref.ssd_ref(dx, dA, B, C, init.float())
+    assert y64.dtype == st64.dtype == torch.float64
+    assert y.dtype == st.dtype == torch.float32
+    torch.testing.assert_close(y.double(), y64, atol=1e-5, rtol=1e-6)
+    torch.testing.assert_close(st.double(), st64, atol=1e-5, rtol=1e-6)
+
+
 def test_ssd_scan_initial_state_continuation():
     """Scanning the first half, then the second from the carried state,
     equals one full scan (the prefill-continuation invariant of
@@ -187,3 +203,29 @@ def test_kernel_matches_plain_on_card(cuda, dtype, b, s, h, p, g, n):
             torch.testing.assert_close(
                 got.float(), want, rtol=r,
                 atol=1e-4 + 2.0 ** -17 * want.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [272, 2048])
+def test_kernel_matches_fp64_recurrence_on_card(cuda, s):
+    """The kernel's fp32 y and state against the sequential recurrence in
+    fp64 at mamba2-1.3b's heads: 1e-4 + 2^-19 max|f64|, the limit
+    ``chip_smoke.py`` holds it to (the plain version, whose running
+    log-decay spans up to 256 steps, is off by up to ~2^-18 max|y|)."""
+    gen = torch.Generator(cuda).manual_seed(1)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda)
+
+    h, p, n = 64, 64, 128
+    dx, B, C, init = rn(1, s, h, p), rn(1, s, 1, n), rn(1, s, 1, n), \
+        rn(1, h, n, p)
+    dA = -rn(1, s, h).abs() * 0.2
+    for state in (None, init):
+        got = ssd.ssd_scan(dx, dA, B, C, state)
+        exact = ref.ssd_ref(dx.double(), dA.double(), B.double(), C.double(),
+                            None if state is None else state.double())
+        for g, e in zip(got, exact):
+            torch.testing.assert_close(
+                g.double(), e, rtol=0,
+                atol=1e-4 + 2.0 ** -19 * e.abs().max().item())
