@@ -43,6 +43,13 @@ Fig. 10). Neither morsel pipelining, coalescing, the driver, nor the
 shard count changes the answer — results, call counts, and per-tier
 meter totals are identical across barrier/morsel/coalesced,
 simulated/threaded, and shards in {1, 2, 4} execution.
+
+Unlike the reference executor, this port makes an uncoalesced LLM
+operator's morsels claim the output cache in morsel order
+(``_ClaimOrder``). The reference's threaded driver lets the first morsel
+to arrive claim a value, so a value held by two in-flight morsels a
+different number of times was billed by whichever came first; here it is
+billed as the simulated driver bills it.
 """
 from __future__ import annotations
 
@@ -147,6 +154,62 @@ class _FailedMorsel:
 
     def __init__(self, exc: BaseException):
         self.exc = exc
+
+
+class _ClaimOrder:
+    """Admits one streamable operator's per-morsel cache claims in morsel
+    order, the order the simulated driver makes them in.
+
+    Duplicate values inside one claim are each billed (the sequential
+    path's rule), while a value another morsel has in flight is waited
+    for. So when two morsels hold the same value a different number of
+    times, the morsel that claims first sets the bill, and under the
+    threaded driver that was thread timing. Claims are instant next to
+    the backend calls they start, so only the claims are ordered: each
+    morsel still computes concurrently once it has claimed. A morsel
+    that makes no claim (empty, failed, answered by its cascade pass)
+    passes its turn when its step ends.
+
+    Liveness: morsel ``i``'s step waits only for morsel ``i - 1``'s step
+    of the same operator, which sits earlier in the chain pool's FIFO
+    queue, so the dispatcher's liveness argument still holds."""
+
+    def __init__(self, n: int):
+        self._cv = threading.Condition()
+        self._passed = [False] * n
+        self._next = 0          # every morsel below this one has passed
+
+    def wait(self, i: int) -> None:
+        with self._cv:
+            self._cv.wait_for(lambda: self._next >= i)
+
+    def passed(self, i: int) -> None:
+        with self._cv:
+            self._passed[i] = True
+            while (self._next < len(self._passed)
+                   and self._passed[self._next]):
+                self._next += 1
+            self._cv.notify_all()
+
+
+class _OrderedCache:
+    """``cache`` as one morsel's LLM call sees it: its first claim waits
+    for the morsel's turn in ``order`` and then passes it."""
+
+    def __init__(self, cache: OutputCache, order: _ClaimOrder, idx: int):
+        self._cache = cache
+        self._order = order
+        self._idx = idx
+
+    def claim(self, keys, token):
+        self._order.wait(self._idx)
+        try:
+            return self._cache.claim(keys, token)
+        finally:
+            self._order.passed(self._idx)
+
+    def __getattr__(self, name):
+        return getattr(self._cache, name)
 
 
 def _force(value, ready: float) -> Tuple[Table, float]:
@@ -315,26 +378,38 @@ def _run(plan: plan_ir.LogicalPlan, table: Table, ctx: rt.ExecutionContext,
             casc_stats["escalated"] += len(part.escalate)
         return part
 
-    def llm_calls(op, oi, idx, values, ready):
+    def llm_calls(op, oi, idx, values, ready, order=None):
         """Dispatch one operator over one morsel's values on the morsel's
-        shard; (op index, morsel index) is the call's logical meter key."""
+        shard; (op index, morsel index) is the call's logical meter key.
+        ``order`` (a :class:`_ClaimOrder`) makes the morsel claim its
+        cache keys in its turn."""
         backend = ctx.backend(op.tier)
+        cache = ctx.cache if order is None \
+            else _OrderedCache(ctx.cache, order, idx)
         # account under the backend's own tier name (a dict key like "m*"
         # may map to a differently-named backend, e.g. a TorchBackend tier)
         outs, finish = disp.run_llm(op, values, backend, backend.tier.name,
                                     meter, batch_size=ctx.batch_size,
-                                    cache=ctx.cache, ready_s=ready,
+                                    cache=cache, ready_s=ready,
                                     shard=disp.shard_of(idx, query_key),
                                     key=kp + (oi, idx))
         with rows_lock:
             rows_processed[0] += len(values)
         return outs, finish
 
-    def step(op, oi, group, idx, value, ready):
+    def step(op, oi, group, idx, value, ready, order=None):
         """Advance one morsel through one streamable (filter/map) operator;
         runs on a chain-pool thread under the threaded driver. ``value``
         may be a _PendingMorsel from an upstream coalesced operator, or a
-        _FailedMorsel poison (then only keep the watermark moving)."""
+        _FailedMorsel poison (then only keep the watermark moving). The
+        morsel's turn in ``order`` passes however the step ends."""
+        try:
+            return advance(op, oi, group, idx, value, ready, order)
+        finally:
+            if order is not None:
+                order.passed(idx)
+
+    def advance(op, oi, group, idx, value, ready, order):
         if isinstance(value, _FailedMorsel):
             if group is not None:
                 group.submit(idx, [], ready)
@@ -391,14 +466,14 @@ def _run(plan: plan_ir.LogicalPlan, table: Table, ctx: rt.ExecutionContext,
                         esc, finish = llm_calls(
                             op, oi, idx,
                             [values[i] for i in part.escalate],
-                            max(ready, part.finish))
+                            max(ready, part.finish), order)
                     else:
                         esc, finish = [], part.finish
                     out_tbl, _ = rt.apply_outputs(op, tbl,
                                                   part.merge(esc))
                     return out_tbl, finish
                 # degraded: the LLM tier answers the whole morsel
-            outs, finish = llm_calls(op, oi, idx, values, ready)
+            outs, finish = llm_calls(op, oi, idx, values, ready, order)
             out_tbl, _ = rt.apply_outputs(op, tbl, outs)
             return out_tbl, finish
         except BaseException as e:
@@ -460,10 +535,16 @@ def _run(plan: plan_ir.LogicalPlan, table: Table, ctx: rt.ExecutionContext,
                 backend = ctx.backend(op.tier)
                 group = coal.open(op, backend, backend.tier.name,
                                   expected=len(parts), op_key=kp + (oi,))
+            # uncoalesced LLM operators claim the shared cache in morsel
+            # order, so the bill does not depend on thread timing
+            order = _ClaimOrder(len(parts)) \
+                if (group is None and op.udf is None
+                    and ctx.cache is not None) else None
             parts = [
                 disp.defer(p,
                            lambda value, ready, op=op, oi=oi, group=group,
-                           i=i: step(op, oi, group, i, value, ready),
+                           i=i, order=order: step(op, oi, group, i, value,
+                                                  ready, order),
                            shard=disp.shard_of(i, query_key))
                 for i, p in enumerate(parts)]
 

@@ -2,8 +2,8 @@
 
 The port imports nothing of ``repro``, so it keeps its own copy of every
 module of the semantic path that imports no JAX: plan IR, tables, UDFs, the
-cost model, backends, runtime, executor, optimizers, datasets, workloads,
-the query server and the q-error report. A copy may differ from its
+cost model, backends, runtime, optimizers, datasets, workloads, the query
+server and the q-error report. A copy may differ from its
 original only in its import prefix (``repro.`` becomes ``repro_torch.``)
 and in its docstrings. So after the prefix is renamed and the docstrings
 are stripped, both syntax trees must dump alike.
@@ -17,7 +17,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 COPIES = [
     "core/__init__.py", "core/plan.py", "core/table.py", "core/udf.py",
     "core/cost_model.py", "core/cost.py", "core/backends.py",
-    "core/runtime.py", "core/executor.py", "core/improvement.py",
+    "core/runtime.py", "core/improvement.py",
     "core/judge.py", "core/rules.py", "core/rewriter.py",
     "core/logical_optimizer.py", "core/physical_optimizer.py",
     "core/dataframe.py", "data/__init__.py", "data/oracle.py",
@@ -30,8 +30,11 @@ COPIES = [
 #   the port's kernel and has no numpy fallback;
 # * core/cascade.py: EmbeddingBackend takes a device, and _kernel_scores
 #   passes the anchor as one (D,) row with no fallback;
+# * core/executor.py: an uncoalesced LLM operator's morsels claim the
+#   output cache in morsel order, so the threaded driver bills what the
+#   simulated one bills;
 # * engine/torch_backend.py, launch/serve.py: drive the port's engine.
-PORTED = ["core/semhash.py", "core/cascade.py"]
+PORTED = ["core/semhash.py", "core/cascade.py", "core/executor.py"]
 
 
 def _rename(name):

@@ -8,7 +8,9 @@
 (c) ``TorchBackend`` against ``JAXBackend``: the same reduced qwen2 weights
     served by both engines, answers parsed from the generated text;
 (d) ``serve.main`` in streaming semantic mode with the cascade;
-(e) the flags the port does not serve yet are refused.
+(e) the flags the port does not serve yet are refused;
+(f) the threaded driver bills what the simulated one bills, also where
+    the reference's threaded driver bills by thread timing.
 
 Results compare on every column of the result table (or the reduce
 scalar); meters compare per tier on calls, tokens, price and modeled
@@ -215,3 +217,73 @@ def test_serve_refuses_worker_flags(flags, capsys):
     assert "distribution slice" in capsys.readouterr().err
     ok = serve.build_parser().parse_args(["--shards", "1", "--procs", "0"])
     assert (ok.shards, ok.procs) == (1, 0)
+
+
+# ---------------------------------------------------------------------------
+# (f) morsel-ordered cache claims: the threaded bill is the simulated bill
+# ---------------------------------------------------------------------------
+
+class _SlowValueBackend:
+    """Answers a filter True and a map with its value, bills one call per
+    value, and sleeps on the value ``"slow"``, so the morsel holding it
+    reaches the next operator after the others."""
+
+    def __init__(self):
+        from repro_torch.core.cost_model import TierSpec
+        self.tier = TierSpec("m*", 1.01, 0.0, 0.0, 0.01, 0.0)
+
+    def run_values(self, op, values, meter=None, batch_size=1):
+        import time
+        from repro_torch.core import plan as plan_ir
+        values = list(values)
+        if "slow" in values:
+            time.sleep(0.3)
+        if meter is not None:
+            meter.record(self.tier.name,
+                         bk.Usage(calls=len(values), tok_in=1.0,
+                                  tok_out=1.0, usd=0.0,
+                                  latency_s=0.01 * len(values)),
+                         op_kind=op.kind)
+        return [True if op.kind == plan_ir.FILTER else v for v in values]
+
+
+@pytest.mark.parametrize("driver", ["simulated", "threads"])
+def test_threaded_claims_follow_morsel_order(driver):
+    """Morsel 0 holds "x" once and morsel 1 twice at the filter, and
+    morsel 1 reaches the filter first. The simulated driver claims in
+    morsel order: morsel 0 computes "x" and "y", morsel 1 waits for "x",
+    so the filter bills 2 calls. The threaded driver must bill the same,
+    not the 3 that morsel 1 claiming first would give."""
+    from repro_torch.core import plan as plan_ir
+    from repro_torch.core.table import Table
+    table = Table({"a": ["slow", "q", "r", "s"], "d": ["x", "y", "x", "x"]},
+                  name="t")
+    plan = plan_ir.LogicalPlan((
+        plan_ir.Operator(plan_ir.MAP, "Copy the value.", "a", "b"),
+        plan_ir.Operator(plan_ir.FILTER, "The value is x or y.", "d")))
+    meter = bk.UsageMeter()
+    res = ex.execute(plan, table, {"m*": _SlowValueBackend()},
+                     default_tier="m*", concurrency=4, morsel_size=2,
+                     meter=meter, driver=driver, cache=ex.OutputCache())
+    assert res.table.columns["b"] == ["slow", "q", "r", "s"]
+    assert meter.calls("m*") == 4 + 2
+
+
+def test_serve_streaming_bills_alike_on_both_drivers(capsys):
+    """The streaming semantic serve with the cascade over 32 movie rows
+    (two morsels a query, many repeated directors in q2): the threaded
+    driver's results, per-tier calls and cascade stats equal the
+    simulated driver's, query by query."""
+    from repro_torch.launch import serve
+    flags = ["--semantic", "movie", "--slots", "4", "--requests", "8",
+             "--serve", "4", "--cascade", "--device", "cpu", "--max-new",
+             "4"]
+    runs = {}
+    for driver in ("simulated", "threads"):
+        handles = serve.main(flags + ["--driver", driver])
+        runs[driver] = [
+            (h.name, fingerprint(h.result()),
+             {t: u.calls for t, u in sorted(h.meter.by_tier.items())},
+             h.result().cascade_stats) for h in handles]
+    assert runs["threads"] == runs["simulated"]
+    assert runs["threads"][1][2]["tier0-embed"] == 2
