@@ -19,11 +19,12 @@ non-zero):
    length 16 to 160, a ragged 272 and 2048, with and without an initial
    state, and at a two-group case, and at 272 and 2048 also against the
    sequential recurrence in fp64; ``cosine_matrix`` at the JAX tests'
-   shapes, 4096 x 4096 and M = 0. Then each kernel's time at its path's
-   shapes beside the plain version's, one PyTorch library call's
-   (``scaled_dot_product_attention``; ``torch.mv`` and ``torch.matmul`` for
-   the cosines; none computes the SSD scan) and the card's bound for the
-   same work.
+   shapes, cosine_api's 250 x 250, ragged shapes, 4096 x 4096, D = 0 and
+   M = 0. Then each kernel's time at its path's shapes beside the plain
+   version's, one PyTorch library call's (``scaled_dot_product_attention``;
+   ``torch.mv`` and ``torch.matmul`` for the cosines; none computes the SSD
+   scan) and the card's bound for the same work (fp32 work at the 3xTF32
+   rate, 165 TFLOP/s).
 4. serve: full-width qwen2-0.5b (24 layers, d_model 896, vocab 151936, seeded
    random weights) serves 8 requests through ``GenerationEngine`` and
    ``ContinuousBatcher``; every prefill must launch ``flash_attention`` once
@@ -67,9 +68,11 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # Dense peaks of the H100 SXM (NVIDIA data sheet): device memory bytes/s and
-# FLOP/s by input type. fp32 is the CUDA-core rate: the kernels run fp32
-# FMAs, not TF32 tensor cores.
-PEAKS = {"bytes": 3.35e12, "float32": 67e12, "bfloat16": 989e12}
+# FLOP/s by input type. fp32 is the fastest fp32-accurate rate the card
+# has: 3xTF32 on the tensor cores, three TF32 products (495 TFLOP/s) per
+# fp32 product, 165 TFLOP/s, above the 67 of the CUDA cores; a bound at 67
+# would let a 3xTF32 kernel read over 100% of it.
+PEAKS = {"bytes": 3.35e12, "float32": 495e12 / 3, "bfloat16": 989e12}
 # A kernel's output against its plain version's, element by element:
 # |kernel - plain| <= atol + rtol * |plain|. Both compute in fp32 and round
 # the output once. In fp32 only the order of the sums differs (~1e-7 at these
@@ -101,9 +104,15 @@ SSM_SERVE = ["--arch", "mamba2-1.3b", "--no-reduced", "--requests", "8",
              "--device", "cuda"]
 QWEN_SERVE = ["--no-reduced", "--requests", "8", "--slots", "4",
               "--max-len", "160", "--max-new", "24", "--device", "cuda"]
-# cosine_matrix: the shapes of tests/test_kernels.py and one large product
+# cosine_matrix: the shapes of tests/test_kernels.py, the cosine_api path's
+# all-pairs product of the 250 movie plots, a small one, ragged M, N and D
+# (D 250 and 33 are read element by element), and products in each of the
+# kernel's three tilings (clusters below 132 tiles of 64 x 64, 64 x 64
+# tiles below 132 of 128 x 128, 128 x 128 tiles)
 MATRIX_SHAPES = [(128, 128, 256), (130, 70, 256), (16, 16, 64), (1, 67, 256),
-                 (127, 67, 256), (129, 67, 256), (4096, 4096, 256)]
+                 (127, 67, 256), (129, 67, 256), (250, 250, 256),
+                 (16, 16, 256), (37, 45, 250), (300, 7, 33),
+                 (1000, 1000, 256), (2048, 1100, 250), (4096, 4096, 256)]
 
 
 def emit(obj):
@@ -232,11 +241,15 @@ def attn_inputs(gen, b, s, hq, hkv, d, dtype, layers=1):
 
 
 def flash_cases():
-    """(heads, case, B, S, causal, window): qwen2-0.5b's heads at every
-    prefill length the serve and semantic phases give the kernel (prompts
-    pad to a multiple of PREFILL_ALIGN = 16 and are cut at max_len 160, so
-    16 to 160; the serve phase's are 64, 80 and 96) and at the sweep's
-    shapes; the reduced heads at a few of them."""
+    """(heads, case, B, S, causal, window, q_offset, sk_valid): qwen2-0.5b's
+    heads at every prefill length the serve and semantic phases give the
+    kernel (prompts pad to a multiple of PREFILL_ALIGN = 16 and are cut at
+    max_len 160, so 16 to 160; the serve phase's are 64, 80 and 96) and at
+    the sweep's shapes; the reduced heads at a few of them. The offset cases
+    move the causal diagonal and the key limit off the tile edges (query
+    row i at position i + q_offset, keys at or past sk_valid masked), where
+    the packing of a GQA group's rows into one tile is easiest to get
+    wrong; at q_offset -6 the first 6 rows see no key and must give 0."""
     full = [("causal", 1, s, True, 0) for s in range(16, 161, 16)]
     full += [("causal", 1, 2048, True, 0),
              ("padded", 2, 40, True, 0), ("window", 1, 160, True, 24),
@@ -244,8 +257,13 @@ def flash_cases():
              ("noncausal_window", 1, 160, False, 24)]
     small = [("causal", 1, 96, True, 0), ("padded", 2, 40, True, 0),
              ("window", 1, 160, True, 24), ("noncausal_window", 1, 160, False, 24)]
-    return ([(FULL_HEADS, *c) for c in full]
-            + [(REDUCED_HEADS, *c) for c in small])
+    offsets = [("offset", 2, 200, True, 0, 9, 187),
+               ("offset_window", 2, 48, True, 8, 5, 41),
+               ("empty_rows", 2, 48, True, 8, -6, 37),
+               ("offset_noncausal", 2, 48, False, 0, 3, 28)]
+    return ([(FULL_HEADS, *c, 0, c[2]) for c in full]
+            + [(REDUCED_HEADS, *c, 0, c[2]) for c in small]
+            + [(h, *c) for h in (FULL_HEADS, REDUCED_HEADS) for c in offsets])
 
 
 DECODE_CASES = [(FULL_HEADS, b, s) for b in (4, 32) for s in (160, 4096)] \
@@ -258,14 +276,19 @@ def phase_kernels():
     gen = torch.Generator("cuda").manual_seed(0)
     failures = []
     for dtype in (torch.float32, torch.bfloat16):
-        for (hq, hkv, d), case, b, s, causal, window in flash_cases():
+        for ((hq, hkv, d), case, b, s, causal, window, q_offset,
+             sk_valid) in flash_cases():
             q, k, v = attn_inputs(gen, b, s, hq, hkv, d, dtype, layers=2)
-            kw = dict(causal=causal, window=window, q_offset=0, sk_valid=s)
-            err, ok = held(fa.flash_attention(q, k, v, **kw),
-                           fa.plain(q, k, v, **kw), dtype)
+            kw = dict(causal=causal, window=window, q_offset=q_offset,
+                      sk_valid=sk_valid)
+            got = fa.flash_attention(q, k, v, **kw)
+            err, ok = held(got, fa.plain(q, k, v, **kw), dtype)
+            if q_offset < 0:  # rows with no valid key give 0
+                ok = ok and bool((got[:, :-q_offset] == 0).all())
             emit({"phase": "kernel", "kernel": "flash_attention", "case": case,
                   "dtype": str(dtype), "B": b, "S": s, "Hq": hq, "Hkv": hkv,
-                  "D": d, "window": window, "max_abs_err": err,
+                  "D": d, "window": window, "q_offset": q_offset,
+                  "sk_valid": sk_valid, "max_abs_err": err,
                   "tol": tol_text(dtype), "ok": ok})
             if not ok:
                 failures.append(("flash_attention", case, str(dtype), s, d, err))
@@ -406,7 +429,7 @@ def check_ssd(gen, dtype, failures):
 def check_matrix(gen, dtype, failures):
     """cosine_matrix against its plain version over unit rows; both sum in
     fp32 into fp32 (atol 1e-5, as tests/test_kernels.py holds the Pallas
-    kernel); M = 0 gives (0, N) and no launch."""
+    kernel); M = 0 gives (0, N) and no launch; D = 0 gives zeros."""
     from repro_torch.kernels import similarity as sim
     for m, n, d in MATRIX_SHAPES:
         a, b = unit_rows(gen, m, dtype, d), unit_rows(gen, n, dtype, d)
@@ -425,6 +448,13 @@ def check_matrix(gen, dtype, failures):
           "launched": sim.matrix_stats["launches"] - before, "ok": ok})
     if not ok:
         failures.append(("cosine_matrix", "empty", str(dtype)))
+    no_d = torch.zeros(5, 0, device="cuda", dtype=dtype)
+    zero = sim.cosine_matrix(no_d, no_d)
+    ok = tuple(zero.shape) == (5, 5) and not zero.any().item()
+    emit({"phase": "kernel", "kernel": "cosine_matrix", "case": "D=0",
+          "dtype": str(dtype), "M": 5, "N": 5, "D": 0, "ok": ok})
+    if not ok:
+        failures.append(("cosine_matrix", "D=0", str(dtype)))
 
 
 KERNELS = {
@@ -449,7 +479,8 @@ KERNELS = {
 def time_flash(gen, s, dtype):
     """Causal prefill of one sequence of s tokens: kernel, plain version and
     SDPA timed on the same inputs; the bound counts q, k, v read once, o
-    written once and 4 * D FLOPs per causal (query, key) pair."""
+    written once and 4 * D FLOPs per causal (query, key) pair, at the
+    dtype's peak (fp32: 3xTF32)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -554,7 +585,7 @@ def time_matrix(gen, m, n):
     """All pairs of m and n unit rows of EMBED_DIM, fp32: kernel, plain
     version and torch.matmul (cuBLAS SGEMM, TF32 off). The bound counts a
     and b read once, the (m, n) output written once and 2 D FLOPs per
-    output."""
+    output, at the fp32 (3xTF32) peak."""
     from repro_torch.kernels import similarity as sim
     a, b = unit_rows(gen, m, torch.float32), unit_rows(gen, n, torch.float32)
     return timing_row(
@@ -586,20 +617,30 @@ def timing_row(name, shape, dtype, kernel, plain, library, *, nbytes, flops,
     return row
 
 
+def movie_rows():
+    """Rows of the movie table: cosine_api's all-pairs product is
+    movie_rows() x movie_rows()."""
+    from repro_torch.data import load_dataset
+    return load_dataset("movie")[0].n_rows
+
+
 def time_kernels(gen):
-    """Times at the serve path's shapes, in fp32 (the engine's dtype):
-    prefill of the longest served prompt (96 tokens after padding to 16),
-    and a decode step over 4 slots of the 160-entry cache with the slots
-    midway through their 24 new tokens; one cascade morsel of 16 rows. These
-    rows go into the kernels line. Then times at long shapes, where the
-    bound is more than launch latency: a 2048-token prefill (fp32 and
-    bf16), a decode step over 32 slots of a 4096-entry cache and a cascade
-    pass over the whole game table."""
+    """Times at the paths' shapes, in fp32 (the engine's dtype): prefill of
+    the longest served prompt (96 tokens after padding to 16), and a decode
+    step over 4 slots of the 160-entry cache with the slots midway through
+    their 24 new tokens; one cascade morsel of 16 rows; cosine_api's 250 x
+    250 product. These rows go into the kernels line. Then the same prefill
+    in bf16, and times at long shapes, where the bound is more than launch
+    latency: a 2048-token prefill (fp32 and bf16), a decode step over 32
+    slots of a 4096-entry cache, a cascade pass over the whole game table
+    and a 4096 x 4096 product."""
     lens, padded = served_prefill_lengths()
+    plots = movie_rows()
     rows = [time_flash(gen, max(padded), torch.float32),
             time_decode(gen, 160, [n + 12 for n in lens[:4]], torch.float32),
-            time_rowwise(gen, 16), time_matrix(gen, 16, 16),
+            time_rowwise(gen, 16), time_matrix(gen, plots, plots),
             time_ssd(gen, max(padded))]
+    time_flash(gen, max(padded), torch.bfloat16)
     for dtype in (torch.float32, torch.bfloat16):
         time_flash(gen, 2048, dtype)
     time_decode(gen, 4096, list(range(128, 4097, 128)), torch.float32)

@@ -27,26 +27,38 @@
 // cosine_matrix replaces the Pallas TPU kernel
 // src/repro/kernels/similarity.py (cosine_matrix, body _matrix_kernel): a
 // product of 128 x 128 tiles with the whole D in VMEM, M and N padded to
-// the tile and sliced back. Here any M, N and D: tiles of 64 x 64 outputs,
-// D walked in slices of 32, the ragged edges of M, N and D masked.
+// the tile and sliced back. Here any M, N and D, the ragged edges masked.
 //
-// What bounds it on an H100: operations once M and N are in the hundreds
-// (2 D FLOPs per output against 4 D bytes read per row), bytes at a few
-// rows. This first version multiplies with fp32 FMAs on the CUDA cores (67
-// TFLOP/s; exact fp32, no TF32). What the design does about the bound:
-// * each 32-wide slice of 64 rows of a and 64 rows of b is staged in
-//   shared memory transposed (rows padded to 68 floats, so the transposing
-//   stores meet few bank conflicts), and every element staged is used 64
-//   times; the next slice is loaded into registers while this one is
-//   multiplied, and warps whose outputs all lie past M or N skip the
-//   multiply, so a small product costs little more than its 8 slices'
-//   memory round trips at D = 256;
-// * each of the 256 threads keeps a 4 x 4 tile of outputs in registers and
-//   reads two 16-byte vectors per step of the slice for its 16 FMAs.
-// wgmma on bf16 tiles and a TMA ring are the later redesign.
+// What bounds it on an H100: operations once M and N are in the thousands
+// (2 D FLOPs per output against 4 D bytes read per row); at the semantic
+// path's 250 x 250 x 256 (a few MFLOP), the latency of one block's loads
+// and products. What the design does about it:
+// * the products run on the tensor cores through wgmma (sm_90a): bf16 as
+//   bf16 with fp32 accumulators; fp32 as 3xTF32, each value split into its
+//   TF32 rounding hi and the rest lo, the product summed as hi*hi + hi*lo +
+//   lo*hi, which keeps the cosines within ~2e-7 of fp32 where one TF32
+//   product is off by ~1e-4, at up to 495 / 3 = 165 TFLOP/s against the 67
+//   of the CUDA cores;
+// * both operands are K-major as they lie (D contiguous), so wgmma reads
+//   them from shared memory with no transpose;
+// * the tiles follow the size of the grid: 128 x 128 outputs from two
+//   warpgroups when the tiles fill the 132 SMs; 64 x 64 from two
+//   warpgroups that split each slice's k-steps; and, for a grid that still
+//   leaves SMs idle, clusters of 4 blocks per tile that split D's slices
+//   and add their sums in the first block's shared memory, so each block
+//   loads and multiplies a quarter of D;
+// * each slice of D is loaded into registers while the one before is
+//   multiplied, split into its TF32 parts on the way to shared memory
+//   (wgmma reads B from there), and stored with lanes on consecutive rows,
+//   so the stores meet no bank conflicts; 16-byte loads where D and the row
+//   strides allow, else one element at a time.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -128,91 +140,294 @@ int launch(const void* a, const void* b, float* out, int M, int D,
   return cudaGetLastError();
 }
 
-constexpr int TM = 64;          // output tile: 64 rows of a x 64 rows of b
-constexpr int TK = 32;          // slice of D staged at a time
-constexpr int TMP = TM + 4;     // padded row of a staged (transposed) slice
-constexpr int MT_THREADS = 256; // a 4 x 4 output tile each
-constexpr int PER = TM * TK / MT_THREADS;  // elements a thread stages
+// cosine_matrix: a BM x BN tile of outputs per block, BM = 64 WGM, over
+// the slices z, z + CK, ... of D, where z is the block's rank in a cluster
+// of CK blocks along the grid's z axis. A slice is CH 16-byte chunks a row;
+// the slice's BM rows of a and BN rows of b are one [chunk][R = BM + BN
+// rows][16 B] tile in shared memory (fp32: its TF32 high part, then its low
+// part). The block's WGM x WGK warpgroups: warpgroup (wm, wk) multiplies
+// rows 64 wm to 64 wm + 63 over the slice's k-steps wk, wk + WGK, ...; its
+// sum meets the other warpgroups' in shared memory, and with CK > 1 the
+// cluster's sums meet in the first block's shared memory.
+template <typename T, int WGM, int WGK, int BN, int CH, int CK>
+struct Mat {
+  static constexpr int BM = 64 * WGM, R = BM + BN, THREADS = 128 * WGM * WGK;
+  static constexpr int E = 16 / sizeof(T);         // elements per chunk
+  static constexpr int BK = CH * E;                // elements per slice
+  static constexpr int parts = sizeof(T) == 4 ? 2 : 1;
+  static constexpr int PB = R * CH * 16;           // bytes of one part
+  static constexpr int NC = R * CH / THREADS;      // chunks a thread loads
+  // the warpgroups' sums (in the operand tiles once they are read), then
+  // the sums of the cluster's other blocks (a region of their own)
+  static constexpr int SUMS = (WGK - 1) * WGM * 128 * (BN / 2) * 4;
+  static constexpr int OPS = parts * PB > SUMS ? parts * PB : SUMS;
+  static constexpr size_t smem = OPS + (CK - 1) * WGM * 128 * (BN / 2) * 4;
+  static_assert(R * CH % THREADS == 0, "whole chunks per thread");
+  static_assert(CH / 2 % WGK == 0, "whole k-steps per warpgroup");
+};
 
-// acc[i][j] += x[i] * y[j]
-__device__ __forceinline__ void outer4(float (&acc)[4][4], float4 x, float4 y) {
-  const float xs[4] = {x.x, x.y, x.z, x.w};
+// Chunk of one row at element k: 16 bytes at once where the rows allow it,
+// else element by element; past D, or with no row, zeros.
+template <typename T, bool VEC>
+__device__ __forceinline__ uint4 load_chunk(const T* row, int k, int D) {
+  constexpr int E = 16 / sizeof(T);
+  if (row == nullptr || k >= D) return make_uint4(0, 0, 0, 0);
+  if (VEC) return __ldg(reinterpret_cast<const uint4*>(row + k));
+  uint32_t w[4] = {0, 0, 0, 0};
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    acc[i][0] = fmaf(xs[i], y.x, acc[i][0]);
-    acc[i][1] = fmaf(xs[i], y.y, acc[i][1]);
-    acc[i][2] = fmaf(xs[i], y.z, acc[i][2]);
-    acc[i][3] = fmaf(xs[i], y.w, acc[i][3]);
+  for (int e = 0; e < E; ++e) {
+    if (k + e >= D) break;
+    if constexpr (sizeof(T) == 4) {
+      w[e] = __float_as_uint(row[k + e]);
+    } else {
+      const uint16_t bits = __bfloat16_as_ushort(row[k + e]);
+      w[e >> 1] |= static_cast<uint32_t>(bits) << (16 * (e & 1));
+    }
   }
+  return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
-// This thread's PER elements of one slice of a and of b, masked to 0 past
-// M, N and D; consecutive threads read consecutive elements of a row.
-template <typename T>
-__device__ __forceinline__ void load_slice(
-    const T* __restrict__ a, const T* __restrict__ b, float (&ra)[PER],
-    float (&rb)[PER], int M, int N, int D, long long sa, long long sb,
-    int m0, int n0, int k0) {
-#pragma unroll
-  for (int j = 0; j < PER; ++j) {
-    const int i = threadIdx.x + j * MT_THREADS, r = i / TK, gk = k0 + i % TK;
-    ra[j] = m0 + r < M && gk < D ? to_f(a[(m0 + r) * sa + gk]) : 0.f;
-    rb[j] = n0 + r < N && gk < D ? to_f(b[(n0 + r) * sb + gk]) : 0.f;
-  }
+// Cluster barrier, split (arrive early, wait late) or whole.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// st.shared::cluster of x at ``p`` in the shared memory of cluster block
+// ``rank``.
+__device__ __forceinline__ void store_remote(float* p, uint32_t rank,
+                                             float x) {
+  const uint32_t local =
+      static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote) : "r"(local), "r"(rank));
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(remote), "f"(x)
+               : "memory");
 }
 
-template <typename T>
-__global__ void __launch_bounds__(MT_THREADS, 2)
+template <typename T, int WGM, int WGK, int BN, int CH, int CK, bool VEC>
+__global__ void __launch_bounds__(Mat<T, WGM, WGK, BN, CH, CK>::THREADS,
+                                  WGK * CK == 1 ? 2 : 1)
 matrix_kernel(const T* __restrict__ a, const T* __restrict__ b,
               float* __restrict__ out, int M, int N, int D, long long sa,
               long long sb) {
-  __shared__ __align__(16) float as[TK][TMP];   // as[k][m]
-  __shared__ __align__(16) float bs[TK][TMP];   // bs[k][n]
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.y * TM, n0 = blockIdx.x * TM;
-  const int tm = (tid / (TM / 4)) * 4, tn = (tid % (TM / 4)) * 4;
-  // a warp whose outputs all lie past M or N (a small product) only stages
-  const bool live = m0 + tm < M && n0 + tn < N;
-  float acc[4][4] = {};
-  float ra[PER], rb[PER];
-  load_slice(a, b, ra, rb, M, N, D, sa, sb, m0, n0, 0);
-  for (int k0 = 0; k0 < D; k0 += TK) {
+  using L = Mat<T, WGM, WGK, BN, CH, CK>;
+  using OT = typename std::conditional<sizeof(T) == 4, hopper::TF32,
+                                       hopper::BF16>::type;
+  constexpr int BM = L::BM, R = L::R, NC = L::NC;
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int tid = threadIdx.x, wg = tid >> 7, wm = wg % WGM, wk = wg / WGM;
+  const int wt = tid & 127, z = blockIdx.z;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  if constexpr (CK > 1) cluster_arrive();  // waited for before the merge
+
+  // This thread's chunks of every slice: index tid + THREADS i of the tile,
+  // row idx % R (a's rows first, then b's), chunk idx / R; found once.
+  const T* src[NC];  // the row, or nullptr past M or N
+  int col[NC], dst[NC];
 #pragma unroll
-    for (int j = 0; j < PER; ++j) {
-      const int i = tid + j * MT_THREADS;
-      as[i % TK][i / TK] = ra[j];
-      bs[i % TK][i / TK] = rb[j];
+  for (int i = 0; i < NC; ++i) {
+    const int idx = tid + L::THREADS * i, row = idx % R, c = idx / R;
+    const int r = row < BM ? m0 + row : n0 + row - BM;
+    src[i] = row < BM ? (r < M ? a + r * sa : nullptr)
+                      : (r < N ? b + r * sb : nullptr);
+    col[i] = c * L::E;
+    dst[i] = hopper::chunk_offset(c, row, R);
+  }
+  uint4 x[NC];
+  auto load = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < NC; ++i)
+      x[i] = load_chunk<T, VEC>(src[i], k0 + col[i], D);
+  };
+  auto store = [&]() {
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      if constexpr (L::parts == 2) {
+        uint4 lo;
+        *reinterpret_cast<uint4*>(smem + dst[i]) = hopper::split4(x[i], lo);
+        *reinterpret_cast<uint4*>(smem + L::PB + dst[i]) = lo;
+      } else {
+        *reinterpret_cast<uint4*>(smem + dst[i]) = x[i];
+      }
+    }
+  };
+
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  const int first = z * L::BK;
+  if (first < D) {
+    load(first);
+    store();
+  }
+  hopper::fence_smem_to_async();
+  __syncthreads();
+  // wgmma descriptors of this warpgroup's first k-step: rows 64 wm of a,
+  // the BN rows of b
+  const uint64_t da = hopper::desc(smem + (wm * 64 + wk * 2 * R) * 16, R * 16);
+  const uint64_t db = hopper::desc(smem + (BM + wk * 2 * R) * 16, R * 16);
+  for (int k0 = first; k0 < D; k0 += CK * L::BK) {
+    const bool more = k0 + CK * L::BK < D;
+    if (more) load(k0 + CK * L::BK);  // in flight while this slice multiplies
+    hopper::pin<BN / 2>(acc);
+    hopper::fence();
+    // this warpgroup's k-steps wk, wk + WGK, ..., each two chunks of R rows
+    // (the slice's zeros past D add nothing)
+#pragma unroll
+    for (int j = 0; j < CH / 2 / WGK; ++j) {
+      const int off = j * WGK * 2 * R * 16;
+      const uint64_t ah = hopper::desc_at(da, off), bh = hopper::desc_at(db, off);
+      hopper::mma_ss<OT, BN>(acc, ah, bh, 1);
+      if constexpr (L::parts == 2) {
+        hopper::mma_ss<OT, BN>(acc, ah, hopper::desc_at(db, L::PB + off), 1);
+        hopper::mma_ss<OT, BN>(acc, hopper::desc_at(da, L::PB + off), bh, 1);
+      }
+    }
+    hopper::commit();
+    hopper::wait<0>();
+    hopper::pin<BN / 2>(acc);
+    if (more) {
+      __syncthreads();  // every product has read this slice
+      store();
+      hopper::fence_smem_to_async();
+      __syncthreads();
+    }
+  }
+
+  // The sums meet thread by thread (the same rows and columns): warpgroups
+  // wk > 0 hand theirs to wk = 0 through the operand tiles; then the
+  // cluster's blocks z > 0 theirs to block 0, into its own region.
+  if constexpr (WGK > 1) {
+    float* xs = reinterpret_cast<float*>(smem);
+    __syncthreads();
+    if (wk > 0) {
+      float* xw = xs + ((wk - 1) * WGM + wm) * (BN / 2) * 128 + wt;
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) xw[i * 128] = acc[i];
     }
     __syncthreads();
-    // the next slice's loads are in flight while this one is multiplied
-    if (k0 + TK < D) load_slice(a, b, ra, rb, M, N, D, sa, sb, m0, n0, k0 + TK);
-    if (live) {
-#pragma unroll 8
-      for (int k = 0; k < TK; ++k)
-        outer4(acc, *reinterpret_cast<const float4*>(&as[k][tm]),
-               *reinterpret_cast<const float4*>(&bs[k][tn]));
-    }
-    __syncthreads();
-  }
+    if (wk == 0) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + tm + i;
-    if (m >= M) break;
+      for (int w = 1; w < WGK; ++w) {
+        const float* xw = xs + ((w - 1) * WGM + wm) * (BN / 2) * 128 + wt;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tn + j;
-      if (n < N) out[(long long)m * N + n] = acc[i][j];
+        for (int i = 0; i < BN / 2; ++i) acc[i] += xw[i * 128];
+      }
     }
   }
+  if constexpr (CK > 1) {
+    float* xs = reinterpret_cast<float*>(smem + L::OPS);
+    cluster_wait();  // every block of the cluster is running
+    if (z > 0 && wk == 0) {
+      float* xw = xs + ((z - 1) * WGM + wm) * (BN / 2) * 128 + wt;
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) store_remote(xw + i * 128, 0, acc[i]);
+    }
+    cluster_sync();
+    if (z == 0 && wk == 0) {
+#pragma unroll
+      for (int w = 1; w < CK; ++w) {
+        const float* xw = xs + ((w - 1) * WGM + wm) * (BN / 2) * 128 + wt;
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) acc[i] += xw[i * 128];
+      }
+    }
+  }
+  if (wk > 0 || z > 0) return;
+
+  // rows 16 warp + lane / 4 (+ 8) of the warpgroup's 64, columns 8 i + 2 t
+  // (+ 1)
+  const int lane = tid & 31, t = lane & 3;
+  const int row = m0 + 64 * wm + 16 * (wt >> 5) + (lane >> 2);
+  const bool pairs = (N & 1) == 0;  // 8-byte stores stay aligned
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int m = row + 8 * half;
+    if (m >= M) continue;
+    float* orow = out + (long long)m * N;
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i) {
+      const int n = n0 + 8 * i + 2 * t;
+      const float x0 = acc[4 * i + 2 * half], x1 = acc[4 * i + 2 * half + 1];
+      if (pairs && n + 1 < N) {
+        *reinterpret_cast<float2*>(orow + n) = make_float2(x0, x1);
+      } else {
+        if (n < N) orow[n] = x0;
+        if (n + 1 < N) orow[n + 1] = x1;
+      }
+    }
+  }
+}
+
+template <typename T, int WGM, int WGK, int BN, int CH, int CK, bool VEC>
+int launch_matrix_tiles(const void* a, const void* b, float* out, int M,
+                        int N, int D, long long sa, long long sb,
+                        cudaStream_t stream) {
+  using L = Mat<T, WGM, WGK, BN, CH, CK>;
+  auto kernel = matrix_kernel<T, WGM, WGK, BN, CH, CK, VEC>;
+  static bool configured = false;  // the attribute is set once per instance
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::smem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + BN - 1) / BN, (M + L::BM - 1) / L::BM, CK);
+  cfg.blockDim = dim3(L::THREADS);
+  cfg.dynamicSmemBytes = L::smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = 1;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = CK;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const T*>(a), static_cast<const T*>(b), out,
+      M, N, D, sa, sb);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// Tiles by the size of the grid: 128 x 128 outputs from two warpgroups
+// when they fill the card's 132 SMs at least once; else 64 x 64 from two
+// warpgroups that split each 64-element slice of D, and, when even those
+// tiles leave SMs idle (the semantic path's 250 x 250 gives 16), a cluster
+// of 4 blocks per tile that split D's slices between them.
+template <typename T, bool VEC>
+int launch_matrix_vec(const void* a, const void* b, float* out, int M, int N,
+                      int D, long long sa, long long sb, cudaStream_t stream) {
+  constexpr int CH = 64 * sizeof(T) / 16;  // 64 elements a slice
+  const long long big = (long long)((M + 127) / 128) * ((N + 127) / 128);
+  const long long small = (long long)((M + 63) / 64) * ((N + 63) / 64);
+  if (big >= 132)
+    return launch_matrix_tiles<T, 2, 1, 128, 8, 1, VEC>(a, b, out, M, N, D,
+                                                        sa, sb, stream);
+  if (small >= 132)
+    return launch_matrix_tiles<T, 1, 2, 64, CH, 1, VEC>(a, b, out, M, N, D,
+                                                        sa, sb, stream);
+  return launch_matrix_tiles<T, 1, 2, 64, CH, 4, VEC>(a, b, out, M, N, D, sa,
+                                                      sb, stream);
 }
 
 template <typename T>
 int launch_matrix(const void* a, const void* b, float* out, int M, int N,
                   int D, long long sa, long long sb, cudaStream_t stream) {
-  const dim3 grid((N + TM - 1) / TM, (M + TM - 1) / TM);
-  matrix_kernel<T><<<grid, MT_THREADS, 0, stream>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b), out, M, N, D, sa, sb);
-  return cudaGetLastError();
+  constexpr int E = 16 / sizeof(T);
+  const bool vec = D % E == 0 && sa % E == 0 && sb % E == 0 &&
+                   reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(b) % 16 == 0;
+  if (vec) return launch_matrix_vec<T, true>(a, b, out, M, N, D, sa, sb, stream);
+  return launch_matrix_vec<T, false>(a, b, out, M, N, D, sa, sb, stream);
 }
 
 }  // namespace
@@ -225,7 +440,7 @@ extern "C" int cosine_matrix_fwd(const void* a, const void* b, float* out,
                                  int dtype, int M, int N, int D, long long sa,
                                  long long sb, void* stream) {
   if (M <= 0 || N <= 0 || D < 0 || sa < 0 || sb < 0 ||
-      (M + TM - 1) / TM > 65535)
+      (M + 63) / 64 > 65535)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_matrix<float>(a, b, out, M, N, D, sa, sb, st);

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface. It is compiled with
 ``nvcc`` for ``sm_90a`` into a shared library under ``build/kernels/`` at
 the root of the checkout and loaded with ``ctypes``. The library's file name
-carries a hash of the source and the flags, so an edited source is rebuilt
-and an unchanged one is reused. A failed build or load raises.
+carries a hash of the source, the ``csrc`` headers it includes and the
+flags, so an edited source or header is rebuilt and an unchanged one is
+reused. A failed build or load raises.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -36,9 +38,29 @@ def _nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources(path: Path, seen=None) -> list:
+    """``path`` and every file it includes with ``#include "..."`` from
+    ``csrc``, recursively, each once, in the order first reached."""
+    seen = [] if seen is None else seen
+    if path in seen:
+        return seen
+    seen.append(path)
+    for inc in _INCLUDE.findall(path.read_bytes()):
+        header = CSRC / inc.decode()
+        if header.is_file():
+            _sources(header, seen)
+    return seen
+
+
 def _library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256()
+    for path in _sources(CSRC / f"{name}.cu"):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

@@ -1,0 +1,134 @@
+"""Time the port's flash_attention and cosine_matrix kernels of two source
+trees on one CUDA card, in turns: A, B, B, A.
+
+    python3 src/repro_torch/kernels/bench_ab.py --a OLD_ROOT --b NEW_ROOT
+
+Each root is a checkout of this repository (``git archive <commit>``
+unpacked into a directory that .gitignore lists, for instance). Every turn
+is a fresh process that builds and imports that root's ``repro_torch`` and
+prints one JSON line: device ms per call (20 calls in a CUDA graph, timed
+with CUDA events) at the paths' shapes and long ones, the same for one
+PyTorch call computing the function (SDPA, ``torch.matmul``), and the
+wrapper's host time per call (mean of 200 calls, no synchronisation
+between them). The last line is a JSON summary: the mean of each number
+over each root's two turns, and the card's name and power limit.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+HEADS = (14, 2, 64)  # qwen2-0.5b at full width
+
+
+def cuda_ms(fn, reps=20):
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (5 * reps)
+
+
+def host_us(fn, calls=200):
+    fn()
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / calls * 1e6
+
+
+def one_turn(root):
+    """Times of ``root``'s kernels; returns a dict."""
+    sys.path.insert(0, os.path.join(root, "src"))
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import similarity as sim
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator("cuda").manual_seed(0)
+    out = {"root": root}
+    hq, hkv, d = HEADS
+    for dtype in (torch.float32, torch.bfloat16):
+        for s in (96, 2048):
+            def rn(*shape):
+                return (torch.randn(*shape, generator=gen, device="cuda")
+                        * 0.5).to(dtype)
+            q, k, v = rn(1, s, hq, d), rn(1, s, hkv, d), rn(1, s, hkv, d)
+            kw = dict(causal=True, window=0, q_offset=0, sk_valid=s)
+            name = f"flash {str(dtype)[6:]} S={s}"
+            out[name] = cuda_ms(lambda: fa.flash_attention(q, k, v, **kw))
+            out[name + " sdpa"] = cuda_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    is_causal=True, enable_gqa=True))
+            if s == 96:
+                out[name + " host_us"] = host_us(
+                    lambda: fa.flash_attention(q, k, v, **kw))
+    for dtype in (torch.float32, torch.bfloat16):
+        for m in (16, 250, 4096):
+            x = torch.randn(m, 256, generator=gen, device="cuda")
+            a = (x / x.norm(dim=1, keepdim=True)).to(dtype)
+            name = f"cosine {str(dtype)[6:]} {m}x{m}x256"
+            out[name] = cuda_ms(lambda: sim.cosine_matrix(a, a))
+            out[name + " matmul"] = cuda_ms(lambda: torch.matmul(a, a.T))
+            if m == 250 and dtype == torch.float32:
+                out[name + " host_us"] = host_us(
+                    lambda: sim.cosine_matrix(a, a))
+    return out
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--a", help="first root")
+    ap.add_argument("--b", help="second root")
+    ap.add_argument("--one", help="time this root in this process")
+    args = ap.parse_args()
+    if args.one:
+        print(json.dumps(one_turn(os.path.abspath(args.one))), flush=True)
+        return
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("bench_ab: no CUDA device")
+    turns = []
+    for root in (args.a, args.b, args.b, args.a):
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--one",
+             os.path.abspath(root)], capture_output=True, text=True,
+            check=True)
+        line = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(json.dumps(line), flush=True)
+        turns.append(line)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    summary = {"card": smi}
+    for tag, pair in (("a", (turns[0], turns[3])), ("b", (turns[1], turns[2]))):
+        summary[tag] = {key: (pair[0][key] + pair[1][key]) / 2
+                        for key in pair[0] if key != "root"}
+        summary[tag]["root"] = pair[0]["root"]
+    print(json.dumps(summary))
+
+
+if __name__ == "__main__":
+    main()

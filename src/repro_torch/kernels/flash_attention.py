@@ -4,7 +4,9 @@
 The kernel replaces the Pallas TPU kernel ``repro.kernels.flash_attention``.
 It takes the model layout (B, S, H, D) through strides, so the wrapper makes
 no transposed copy; it masks the ragged tile edges itself, so nothing is
-padded. ``plain`` is the same function in plain PyTorch
+padded. Its rows are read as 16-byte vectors: the wrapper raises on a tensor
+whose rows do not start 16-byte aligned (the model's tensors and its
+layer-stacked cache slices do at head_dim 16 and 64). ``plain`` is the same function in plain PyTorch
 (``kernels.ref.attention_ref``); the wrapper never falls back to it.
 """
 from __future__ import annotations
@@ -33,6 +35,18 @@ def _fn():
     return fn
 
 
+def rows_aligned(*tensors) -> bool:
+    """Whether every (batch, position, head) row of the tensors starts
+    16-byte aligned: their data pointers and their batch, position and head
+    strides in bytes are multiples of 16. One OR over all of them, as the
+    check runs on every prefill call."""
+    bits = 0
+    for t in tensors:
+        s0, s1, s2 = t.stride()[:3]
+        bits |= t.data_ptr() | (s0 | s1 | s2) * t.element_size()
+    return bits % 16 == 0
+
+
 def _check_inputs(q, k, v):
     """Raise on what the kernel does not take."""
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -54,6 +68,9 @@ def _check_inputs(q, k, v):
                          f"v {tuple(v.shape)} do not match")
     if d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d} not supported; take {HEAD_DIMS}")
+    if not rows_aligned(q, k, v):
+        raise ValueError("q, k and v rows must start 16-byte aligned (data "
+                         "pointers and strides)")
     if k.shape[2] == 0 or hq % k.shape[2]:
         raise ValueError(f"{hq} query heads do not group over {k.shape[2]} "
                          f"KV heads")

@@ -5,6 +5,13 @@ Pallas kernel bodies in interpret mode (``repro.kernels.ops``). The
 parametrizations and tolerances are those of ``tests/test_kernels.py``:
 fp32 2e-5 (sums taken in another order), bf16 2e-2 (one bf16 rounding of
 the output). The kernel-vs-plain cases need the card and skip without one.
+
+The Hopper kernel multiplies on the tensor cores: bf16 as bf16, fp32 as
+3xTF32 (each operand split into a TF32 high and low part, the product
+summed as hi*hi + hi*lo + lo*hi), and P in bf16 as a high and a low bf16
+part. The emulation tests below hold that arithmetic, done in torch on the
+CPU, to the tolerances ``chip_smoke.py`` holds the kernel to, and show that
+the cheaper forms (one TF32 product; P rounded once to bf16) would not.
 """
 import numpy as np
 import pytest
@@ -202,6 +209,125 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         dec.decode_attention(q[:, :1], q, q, torch.ones(1, dtype=torch.int32))
 
 
+def tf32(x):
+    """x (fp32) rounded to TF32 as ``cvt.rna.tf32.f32`` does: 10 mantissa
+    bits, to nearest, ties away from zero."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_read(x):
+    """x as wgmma reads a TF32 operand held in an fp32 register: its top 19
+    bits, the rest dropped."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def tf32_product(a, b, passes):
+    """a @ b in fp32 from TF32 parts as the kernel forms them: 1 pass hi*hi;
+    3 passes hi*hi + hi*lo + lo*hi, hi = x rounded to TF32 and lo = x - hi
+    as wgmma reads it."""
+    ah, bh = tf32(a), tf32(b)
+    if passes == 1:
+        return ah @ bh
+    al, bl = tf32_read(a - ah), tf32_read(b - bh)
+    return ah @ bh + ah @ bl + al @ bh
+
+
+def emulated_attention(q, k, v, passes):
+    """Causal attention of (S, Hq, D) fp32 q over (S, Hkv, D) k and v, both
+    products from TF32 parts, softmax in fp32; one head at a time."""
+    s, hq, d = q.shape
+    g = hq // k.shape[1]
+    mask = torch.ones(s, s, dtype=torch.bool).tril()
+    out = torch.empty_like(q)
+    for h in range(hq):
+        sc = tf32_product(q[:, h], k[:, h // g].T.contiguous(), passes)
+        sc = (sc * d ** -0.5).masked_fill(~mask, float("-inf"))
+        p = torch.exp(sc - sc.amax(dim=1, keepdim=True))
+        out[:, h] = tf32_product(p, v[:, h // g], passes) / p.sum(dim=1,
+                                                                   keepdim=True)
+    return out
+
+
+@pytest.mark.parametrize("s", [96, 2048])
+def test_three_tf32_attention_holds_fp32_tolerance(s):
+    """At qwen2-0.5b's heads (14 over 2, D 64), inputs 0.5 N(0, 1), the
+    prefill path's S = 96 and the smoke's long 2048: 3xTF32 stays within the
+    fp32 tolerance (2e-5) of attention in fp64; one TF32 product does not,
+    so the split is needed."""
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(s)
+    q, k, v = (torch.from_numpy(randn(rng, s, h, 64)) for h in (14, 2, 2))
+    exact = ref.attention_ref(*(x[None].double() for x in (q, k, v)))[0]
+    err3 = (emulated_attention(q, k, v, 3).double() - exact).abs().max()
+    err1 = (emulated_attention(q, k, v, 1).double() - exact).abs().max()
+    assert err3 <= 2e-5 < err1
+
+
+def test_bf16_p_needs_high_and_low_parts():
+    """bf16 attention at S = 2048 over qwen2-0.5b's heads: P fed to P V as
+    a high and a low bf16 part holds the bf16 tolerance (1e-5 + 2^-7
+    |plain|, element by element) against the plain version; P rounded once
+    to bf16, as FlashAttention-3 feeds it, does not."""
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(14)
+    q, k, v = (torch.from_numpy(randn(rng, 2048, h, 64)).bfloat16()
+               for h in (14, 2, 2))
+    plain = ref.attention_ref(q[None], k[None], v[None])[0].float()
+    mask = torch.ones(2048, 2048, dtype=torch.bool).tril()
+    worst = {"split": 0, "once": 0}
+    for h in range(14):
+        sc = (q[:, h].float() @ k[:, h // 7].float().T) * 64 ** -0.5
+        sc = sc.masked_fill(~mask, float("-inf"))
+        p = torch.exp(sc - sc.amax(dim=1, keepdim=True))
+        hi = p.bfloat16().float()
+        lo = (p - hi).bfloat16().float()
+        for name, pp in (("split", hi + lo), ("once", hi)):
+            o = ((pp @ v[:, h // 7].float()) / p.sum(dim=1, keepdim=True))
+            err = (o.bfloat16().float() - plain[:, h]).abs()
+            bad = err > 1e-5 + 2.0 ** -7 * plain[:, h].abs()
+            worst[name] += int(bad.sum())
+    assert worst["split"] == 0 and worst["once"] > 0
+
+
+def test_library_name_follows_included_headers(tmp_path, monkeypatch):
+    """A source's library is rebuilt when a ``csrc`` header it includes
+    changes: the hash covers the headers, and only the sources that include
+    an edited header get a new name."""
+    import shutil
+
+    from repro_torch.kernels import _build
+    assert [p.name for p in _build._sources(
+        _build.CSRC / "flash_attention.cu")] == ["flash_attention.cu",
+                                                 "hopper.cuh"]
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {n: _build._library_path(n) for n in _build.SOURCES}
+    header = csrc / "hopper.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: _build._library_path(n) for n in _build.SOURCES}
+    assert {n for n in before if before[n] != after[n]} == {
+        "flash_attention", "similarity"}
+
+
+def test_flash_rows_must_be_16_byte_aligned():
+    """The kernel reads q, k and v rows as 16-byte vectors: the model's
+    tensors and a layer-stacked cache's slices pass the wrapper's check, a
+    view whose rows start off a 16-byte boundary does not."""
+    from repro_torch.kernels import flash_attention as fa
+    for d in fa.HEAD_DIMS:
+        cache = torch.zeros(3, 2, 40, 2, d)
+        assert fa.rows_aligned(cache[1]) and fa.rows_aligned(
+            torch.zeros(2, 40, 14, d))
+        assert fa.rows_aligned(cache[1].bfloat16())
+    wide = torch.zeros(1, 16, 2, 18)
+    assert not fa.rows_aligned(wide[..., 1:17])
+    assert not fa.rows_aligned(wide[..., :16])      # rows 72 bytes apart
+    assert not fa.rows_aligned(torch.zeros(1, 16, 2, 16), wide[..., :16])
+    assert fa.rows_aligned(torch.zeros(1, 1, 1, 16)[..., :16])
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -229,12 +355,21 @@ def test_kernels_match_plain_on_card(cuda, dtype, hq, hkv, d):
     def rn(*shape):
         return (torch.randn(*shape, generator=g, device=cuda) * 0.5).to(td)
 
-    q, k, v = rn(2, 40, hq, d), rn(2, 40, hkv, d), rn(2, 40, hkv, d)
-    for causal, window in ((True, 0), (True, 24), (False, 24)):
-        kw = dict(causal=causal, window=window, q_offset=0, sk_valid=40)
+    # (S, causal, window, q_offset, sk_valid): S = 200 spans four 64-key
+    # tiles with a ragged last one; q_offset and sk_valid move the masks off
+    # the tile edges; q_offset -6 leaves the first 6 rows with no key
+    cases = [(40, True, 0, 0, 40), (40, True, 24, 0, 40), (40, False, 24, 0, 40),
+             (200, True, 0, 0, 200), (40, True, 0, 5, 33), (40, True, 8, -6, 37),
+             (40, False, 0, 3, 20), (200, True, 0, 9, 180)]
+    for s, causal, window, q_offset, sk_valid in cases:
+        q, k, v = rn(2, s, hq, d), rn(2, s, hkv, d), rn(2, s, hkv, d)
+        kw = dict(causal=causal, window=window, q_offset=q_offset,
+                  sk_valid=sk_valid)
         got = fa.flash_attention(q, k, v, **kw)
         torch.testing.assert_close(got.float(), fa.plain(q, k, v, **kw).float(),
                                    atol=atol, rtol=rtol)
+        if q_offset < 0:
+            assert torch.all(got[:, :-q_offset] == 0)
     cache = rn(2, 4, 160, hkv, d)         # (L, B, S, Hkv, D): read slices
     qd = rn(4, 1, hq, d)
     lens = torch.tensor([0, 1, 77, 160], dtype=torch.int32, device=cuda)

@@ -6,6 +6,13 @@ run the kernels' plain versions; the JAX side runs the Pallas kernel bodies
 in interpret mode. Both sum fp32 products, in another order: atol 1e-5, as
 ``tests/test_kernels.py`` holds the Pallas kernels against their reference.
 The kernel-vs-plain cases need the card and skip without one.
+
+The Hopper ``cosine_matrix`` multiplies fp32 rows as 3xTF32 on the tensor
+cores (each value split into its TF32 rounding hi and the rest lo, which
+wgmma reads truncated to TF32, the product summed as hi*hi + hi*lo +
+lo*hi); the emulation test below holds that arithmetic,
+done in torch on the CPU, to the 1e-5 tolerance and shows that one TF32
+product would not hold it.
 """
 import numpy as np
 import pytest
@@ -105,6 +112,35 @@ def test_semantic_equal_batch_matches_jax():
     assert got[0]
 
 
+def tf32(x):
+    """x (fp32) rounded to TF32 as ``cvt.rna.tf32.f32`` does: 10 mantissa
+    bits, to nearest, ties away from zero."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_read(x):
+    """x as wgmma reads a TF32 operand held in an fp32 register: its top 19
+    bits, the rest dropped."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+@pytest.mark.parametrize("m,n", [(250, 250), (4096, 4096)])
+def test_three_tf32_cosines_hold_fp32_tolerance(m, n):
+    """Unit rows of the embedder's width (256), at the semantic path's
+    250 x 250 and the smoke's 4096 x 4096: 3xTF32 stays within 1e-5 of the
+    cosines in fp64; one TF32 product does not."""
+    rng = np.random.default_rng(m)
+    a, b = (torch.from_numpy(unit_rows(rng, r, 256)) for r in (m, n))
+    exact = a.double() @ b.double().T
+    ah, bh = tf32(a), tf32(b)
+    al, bl = tf32_read(a - ah), tf32_read(b - bh)   # lo = x - hi, as read
+    three = ah @ bh.T + ah @ bl.T + al @ bh.T
+    err3 = (three.double() - exact).abs().max()
+    err1 = ((ah @ bh.T).double() - exact).abs().max()
+    assert err3 <= 1e-5 < err1
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -132,10 +168,16 @@ def test_kernel_matches_plain_on_card(cuda, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cosine_matrix_kernel_matches_plain_on_card(cuda, dtype):
-    """The shapes of tests/test_kernels.py, a ragged D (250) and M = 0; both
-    sum in fp32, in another order."""
+    """The shapes of tests/test_kernels.py, the semantic path's 250 x 250,
+    ragged M, N and D (D = 250 and 33 are read element by element), each
+    of the kernel's tilings (clusters of blocks up to 250 x 250, 64 x 64
+    tiles at 1000 x 1000, 128 x 128 tiles at 2048 x 1100), D = 0 and M = 0;
+    both sum in fp32, in another order."""
     g = torch.Generator(cuda).manual_seed(0)
-    for m, n, d in MATRIX_SHAPES + [(37, 45, 250), (600, 130, 256)]:
+    for m, n, d in MATRIX_SHAPES + [(37, 45, 250), (600, 130, 256),
+                                    (250, 250, 256), (300, 7, 33),
+                                    (1000, 1000, 256), (2048, 1100, 200),
+                                    (2048, 1100, 250)]:
         a = torch.randn(m, d, generator=g, device=cuda)
         b = torch.randn(n, d, generator=g, device=cuda)
         a = (a / a.norm(dim=1, keepdim=True)).to(dtype)
@@ -143,4 +185,8 @@ def test_cosine_matrix_kernel_matches_plain_on_card(cuda, dtype):
         torch.testing.assert_close(sim.cosine_matrix(a, b),
                                    sim.plain_matrix(a, b), atol=1e-5, rtol=0)
     empty = torch.zeros(0, 256, device=cuda, dtype=dtype)
-    assert sim.cosine_matrix(empty, b).shape == (0, b.shape[0])
+    rows = torch.zeros(7, 256, device=cuda, dtype=dtype)
+    assert sim.cosine_matrix(empty, rows).shape == (0, 7)
+    no_d = torch.zeros(5, 0, device=cuda, dtype=dtype)
+    assert torch.equal(sim.cosine_matrix(no_d, no_d),
+                       torch.zeros(5, 5, device=cuda))
