@@ -12,7 +12,10 @@ non-zero):
    fp32 and bf16. The attention kernels run over qwen2-0.5b's heads (14
    query over 2 KV, head_dim 64; reduced: 4 over 2, head_dim 16) at every
    prefill length the serve and semantic phases give them (16 to 160) and
-   at longer ones; ``rowwise_cosine`` over 256-wide unit rows at 1 to 18891
+   at longer ones, ``decode_attention`` also at every cache length at the
+   edges of its 32-key tiles (0, 1, 31-33, 63-65, S) over groups of 1, 7 and
+   16 and through unaligned rows; ``rowwise_cosine`` over 256-wide unit
+   rows at 1 to 18891
    rows (the whole ``game`` table), against full rows and against one
    anchor row; ``ssd_scan`` over mamba2-1.3b's heads (64 of head_dim 64,
    d_state 128, one group; reduced: 8 of 16, d_state 16) at every prefill
@@ -32,7 +35,8 @@ non-zero):
 5. cross-check: one prompt's prefill logits on the card (kernels) against the
    same weights on the CPU (plain path), fp32.
 6. profile: torch.profiler over 4 more requests on the served engine; the
-   card's busy and idle share and its time by kind of kernel.
+   card's busy and idle share, its time by kind of kernel, and the device
+   kernels of ``decode_attention`` per decode tick (one per layer: 24).
 7. serve_ssm, cross_check_ssm, profile_ssm: phases 4-6 for full-width
    mamba2-1.3b (48 layers, d_model 2048, 64 SSM heads, vocab 50280): every
    prefill must launch ``ssd_scan`` once per layer and nothing else; the
@@ -268,10 +272,55 @@ def flash_cases():
 
 DECODE_CASES = [(FULL_HEADS, b, s) for b in (4, 32) for s in (160, 4096)] \
     + [(REDUCED_HEADS, 4, 160)]
+# cache lengths at the kernel's edges: none, one key, either side of its
+# 32-key tiles and of two of them, the whole cache; over groups of 1, 7
+# (qwen2-0.5b) and 16 (the largest) at head_dim 64, and the reduced heads
+DECODE_EDGE_LENS = (0, 1, 31, 32, 33, 63, 64, 65, 160)
+DECODE_EDGE_HEADS = [(2, 2, 64), (14, 2, 64), (32, 2, 64), REDUCED_HEADS]
+
+
+def check_decode(gen, dtype, failures):
+    """decode_attention against its plain version: random lengths in [1, S]
+    with one slot of 1, one of S and one of 0 (which must give exactly 0)
+    at DECODE_CASES; every DECODE_EDGE_LENS at once over DECODE_EDGE_HEADS,
+    the cache read as a slice of a layer-stacked tensor and, once per
+    head_dim, through rows that are not 16-byte aligned (the element-wise
+    loads)."""
+    from repro_torch.kernels import decode_attention as dec
+    cases = [("ragged", heads, b, s, None) for heads, b, s in DECODE_CASES]
+    cases += [("edges", heads, len(DECODE_EDGE_LENS), 160, DECODE_EDGE_LENS)
+              for heads in DECODE_EDGE_HEADS]
+    cases += [("unaligned", heads, len(DECODE_EDGE_LENS), 160,
+               DECODE_EDGE_LENS) for heads in (FULL_HEADS, REDUCED_HEADS)]
+    for case, (hq, hkv, d), b, s, edge in cases:
+        q, kc, vc = attn_inputs(gen, b, s, hq, hkv, d, dtype, layers=2)
+        q = q[:, :1]
+        if case == "unaligned":  # rows d + 1 elements apart
+            kc, vc = (torch.randn(b, s, hkv, d + 1, generator=gen,
+                                  device="cuda").to(dtype)[..., 1:]
+                      for _ in range(2))
+        if edge is None:
+            lens = torch.randint(1, s + 1, (b,), generator=gen,
+                                 device="cuda").to(torch.int32)
+            lens[0], lens[1], lens[2] = 1, s, 0
+        else:
+            lens = torch.tensor(edge, dtype=torch.int32, device="cuda")
+        got = dec.decode_attention(q, kc, vc, lens)
+        err, ok = held(got, dec.plain(q, kc, vc, lens), dtype)
+        empty = (lens == 0).nonzero().flatten().tolist()
+        zero = max([got[i].abs().max().item() for i in empty] + [0.0])
+        ok = ok and zero == 0.0
+        emit({"phase": "kernel", "kernel": "decode_attention",
+              "case": case, "dtype": str(dtype), "B": b, "S": s,
+              "Hq": hq, "Hkv": hkv, "D": d,
+              "cache_len": lens.tolist()[:9], "max_abs_err": err,
+              "zero_len_row_max": zero, "tol": tol_text(dtype), "ok": ok})
+        if not ok:
+            failures.append(("decode_attention", case, str(dtype), b, s, hq,
+                             d, err))
 
 
 def phase_kernels():
-    from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator("cuda").manual_seed(0)
     failures = []
@@ -292,23 +341,7 @@ def phase_kernels():
                   "tol": tol_text(dtype), "ok": ok})
             if not ok:
                 failures.append(("flash_attention", case, str(dtype), s, d, err))
-        for (hq, hkv, d), b, s in DECODE_CASES:
-            q, kc, vc = attn_inputs(gen, b, s, hq, hkv, d, dtype, layers=2)
-            q = q[:, :1]
-            lens = torch.randint(1, s + 1, (b,), generator=gen,
-                                 device="cuda").to(torch.int32)
-            lens[0], lens[1], lens[2] = 1, s, 0
-            got = dec.decode_attention(q, kc, vc, lens)
-            err, ok = held(got, dec.plain(q, kc, vc, lens), dtype)
-            zero = got[2].abs().max().item()
-            ok = ok and zero == 0.0
-            emit({"phase": "kernel", "kernel": "decode_attention",
-                  "case": "ragged", "dtype": str(dtype), "B": b, "S": s,
-                  "Hq": hq, "Hkv": hkv, "D": d,
-                  "cache_len": lens.tolist()[:8], "max_abs_err": err,
-                  "zero_len_row_max": zero, "tol": tol_text(dtype), "ok": ok})
-            if not ok:
-                failures.append(("decode_attention", str(dtype), b, s, d, err))
+        check_decode(gen, dtype, failures)
         check_rowwise(gen, dtype, failures)
         check_ssd(gen, dtype, failures)
         check_matrix(gen, dtype, failures)
@@ -775,9 +808,11 @@ def profiled(run):
     by_kind = {"attention kernels": 0.0, "ssd_scan": 0.0,
                "rowwise_cosine": 0.0, "cosine_matrix": 0.0, "matmul": 0.0,
                "other": 0.0}
+    decode_kernels = 0
     for start, stop, name in spans:
         busy += max(0.0, stop - max(start, end))
         end = max(end, stop)
+        decode_kernels += "decode_" in name
         kind = ("attention kernels" if "flash_fwd" in name or "decode_" in name
                 else "ssd_scan" if "ssd_scan_kernel" in name
                 else "rowwise_cosine" if "rowwise_kernel" in name
@@ -788,12 +823,14 @@ def profiled(run):
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
             "device_idle_share": 1.0 - busy / wall_us,
             "device_ms_by_kind": {k: v / 1e3 for k, v in by_kind.items()},
-            "device_kernels": len(spans)}
+            "device_kernels": len(spans), "decode_kernels": decode_kernels}
 
 
 def phase_profile(engine, phase="profile"):
     """Where serve time goes: torch.profiler over 4 more requests (prefills
-    and decode ticks) on the served engine."""
+    and decode ticks) on the served engine. The device kernels per decode
+    tick show that ``decode_attention`` is one kernel per layer: the count
+    of kernels named ``decode_*`` must be layers x ticks."""
     from repro_torch.engine import ContinuousBatcher
     from repro_torch.launch.serve import DEMO_PROMPTS
     batcher = ContinuousBatcher(engine)
@@ -801,10 +838,18 @@ def phase_profile(engine, phase="profile"):
         batcher.submit(DEMO_PROMPTS[i], max_new_tokens=8)
     before = dict(engine.stats)
     activity = profiled(batcher.run)
+    ticks = engine.stats["decode_steps"] - before["decode_steps"]
+    attn_layers = (engine.bundle.cfg.n_layers
+                   if "attn" in engine.params["layers"] else 0)
     emit({"phase": phase, "requests": 4,
           "prefills": engine.stats["prefills"] - before["prefills"],
-          "decode_steps": engine.stats["decode_steps"]
-          - before["decode_steps"], **activity})
+          "decode_steps": ticks, **activity,
+          "decode_kernels_per_tick":
+              activity["decode_kernels"] / max(ticks, 1)})
+    if activity["decode_kernels"] != attn_layers * ticks:
+        raise AssertionError(
+            f"{phase}: {activity['decode_kernels']} decode_attention device "
+            f"kernels over {ticks} ticks, expected one per attention layer")
 
 
 def run_semantic(flags):

@@ -3,34 +3,63 @@
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/decode_attention.py
 // (decode_attention, body _kernel). Same function: query head h reads KV
-// head h / (Hq / Hkv) for any integer group; keys at or beyond cache_len[b]
-// are masked; cache_len[b] = 0 gives 0.
+// head h / (Hq / Hkv) for any integer group up to 16; keys at or beyond
+// cache_len[b] are masked; cache_len[b] = 0 gives 0.
 //
-// What bounds it on an H100: bytes. Every valid K and V row streams from
-// device memory once and takes ~4 FLOPs per byte read at fp32, far below
-// the ~20 FLOP/byte where the CUDA cores would become the limit. What the
-// design does about it:
-// * flash-decoding: the TPU merged split-K blocks in order along a
-//   sequential grid axis; here the splits of 64 keys run in parallel across
-//   the SMs (pass 1, one block per split, KV head and sequence) and a second
-//   pass merges their (max, sum, accumulator) partials, so a short batch
-//   still fills the card;
+// What bounds it on an H100: at the path's shape (4 slots of a 160-entry
+// cache, 14 query heads over 2 KV heads of 64, ~340 valid entries) the
+// bytes (~0.35 MB, 0.1 us at 3.35 TB/s) are far below one launch, so
+// latency: the launch, the first load's trip to memory, and the longest
+// chain of dependent steps in a block. At the long shape (32 slots of a
+// 4096-entry cache, 67,584 valid entries, 69 MB) bytes: every valid K and
+// V row streams from memory once at ~4 FLOPs per byte, far below what the
+// CUDA cores need to become the limit, so the FMAs stay on the CUDA cores
+// (fp32-exact; mma's 16-row tiles would idle 9 of a group's 16 rows at
+// qwen2-0.5b's group of 7). What the design does about it:
+// * one launch, no scratch (the first version launched a split pass and a
+//   merge pass, with partials in device memory): one block, or a
+//   thread-block cluster of up to 8 blocks, serves one (KV head,
+//   sequence); each of a block's 4 warps takes every (4 x ranks)-th tile of
+//   32 keys and keeps its own online-softmax state (max, sum, accumulator)
+//   for all query heads of the group; the warps merge in shared memory,
+//   the blocks through distributed shared memory into the cluster's first
+//   block, which writes the output. A short cache (the path's) gets one
+//   block, since a cluster's barriers cost more than a warp's second tile;
+//   a long one a cluster, to fill the card (ranks_for);
+// * the group's rows are rounded up to a power of two at compile time
+//   (7 -> 8 at qwen2-0.5b), so no row of the unrolled loops is predicated
+//   off;
+// * each warp streams its tiles through its own two-stage ring in shared
+//   memory with 16-byte cp.async copies (zero-filled past cache_len), so
+//   the next tile's loads are in flight while this one is multiplied and
+//   warps never wait on each other until the merge;
 // * one block serves all query heads of its KV head's group, so each K/V
-//   row is read from memory once, not once per query head;
-// * cache_len is read on the device and splits at or beyond it return at
-//   once, so the bytes moved follow the valid lengths, not the cache size;
+//   row is read from memory once, not once per query head; a lane holds
+//   one key's scores for the whole group, then the output columns of the
+//   group, so both products are chains of independent FMAs with operands
+//   read from shared memory without bank conflicts (rows padded by 16
+//   bytes);
+// * cache_len is read on the device and tiles at or beyond it are never
+//   loaded, so the bytes moved follow the valid lengths, not the cache size;
 // * the engine's (B, S, Hkv, D) cache slice is read in place through its
-//   strides, with no transposed or contiguous copy.
+//   strides, with no transposed or contiguous copy; rows that are not
+//   16-byte aligned are loaded element by element.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int CHUNK = 64;                    // keys per split (two per lane)
-constexpr int GMAX = 16;                     // largest query-head group
+constexpr int KEYS = 32;       // keys per tile: one a lane
+constexpr int GMAX = 16;       // largest query-head group
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
+constexpr int STAGES = 2;      // tiles in flight per warp
+constexpr int MAX_RANKS = 8;   // blocks per cluster (the portable limit)
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct Args {
   const void* q;
@@ -38,12 +67,30 @@ struct Args {
   const void* v;
   const int* cache_len;
   void* o;
-  float* part_acc;                           // (B, Hq, nsplit, D)
-  float* part_m;                             // (B, Hq, nsplit)
-  float* part_l;                             // (B, Hq, nsplit)
-  int S, Hq, Hkv, nsplit;
+  int S, g, ranks;
   long long q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_sh;
-  float scale;
+  float scale;  // D^-0.5 log2(e): scores in log2 units, exps as ex2
+};
+
+template <typename T, int D>
+struct Lay {
+  static constexpr int E = 16 / sizeof(T);            // elements per chunk
+  static constexpr int CPR = D / E;                   // chunks per row
+  static constexpr int ROW = D + E;                   // smem row, padded
+  static constexpr int TILE = KEYS * ROW * sizeof(T); // K or V of a tile
+  static constexpr int STAGE = 2 * TILE;
+  static constexpr int RING = WARPS * STAGES * STAGE;
+  static constexpr int QS = GMAX * D * 4;             // q, pre-scaled fp32
+  static constexpr int PS = WARPS * GMAX * KEYS * 4;  // each warp's P
+  static constexpr int STATE = GMAX * (D + 2) * 4;    // acc rows, m, l
+  // output columns a lane holds, lanes per row, rows between a lane's rows
+  static constexpr int COLS = D >= 32 ? D / 32 : 1;
+  static constexpr int CW = D / COLS;
+  static constexpr int RSTEP = 32 / CW;
+  static size_t smem(int ranks) {
+    return RING + QS + PS + static_cast<size_t>(ranks) * STATE;
+  }
+  static_assert(STAGES * STAGE >= STATE, "a warp's state fits its ring");
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -59,6 +106,30 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+// COLS consecutive elements as floats.
+template <int COLS>
+__device__ __forceinline__ void ldc(const float* p, float (&x)[COLS]) {
+  if constexpr (COLS == 2) {
+    const float2 u = *reinterpret_cast<const float2*>(p);
+    x[0] = u.x;
+    x[1] = u.y;
+  } else {
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) x[c] = p[c];
+  }
+}
+template <int COLS>
+__device__ __forceinline__ void ldc(const __nv_bfloat16* p, float (&x)[COLS]) {
+  if constexpr (COLS == 2) {
+    const float2 u = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    x[0] = u.x;
+    x[1] = u.y;
+  } else {
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) x[c] = __bfloat162float(p[c]);
+  }
+}
+
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
@@ -70,154 +141,341 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-__device__ __forceinline__ int valid_len(const Args& a, int b) {
-  return max(0, min(a.cache_len[b], a.S));
+// 2^(m - mx), 0 for a state that has seen no key (m = -inf).
+__device__ __forceinline__ float weight(float m, float mx) {
+  return m == -INFINITY ? 0.f : hopper::ex2(m - mx);
 }
 
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (GMAX * D + CHUNK * (D + 1) + CHUNK * D + GMAX * CHUNK);
-}
-
-// Pass 1: one block per (split, KV head, sequence).
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) decode_split(Args a) {
-  const int sp = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
-  const int k0 = sp * CHUNK;
-  const int len = valid_len(a, b);
-  if (k0 >= len) return;                     // nothing valid in this split
-  const int n = min(CHUNK, len - k0);
-  const int g = a.Hq / a.Hkv;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-
-  extern __shared__ float smem[];
-  float* Qs = smem;                          // [g][D], pre-scaled
-  float* Ks = Qs + GMAX * D;                 // [CHUNK][D + 1]
-  float* Vs = Ks + CHUNK * (D + 1);          // [CHUNK][D]
-  float* Ps = Vs + CHUNK * D;                // [g][CHUNK]
-
-  const T* qp = static_cast<const T*>(a.q) + b * a.q_sb + hk * g * a.q_sh;
-  const T* kp = static_cast<const T*>(a.k) + b * a.k_sb + hk * a.k_sh;
-  const T* vp = static_cast<const T*>(a.v) + b * a.v_sb + hk * a.v_sh;
-  for (int i = tid; i < g * D; i += THREADS) {
-    const int j = i / D, c = i % D;
-    Qs[i] = to_f(qp[j * a.q_sh + c]) * a.scale;
-  }
-  for (int i = tid; i < CHUNK * D; i += THREADS) {
-    const int r = i / D, c = i % D;
-    const bool in = r < n;
-    Ks[r * (D + 1) + c] = in ? to_f(kp[(k0 + r) * a.k_ss + c]) : 0.f;
-    Vs[r * D + c] = in ? to_f(vp[(k0 + r) * a.v_ss + c]) : 0.f;
-  }
-  __syncthreads();
-
-  for (int i = tid; i < g * CHUNK; i += THREADS) {
-    const int j = i / CHUNK, kk = i % CHUNK;
-    float s = 0.f;
-#pragma unroll 8
-    for (int c = 0; c < D; ++c) s = fmaf(Qs[j * D + c], Ks[kk * (D + 1) + c], s);
-    Ps[i] = kk < n ? s : -INFINITY;
-  }
-  __syncthreads();
-
-  const long long part = ((long long)b * a.Hq + hk * g) * a.nsplit + sp;
-  for (int j = warp; j < g; j += WARPS) {
-    const float s0 = Ps[j * CHUNK + lane], s1 = Ps[j * CHUNK + lane + 32];
-    const float mx = warp_max(fmaxf(s0, s1));  // n >= 1: finite
-    const float p0 = lane < n ? expf(s0 - mx) : 0.f;
-    const float p1 = lane + 32 < n ? expf(s1 - mx) : 0.f;
-    const float sum = warp_sum(p0 + p1);
-    Ps[j * CHUNK + lane] = p0;
-    Ps[j * CHUNK + lane + 32] = p1;
-    if (lane == 0) {
-      a.part_m[part + (long long)j * a.nsplit] = mx;
-      a.part_l[part + (long long)j * a.nsplit] = sum;
+// One warp's K and V rows k0 .. k0 + KEYS of the cache into a ring stage,
+// rows at or past len as zeros: 16-byte cp.async copies (in flight until
+// cp_wait), or element by element where the rows are not 16-byte aligned.
+template <typename T, int D, bool VEC>
+__device__ __forceinline__ void load_tile(uint8_t* stage, const T* kp,
+                                          const T* vp, const Args& a, int k0,
+                                          int len, int lane) {
+  using Ly = Lay<T, D>;
+#pragma unroll
+  for (int i = lane; i < KEYS * Ly::CPR; i += 32) {
+    const int r = i / Ly::CPR, c = (i % Ly::CPR) * Ly::E;
+    const bool in = k0 + r < len;
+    const long long row = in ? k0 + r : 0;
+    T* dk = reinterpret_cast<T*>(stage) + r * Ly::ROW + c;
+    T* dv = dk + Ly::TILE / sizeof(T);
+    const T* sk = kp + row * a.k_ss + c;
+    const T* sv = vp + row * a.v_ss + c;
+    if constexpr (VEC) {
+      hopper::cp_async16(dk, sk, in ? 16 : 0);
+      hopper::cp_async16(dv, sv, in ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < Ly::E; ++e) {
+        dk[e] = in ? sk[e] : from_f<T>(0.f);
+        dv[e] = in ? sv[e] : from_f<T>(0.f);
+      }
     }
   }
+}
+
+// Merge n states, ``stride`` floats apart, each [GMAX][D + 2] (acc row,
+// then m and l), for row j, column c: returns acc and sets the merged
+// state's max mx and sum l.
+template <int D>
+__device__ __forceinline__ float merge(const float* st, int n, int stride,
+                                       int j, int c, float& mx, float& l) {
+  mx = -INFINITY;
+  for (int i = 0; i < n; ++i) mx = fmaxf(mx, st[i * stride + j * (D + 2) + D]);
+  float acc = 0.f;
+  l = 0.f;
+  for (int i = 0; i < n; ++i) {
+    const float* s = st + i * stride + j * (D + 2);
+    const float w = weight(s[D], mx);
+    l = fmaf(s[D + 1], w, l);
+    acc = fmaf(s[c], w, acc);
+  }
+  return acc;
+}
+
+// GP: the group rounded up to a power of two (at least 2), the rows a lane
+// computes; rows g .. GP read zero queries and are never written.
+template <typename T, int D, int GP, bool VEC>
+__global__ void __launch_bounds__(THREADS) decode_kernel(Args a) {
+  using Ly = Lay<T, D>;
+  constexpr int RROWS = GP / Ly::RSTEP;  // rows of the output a lane holds
+  extern __shared__ __align__(128) uint8_t smem[];
+  float* Qs = reinterpret_cast<float*>(smem + Ly::RING);  // [GP][D]
+  float* Ps = Qs + GMAX * D;                               // [warp][GP][KEYS]
+  float* Cl = Ps + WARPS * GMAX * KEYS;  // [rank] states, in rank 0
+  const int rank = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = a.g;
+  const bool cluster = a.ranks > 1;
+  if (cluster) hopper::cluster_arrive();  // waited for before the merge
+  const int len = max(0, min(a.cache_len[b], a.S));
+  const T* kp = static_cast<const T*>(a.k) + b * a.k_sb + hk * a.k_sh;
+  const T* vp = static_cast<const T*>(a.v) + b * a.v_sb + hk * a.v_sh;
+
+  // This warp's tiles: t, t + step, ... below len, through its own ring
+  // of STAGES tiles, all in flight before the first is used.
+  uint8_t* ring = smem + warp * STAGES * Ly::STAGE;
+  const int step = a.ranks * WARPS;
+  int t = rank * WARPS + warp;
+#pragma unroll
+  for (int i = 0; i < STAGES; ++i) {
+    const int ti = t + i * step;
+    if (ti * KEYS < len)
+      load_tile<T, D, VEC>(ring + i * Ly::STAGE, kp, vp, a, ti * KEYS, len, lane);
+    hopper::cp_commit();
+  }
+
+  const T* qp = static_cast<const T*>(a.q) + b * a.q_sb + hk * g * a.q_sh;
+  for (int i = tid; i < GP * D; i += THREADS) {
+    const int j = i / D, c = i % D;
+    Qs[i] = j < g ? to_f(qp[j * a.q_sh + c]) * a.scale : 0.f;
+  }
   __syncthreads();
 
+  // Lane layout of the output: columns c0 .. c0 + COLS of rows r0 + RSTEP i.
+  const int c0 = (lane % Ly::CW) * Ly::COLS, r0 = lane / Ly::CW;
+  float m[GP], lsum[GP], acc[RROWS][Ly::COLS];
+#pragma unroll
+  for (int j = 0; j < GP; ++j) {
+    m[j] = -INFINITY;
+    lsum[j] = 0.f;  // this lane's keys only, summed over the warp at the end
+  }
+#pragma unroll
+  for (int i = 0; i < RROWS; ++i)
+#pragma unroll
+    for (int c = 0; c < Ly::COLS; ++c) acc[i][c] = 0.f;
+  float* P = Ps + warp * GMAX * KEYS;
+
+  for (int st = 0; t * KEYS < len; t += step, st = (st + 1) % STAGES) {
+    hopper::cp_wait<STAGES - 1>();  // this tile has landed
+    __syncwarp();
+    const T* Kt = reinterpret_cast<const T*>(ring + st * Ly::STAGE);
+    const T* Vt = Kt + Ly::TILE / sizeof(T);
+
+    // Scores of this lane's key for every query head of the group.
+    float s[GP];
+#pragma unroll
+    for (int j = 0; j < GP; ++j) s[j] = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < D; c += 4) {
+      const float4 k4 = hopper::ld4(Kt + lane * Ly::ROW + c);
+#pragma unroll
+      for (int j = 0; j < GP; ++j) {
+        const float4 q4 = *reinterpret_cast<const float4*>(Qs + j * D + c);
+        s[j] = fmaf(q4.x, k4.x, s[j]);
+        s[j] = fmaf(q4.y, k4.y, s[j]);
+        s[j] = fmaf(q4.z, k4.z, s[j]);
+        s[j] = fmaf(q4.w, k4.w, s[j]);
+      }
+    }
+    // Online softmax: the tile's first key is valid, so each new max is
+    // finite; alpha rescales what the state held.
+    const bool valid = t * KEYS + lane < len;
+    float alpha[GP];
+#pragma unroll
+    for (int j = 0; j < GP; ++j) {
+      const float sj = valid ? s[j] : -INFINITY;
+      const float mx = fmaxf(m[j], warp_max(sj));
+      alpha[j] = weight(m[j], mx);
+      const float p = hopper::ex2(sj - mx);
+      lsum[j] = fmaf(lsum[j], alpha[j], p);
+      m[j] = mx;
+      P[j * KEYS + lane] = p;
+    }
+#pragma unroll
+    for (int i = 0; i < RROWS; ++i) {
+      float al = alpha[Ly::RSTEP * i];
+#pragma unroll
+      for (int r = 1; r < Ly::RSTEP; ++r)
+        if (r0 == r) al = alpha[Ly::RSTEP * i + r];
+#pragma unroll
+      for (int c = 0; c < Ly::COLS; ++c) acc[i][c] *= al;
+    }
+    __syncwarp();
+
+    // acc += P V over the tile's keys (zeros past len add nothing).
+#pragma unroll 2
+    for (int kk = 0; kk < KEYS; kk += 4) {
+      float v[4][Ly::COLS];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) ldc<Ly::COLS>(Vt + (kk + u) * Ly::ROW + c0, v[u]);
+#pragma unroll
+      for (int i = 0; i < RROWS; ++i) {
+        const int j = r0 + Ly::RSTEP * i;
+        const float4 p4 = *reinterpret_cast<const float4*>(P + j * KEYS + kk);
+#pragma unroll
+        for (int c = 0; c < Ly::COLS; ++c) {
+          acc[i][c] = fmaf(p4.x, v[0][c], acc[i][c]);
+          acc[i][c] = fmaf(p4.y, v[1][c], acc[i][c]);
+          acc[i][c] = fmaf(p4.z, v[2][c], acc[i][c]);
+          acc[i][c] = fmaf(p4.w, v[3][c], acc[i][c]);
+        }
+      }
+    }
+    __syncwarp();  // P and this stage are rewritten by the next tiles
+    const int next = t + STAGES * step;
+    if (next * KEYS < len)
+      load_tile<T, D, VEC>(ring + st * Ly::STAGE, kp, vp, a, next * KEYS, len,
+                           lane);
+    hopper::cp_commit();
+  }
+  hopper::cp_wait<0>();
+  __syncwarp();
+
+  // This warp's state, into its own ring (done with it): [GMAX][D + 2].
+  float* mine = reinterpret_cast<float*>(ring);
+#pragma unroll
+  for (int j = 0; j < GP; ++j) {
+    const float l = warp_sum(lsum[j]);
+    if (lane == 0 && j < g) {
+      mine[j * (D + 2) + D] = m[j];
+      mine[j * (D + 2) + D + 1] = l;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < RROWS; ++i) {
+    const int j = r0 + Ly::RSTEP * i;
+    if (j < g)
+#pragma unroll
+      for (int c = 0; c < Ly::COLS; ++c) mine[j * (D + 2) + c0 + c] = acc[i][c];
+  }
+  __syncthreads();
+
+  // Merge the warps (their states lie one ring apart): into the output,
+  // or with a cluster into slot ``rank`` of the first block's shared
+  // memory, where the first block merges the slots.
+  constexpr int RS = STAGES * Ly::STAGE / 4;  // floats between warp states
+  constexpr int SLOT = GMAX * (D + 2);
+  static_assert(RS >= SLOT, "states do not overlap");
+  const float* ws = reinterpret_cast<const float*>(smem);
+  T* op = static_cast<T*>(a.o) + b * a.o_sb + hk * g * a.o_sh;
+  if (cluster) hopper::cluster_wait();  // every block of the cluster runs
   for (int i = tid; i < g * D; i += THREADS) {
     const int j = i / D, c = i % D;
-    float acc = 0.f;
-    for (int kk = 0; kk < n; ++kk) acc = fmaf(Ps[j * CHUNK + kk], Vs[kk * D + c], acc);
-    a.part_acc[(part + (long long)j * a.nsplit) * D + c] = acc;
+    float mx, l;
+    const float o = merge<D>(ws, WARPS, RS, j, c, mx, l);
+    if (!cluster) {
+      op[j * a.o_sh + c] = from_f<T>(l == 0.f ? 0.f : o / l);
+    } else {
+      float* slot = Cl + rank * SLOT + j * (D + 2);
+      hopper::store_remote(slot + c, 0, o);
+      if (c == 0) {
+        hopper::store_remote(slot + D, 0, mx);
+        hopper::store_remote(slot + D + 1, 0, l);
+      }
+    }
+  }
+  if (!cluster) return;
+  hopper::cluster_sync();
+  if (rank != 0) return;
+  for (int i = tid; i < g * D; i += THREADS) {
+    const int j = i / D, c = i % D;
+    float mx, l;
+    const float o = merge<D>(Cl, a.ranks, SLOT, j, c, mx, l);
+    op[j * a.o_sh + c] = from_f<T>(l == 0.f ? 0.f : o / l);
   }
 }
 
-// Pass 2: merge the valid splits of one (query head, sequence).
-template <typename T, int D>
-__global__ void __launch_bounds__(D) decode_combine(Args a) {
-  const int h = blockIdx.x, b = blockIdx.y, c = threadIdx.x;
-  const int ns = (valid_len(a, b) + CHUNK - 1) / CHUNK;
-  const long long base = ((long long)b * a.Hq + h) * a.nsplit;
-  float mx = -INFINITY;
-  for (int i = 0; i < ns; ++i) mx = fmaxf(mx, a.part_m[base + i]);
-  float l = 0.f, acc = 0.f;
-  for (int i = 0; i < ns; ++i) {
-    const float w = expf(a.part_m[base + i] - mx);
-    l = fmaf(a.part_l[base + i], w, l);
-    acc = fmaf(a.part_acc[(base + i) * D + c], w, acc);
-  }
-  T* op = static_cast<T*>(a.o) + b * a.o_sb + h * a.o_sh;
-  op[c] = from_f<T>(ns == 0 ? 0.f : acc / l);
-}
-
-template <typename T, int D>
-cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
+template <typename T, int D, int GP, bool VEC>
+cudaError_t launch(const Args& a, int Hkv, int B, cudaStream_t stream) {
+  using Ly = Lay<T, D>;
   static bool configured = false;  // the attribute is set once per instance
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        decode_split<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        decode_kernel<T, D, GP, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)Ly::smem(MAX_RANKS));
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  decode_split<T, D><<<dim3(a.nsplit, a.Hkv, B), THREADS, smem, stream>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  decode_combine<T, D><<<dim3(a.Hq, B), D, 0, stream>>>(a);
-  return cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.ranks, Hkv, B);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = Ly::smem(a.ranks > 1 ? a.ranks : 0);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.ranks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = a.ranks > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, decode_kernel<T, D, GP, VEC>, a);
+}
+
+template <typename T, int D, int GP>
+cudaError_t by_vec(const Args& a, int Hkv, int B, cudaStream_t stream) {
+  // 16-byte copies need 16-byte aligned rows: aligned bases, and batch,
+  // sequence and head strides in whole 16-byte chunks
+  constexpr int E = 16 / sizeof(T);
+  const bool vec =
+      reinterpret_cast<uintptr_t>(a.k) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(a.v) % 16 == 0 && a.k_sb % E == 0 &&
+      a.k_ss % E == 0 && a.k_sh % E == 0 && a.v_sb % E == 0 &&
+      a.v_ss % E == 0 && a.v_sh % E == 0;
+  return vec ? launch<T, D, GP, true>(a, Hkv, B, stream)
+             : launch<T, D, GP, false>(a, Hkv, B, stream);
+}
+
+template <typename T, int D>
+cudaError_t by_group(const Args& a, int Hkv, int B, cudaStream_t stream) {
+  if (a.g <= 2) return by_vec<T, D, 2>(a, Hkv, B, stream);
+  if (a.g <= 4) return by_vec<T, D, 4>(a, Hkv, B, stream);
+  if (a.g <= 8) return by_vec<T, D, 8>(a, Hkv, B, stream);
+  return by_vec<T, D, 16>(a, Hkv, B, stream);
 }
 
 template <typename T>
-cudaError_t by_dim(int D, const Args& a, int B, cudaStream_t stream) {
+cudaError_t by_dim(int D, const Args& a, int Hkv, int B, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch<T, 16>(a, B, stream);
-    case 64: return launch<T, 64>(a, B, stream);
+    case 16: return by_group<T, 16>(a, Hkv, B, stream);
+    case 64: return by_group<T, 64>(a, Hkv, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-}  // namespace
+// Cluster blocks per (KV head, sequence) for B sequences of an S-entry
+// cache over Hkv KV heads on a card of ``sms`` multiprocessors: enough that
+// no warp takes more than 8 tiles of 32 keys; more, up to 2 tiles a warp,
+// while the grid is smaller than the card; at most 8. A short cache gets
+// one block: a cluster's barriers cost more than a warp's second tile.
+int ranks_for(int S, int B, int Hkv, int sms) {
+  const int tiles = (S + KEYS - 1) / KEYS;
+  const int least = (tiles + 8 * WARPS - 1) / (8 * WARPS);
+  const int fill = (sms + B * Hkv - 1) / (B * Hkv);
+  const int most = (tiles + 2 * WARPS - 1) / (2 * WARPS);
+  const int spread = most < fill ? most : fill;
+  const int ranks = least > spread ? least : spread;
+  return ranks < 1 ? 1 : ranks > MAX_RANKS ? MAX_RANKS : ranks;
+}
 
-extern "C" int decode_attention_chunk() { return CHUNK; }
+}  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. strides: 10 element strides, q's batch
 // and head strides, k's and v's batch, sequence and head strides, o's batch
-// and head strides, in that order. scratch holds B * Hq * nsplit * (D + 2)
-// floats with nsplit = ceil(S / decode_attention_chunk()). Returns the
-// launches' cudaError_t (0 on success).
+// and head strides, in that order. One kernel launch, no scratch. Returns
+// the launch's cudaError_t (0 on success).
 extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
-                                    const int* cache_len, void* o, float* scratch,
-                                    int dtype, int B, int S, int Hq, int Hkv,
-                                    int D, const long long* strides, float scale,
+                                    const int* cache_len, void* o, int dtype,
+                                    int B, int S, int Hq, int Hkv, int D,
+                                    const long long* strides, float scale,
                                     void* stream) {
-  if (Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > GMAX) return cudaErrorInvalidValue;
+  if (B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > GMAX)
+    return cudaErrorInvalidValue;
   Args a;
   a.q = q; a.k = k; a.v = v; a.cache_len = cache_len; a.o = o;
-  a.S = S; a.Hq = Hq; a.Hkv = Hkv;
-  a.nsplit = (S + CHUNK - 1) / CHUNK;
-  const long long parts = (long long)B * Hq * a.nsplit;
-  a.part_acc = scratch;
-  a.part_m = scratch + parts * D;
-  a.part_l = a.part_m + parts;
+  a.S = S; a.g = Hq / Hkv;
+  a.ranks = ranks_for(S, B, Hkv, hopper::multiprocessors());
   a.q_sb = strides[0]; a.q_sh = strides[1];
   a.k_sb = strides[2]; a.k_ss = strides[3]; a.k_sh = strides[4];
   a.v_sb = strides[5]; a.v_ss = strides[6]; a.v_sh = strides[7];
   a.o_sb = strides[8]; a.o_sh = strides[9];
-  a.scale = scale;
+  a.scale = scale * LOG2E;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return by_dim<float>(D, a, B, st);
-  if (dtype == 1) return by_dim<__nv_bfloat16>(D, a, B, st);
-  return cudaErrorInvalidValue;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 0) err = by_dim<float>(D, a, Hkv, B, st);
+  if (dtype == 1) err = by_dim<__nv_bfloat16>(D, a, Hkv, B, st);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }

@@ -1,7 +1,9 @@
-// Hopper building blocks shared by the port's tensor-core kernels
-// (flash_attention.cu, similarity.cu): wgmma on operands staged in shared
-// memory without swizzle, the fences around it, and the split of an fp32
-// value into two TF32 parts for 3xTF32 products.
+// Hopper building blocks shared by the port's kernels (flash_attention.cu,
+// similarity.cu, decode_attention.cu, ssd_scan.cu): wgmma on operands staged
+// in shared memory without swizzle, the fences around it, the split of an
+// fp32 value into two TF32 parts for 3xTF32 products, cluster barriers and
+// stores into another cluster block's shared memory, cp.async, and the
+// device's multiprocessor count for launchers that size grids by it.
 //
 // Shared-memory operand layout ("K-major, no swizzle"): a tile of R rows,
 // each row K elements long with K contiguous, is stored as 16-byte chunks,
@@ -14,6 +16,7 @@
 // store, and lanes on consecutive rows store to consecutive addresses.
 #pragma once
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace hopper {
@@ -60,6 +63,15 @@ __device__ __forceinline__ void pin(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+// The same for A fragments in registers, which wgmma reads after it is
+// issued: pinned after the wait, they stay live (and unreused) until then.
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
 // Generic-proxy stores to shared memory become visible to wgmma (the async
 // proxy) after this fence and a barrier.
 __device__ __forceinline__ void fence_smem_to_async() {
@@ -99,10 +111,22 @@ __device__ __forceinline__ uint4 split4(uint4 x, uint4& lo) {
                     __float_as_uint(h[2]), __float_as_uint(h[3]));
 }
 
+// Four consecutive elements (of shared memory, 16- or 8-byte aligned) as
+// floats.
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
 // d (64 x N, fp32, the m64nN accumulator layout) += A (64 x K) B^T, with B
 // (N x K) in shared memory. mma_ss reads A from shared memory too (bf16 and
-// tf32, N 64 and 128); mma_rs from four registers a thread (tf32, N 16 and
-// 64). scale_d = 0 ignores d's old value.
+// tf32, N 64 and 128); mma_rs from four registers a thread (tf32, N 16, 32,
+// 64 and 80). scale_d = 0 ignores d's old value.
 //
 // Accumulator layout: warp w of the warpgroup holds rows 16 w + lane / 4
 // (registers 4 i, 4 i + 1) and 16 w + lane / 4 + 8 (4 i + 2, 4 i + 3), at
@@ -250,6 +274,20 @@ __device__ __forceinline__ void mma_rs<TF32, 16>(float (&d)[8], const uint32_t (
 }
 
 template <>
+__device__ __forceinline__ void mma_rs<TF32, 32>(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
 __device__ __forceinline__ void mma_rs<TF32, 64>(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
                                              int scale_d) {
   asm volatile(
@@ -264,6 +302,86 @@ __device__ __forceinline__ void mma_rs<TF32, 64>(float (&d)[32], const uint32_t 
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void mma_rs<TF32, 80>(float (&d)[40], const uint32_t (&a)[4], uint64_t b,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// Cluster barrier, split (arrive early, wait late) or whole.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// st.shared::cluster of x at ``p`` in the shared memory of cluster block
+// ``rank``.
+__device__ __forceinline__ void store_remote(float* p, uint32_t rank,
+                                             float x) {
+  const uint32_t local =
+      static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote) : "r"(local), "r"(rank));
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(remote), "f"(x)
+               : "memory");
+}
+
+// 16 bytes from device to shared memory without passing through registers
+// (cp.async, in flight until cp_wait); with src_bytes 0 nothing is read and
+// the 16 bytes are zeros.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int src_bytes) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes)
+               : "memory");
+}
+// 4 bytes the same way (zeros where src_bytes is 0).
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          int src_bytes) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Waits until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The current device's multiprocessor count (132 on an H100 SXM), for
+// launchers that size their grids to fill the card; 0 if it cannot be read.
+inline int multiprocessors() {
+  int dev = 0, count = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  return count;
 }
 
 }  // namespace hopper

@@ -42,7 +42,7 @@
 // * both operands are K-major as they lie (D contiguous), so wgmma reads
 //   them from shared memory with no transpose;
 // * the tiles follow the size of the grid: 128 x 128 outputs from two
-//   warpgroups when the tiles fill the 132 SMs; 64 x 64 from two
+//   warpgroups when the tiles fill the card's SMs; 64 x 64 from two
 //   warpgroups that split each slice's k-steps; and, for a grid that still
 //   leaves SMs idle, clusters of 4 blocks per tile that split D's slices
 //   and add their sums in the first block's shared memory, so each block
@@ -187,31 +187,6 @@ __device__ __forceinline__ uint4 load_chunk(const T* row, int k, int D) {
   return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
-// Cluster barrier, split (arrive early, wait late) or whole.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-// st.shared::cluster of x at ``p`` in the shared memory of cluster block
-// ``rank``.
-__device__ __forceinline__ void store_remote(float* p, uint32_t rank,
-                                             float x) {
-  const uint32_t local =
-      static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(remote) : "r"(local), "r"(rank));
-  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(remote), "f"(x)
-               : "memory");
-}
-
 template <typename T, int WGM, int WGK, int BN, int CH, int CK, bool VEC>
 __global__ void __launch_bounds__(Mat<T, WGM, WGK, BN, CH, CK>::THREADS,
                                   WGK * CK == 1 ? 2 : 1)
@@ -226,7 +201,8 @@ matrix_kernel(const T* __restrict__ a, const T* __restrict__ b,
   const int tid = threadIdx.x, wg = tid >> 7, wm = wg % WGM, wk = wg / WGM;
   const int wt = tid & 127, z = blockIdx.z;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  if constexpr (CK > 1) cluster_arrive();  // waited for before the merge
+  // waited for before the merge
+  if constexpr (CK > 1) hopper::cluster_arrive();
 
   // This thread's chunks of every slice: index tid + THREADS i of the tile,
   // row idx % R (a's rows first, then b's), chunk idx / R; found once.
@@ -325,13 +301,14 @@ matrix_kernel(const T* __restrict__ a, const T* __restrict__ b,
   }
   if constexpr (CK > 1) {
     float* xs = reinterpret_cast<float*>(smem + L::OPS);
-    cluster_wait();  // every block of the cluster is running
+    hopper::cluster_wait();  // every block of the cluster is running
     if (z > 0 && wk == 0) {
       float* xw = xs + ((z - 1) * WGM + wm) * (BN / 2) * 128 + wt;
 #pragma unroll
-      for (int i = 0; i < BN / 2; ++i) store_remote(xw + i * 128, 0, acc[i]);
+      for (int i = 0; i < BN / 2; ++i)
+        hopper::store_remote(xw + i * 128, 0, acc[i]);
     }
-    cluster_sync();
+    hopper::cluster_sync();
     if (z == 0 && wk == 0) {
 #pragma unroll
       for (int w = 1; w < CK; ++w) {
@@ -399,20 +376,21 @@ int launch_matrix_tiles(const void* a, const void* b, float* out, int M,
 }
 
 // Tiles by the size of the grid: 128 x 128 outputs from two warpgroups
-// when they fill the card's 132 SMs at least once; else 64 x 64 from two
-// warpgroups that split each 64-element slice of D, and, when even those
-// tiles leave SMs idle (the semantic path's 250 x 250 gives 16), a cluster
-// of 4 blocks per tile that split D's slices between them.
+// when they fill the card's SMs (132 on an H100) at least once; else 64 x
+// 64 from two warpgroups that split each 64-element slice of D, and, when
+// even those tiles leave SMs idle (the semantic path's 250 x 250 gives
+// 16), a cluster of 4 blocks per tile that split D's slices between them.
 template <typename T, bool VEC>
 int launch_matrix_vec(const void* a, const void* b, float* out, int M, int N,
                       int D, long long sa, long long sb, cudaStream_t stream) {
   constexpr int CH = 64 * sizeof(T) / 16;  // 64 elements a slice
   const long long big = (long long)((M + 127) / 128) * ((N + 127) / 128);
   const long long small = (long long)((M + 63) / 64) * ((N + 63) / 64);
-  if (big >= 132)
+  const int sms = hopper::multiprocessors();
+  if (big >= sms)
     return launch_matrix_tiles<T, 2, 1, 128, 8, 1, VEC>(a, b, out, M, N, D,
                                                         sa, sb, stream);
-  if (small >= 132)
+  if (small >= sms)
     return launch_matrix_tiles<T, 1, 2, 64, CH, 1, VEC>(a, b, out, M, N, D,
                                                         sa, sb, stream);
   return launch_matrix_tiles<T, 1, 2, 64, CH, 4, VEC>(a, b, out, M, N, D, sa,

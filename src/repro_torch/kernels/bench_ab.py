@@ -1,5 +1,5 @@
-"""Time the port's flash_attention and cosine_matrix kernels of two source
-trees on one CUDA card, in turns: A, B, B, A.
+"""Time the port's flash_attention, cosine_matrix, decode_attention and
+ssd_scan kernels of two source trees on one CUDA card, in turns: A, B, B, A.
 
     python3 src/repro_torch/kernels/bench_ab.py --a OLD_ROOT --b NEW_ROOT
 
@@ -8,10 +8,11 @@ unpacked into a directory that .gitignore lists, for instance). Every turn
 is a fresh process that builds and imports that root's ``repro_torch`` and
 prints one JSON line: device ms per call (20 calls in a CUDA graph, timed
 with CUDA events) at the paths' shapes and long ones, the same for one
-PyTorch call computing the function (SDPA, ``torch.matmul``), and the
-wrapper's host time per call (mean of 200 calls, no synchronisation
-between them). The last line is a JSON summary: the mean of each number
-over each root's two turns, and the card's name and power limit.
+PyTorch call computing the function (SDPA, ``torch.matmul``; none computes
+the SSD scan), and the wrapper's host time per call (mean of 200 calls, no
+synchronisation between them) at the paths' shapes. The last line is a
+JSON summary: the mean of each number over each root's two turns, and the
+card's name and power limit.
 """
 from __future__ import annotations
 
@@ -23,6 +24,11 @@ import sys
 import time
 
 HEADS = (14, 2, 64)  # qwen2-0.5b at full width
+SSM_HEADS = (64, 64, 128, 1)  # mamba2-1.3b: H, P, N, G
+# decode steps: chip_smoke's, 4 slots of a 160-entry cache midway through
+# their 24 new tokens (the served prompts of 89, 63, 67 and 71 tokens, + 12),
+# and 32 slots of a 4096-entry cache filled to 128, 256, ..., 4096
+DECODE = ((160, (101, 75, 79, 83)), (4096, tuple(range(128, 4097, 128))))
 
 
 def cuda_ms(fn, reps=20):
@@ -94,7 +100,56 @@ def one_turn(root):
             if m == 250 and dtype == torch.float32:
                 out[name + " host_us"] = host_us(
                     lambda: sim.cosine_matrix(a, a))
+    time_decode(out, gen)
+    time_ssd(out, gen)
     return out
+
+
+def time_decode(out, gen):
+    """decode_attention (fp32, the engine's dtype) at DECODE's steps, the
+    caches read as slices of a layer-stacked tensor as the model reads them;
+    SDPA with a boolean mask beside it."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as dec
+    hq, hkv, d = HEADS
+    for s, cache_len in DECODE:
+        b = len(cache_len)
+
+        def rn(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda") * 0.5
+        q, kc, vc = rn(b, 1, hq, d), rn(2, b, s, hkv, d)[1], \
+            rn(2, b, s, hkv, d)[1]
+        lens = torch.tensor(cache_len, dtype=torch.int32, device="cuda")
+        mask = (torch.arange(s, device="cuda")[None, :]
+                < lens[:, None])[:, None, None, :]
+        name = f"decode float32 B={b} S={s}"
+        out[name] = cuda_ms(lambda: dec.decode_attention(q, kc, vc, lens))
+        out[name + " sdpa"] = cuda_ms(
+            lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2),
+                attn_mask=mask, enable_gqa=True))
+        if s == 160:
+            out[name + " host_us"] = host_us(
+                lambda: dec.decode_attention(q, kc, vc, lens))
+
+
+def time_ssd(out, gen):
+    """ssd_scan (fp32) of one sequence at mamba2-1.3b's heads, at the
+    served prefill's S = 96 and at S = 2048."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ssd
+    h, p, n, g = SSM_HEADS
+    for s in (96, 2048):
+        def rn(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda")
+        dx, B, C = rn(1, s, h, p), rn(1, s, g, n), rn(1, s, g, n)
+        dA = -rn(1, s, h).abs() * 0.2
+        name = f"ssd_scan float32 S={s}"
+        out[name] = cuda_ms(lambda: ssd.ssd_scan(dx, dA, B, C))
+        if s == 96:
+            out[name + " host_us"] = host_us(
+                lambda: ssd.ssd_scan(dx, dA, B, C))
 
 
 def main():

@@ -2,9 +2,11 @@
 ``csrc/decode_attention.cu`` and its plain PyTorch version.
 
 The kernel replaces the Pallas TPU kernel ``repro.kernels.decode_attention``
-with flash-decoding: split-K partials in parallel, then a merge pass. It
-reads the engine's (B, S, Hkv, D) cache slice in place through its strides
-and ``cache_len`` on the device. ``plain`` is the same function in plain
+with flash-decoding in one launch: the warps of a block (or of a
+thread-block cluster, for long caches) take 32-key tiles and merge their
+softmax states on chip, with no scratch in device memory. It reads the
+engine's (B, S, Hkv, D) cache slice in place through its strides and
+``cache_len`` on the device. ``plain`` is the same function in plain
 PyTorch (``kernels.ref.decode_attention_ref``); the wrapper never falls
 back to it.
 """
@@ -27,19 +29,18 @@ MAX_GROUP = 16
 def _lib():
     lib = _build.library("decode_attention")
     fn = lib.decode_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    lib.decode_attention_chunk.argtypes = []
-    lib.decode_attention_chunk.restype = ctypes.c_int
-    return fn, lib.decode_attention_chunk()
+    return fn
 
 
 def decode_attention(q, k_cache, v_cache, cache_len):
     """q: (B, 1, Hq, D); caches (B, S, Hkv, D); cache_len: (B,) int32, all
     CUDA tensors (q and the caches of one dtype, float32 or bfloat16).
-    Returns a new (B, 1, Hq, D) tensor in q's dtype."""
+    Returns a new (B, 1, Hq, D) tensor in q's dtype: the only allocation;
+    one kernel launch, no scratch."""
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
                     ("cache_len", cache_len)):
         if not t.is_cuda or t.device != q.device:
@@ -69,19 +70,15 @@ def decode_attention(q, k_cache, v_cache, cache_len):
     out = torch.empty((b, 1, hq, d), dtype=q.dtype, device=q.device)
     if b == 0 or s == 0:
         return out.zero_()
-    fn, chunk = _lib()
-    nsplit = -(-s // chunk)
-    scratch = torch.empty(b * hq * nsplit * (d + 2), dtype=torch.float32,
-                          device=q.device)
+    fn = _lib()
     strides = (ctypes.c_longlong * 10)(
         q.stride(0), q.stride(2), *k_cache.stride()[:3],
         *v_cache.stride()[:3], out.stride(0), out.stride(2))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                 cache_len.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-                 DTYPES[q.dtype], b, s, hq, hkv, d, strides,
-                 float(d ** -0.5), stream)
+                 cache_len.data_ptr(), out.data_ptr(), DTYPES[q.dtype], b,
+                 s, hq, hkv, d, strides, float(d ** -0.5), stream)
     if err:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {err}")

@@ -2,10 +2,11 @@
 and its plain PyTorch version.
 
 The kernel replaces the Pallas TPU kernel ``repro.kernels.ssd_scan``: the
-chunked dual form of the SSD recurrence, an fp32 state carried from chunk to
-chunk, head h reading B/C group h // (H // G). It takes any S (its own
-chunk of 64 steps, the last one ragged) and reads dx, dA, B and C through
-their strides, so the model's slices of the conv output need no copy.
+chunked dual form of the SSD recurrence on the tensor cores, an fp32 state
+carried from chunk to chunk, head h reading B/C group h // (H // G); a
+block owns 16 columns of P. It takes any S (its own chunk of 64 steps, the
+last one ragged) and reads dx, dA, B and C through their strides, so the
+model's slices of the conv output need no copy.
 ``plain`` is the same function in plain PyTorch at a chunk that divides S,
 the counterpart of ``repro.models.ssm.ssd_chunked``; the wrapper never falls
 back to it.
@@ -76,17 +77,22 @@ def plain(dx, dA, B, C, initial_state=None, *, chunk):
     return y.to(dx.dtype), state
 
 
-@functools.lru_cache(maxsize=None)
-def _lib():
-    lib = _build.library("ssd_scan")
+def bind(lib):
+    """Sets the C signatures of a loaded ``csrc/ssd_scan.cu`` library (the
+    shipped build or a timing probe's); returns it."""
     lib.ssd_scan_fwd.argtypes = (
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
         + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
     lib.ssd_scan_fwd.restype = ctypes.c_int
     for fn in (lib.ssd_scan_smem_bytes, lib.ssd_scan_max_smem):
         fn.restype = ctypes.c_longlong
-    lib.ssd_scan_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.ssd_scan_smem_bytes.argtypes = [ctypes.c_int]
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    return bind(_build.library("ssd_scan"))
 
 
 def _check_inputs(dx, dA, B, C, initial_state):
@@ -129,10 +135,10 @@ def _check_inputs(dx, dA, B, C, initial_state):
         raise ValueError(f"initial_state must be a contiguous {(b, h, n, p)}, "
                          f"got {tuple(initial_state.shape)}")
     lib = _lib()
-    need, most = lib.ssd_scan_smem_bytes(n, p), lib.ssd_scan_max_smem()
+    need, most = lib.ssd_scan_smem_bytes(n), lib.ssd_scan_max_smem()
     if need > most:
-        raise ValueError(f"d_state {n} x head_dim {p} needs {need} bytes of "
-                         f"shared memory, more than a block's {most}")
+        raise ValueError(f"d_state {n} needs {need} bytes of shared memory, "
+                         f"more than a block's {most} (d_state <= 128)")
 
 
 def ssd_scan(dx, dA, B, C, initial_state=None):

@@ -70,9 +70,11 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window=0):
     return ops.decode_attention(q, k_cache, v_cache, cache_len)
 
 
-def gqa_decode(p, x, cache_k, cache_v, pos, cfg, *, window=0):
+def gqa_decode(p, x, cache_k, cache_v, pos, cfg, *, cache_len, window=0):
     """x: (B,1,d); caches (B,S,KV,hd), written in place; pos: 0-dim or (B,)
-    write index. Returns (out, cache_k, cache_v)."""
+    write index; cache_len: the valid entries after the write, ``pos + 1``
+    (a caller looping over layers computes it once). Returns (out, cache_k,
+    cache_v)."""
     q = cm.apply_dense(p["q"], x)
     k = cm.apply_dense(p["k"], x)
     v = cm.apply_dense(p["v"], x)
@@ -81,5 +83,5 @@ def gqa_decode(p, x, cache_k, cache_v, pos, cfg, *, window=0):
     k = cm.apply_rope(k, positions, cfg.rope_theta)
     write_kv(cache_k, k, pos)
     write_kv(cache_v, v, pos)
-    o = decode_attention(q, cache_k, cache_v, pos + 1, window=window)
+    o = decode_attention(q, cache_k, cache_v, cache_len, window=window)
     return cm.apply_dense(p["o"], o, in_dims=2), cache_k, cache_v

@@ -180,6 +180,7 @@ def decode_step(params, cfg: ModelConfig, cache, token, *,
     and conv tail) into ``cache`` in place and advances ``cache["pos"]`` by
     one. Returns (logits (B,1,V) f32, cache)."""
     pos = cache["pos"]
+    lens = pos + 1  # valid entries after this tick's write, for every layer
     x = params["embed"]["embedding"][token.long()].to(dtype)
     windows = layer_windows(cfg)
     for i in range(cfg.n_layers):
@@ -188,7 +189,8 @@ def decode_step(params, cfg: ModelConfig, cache, token, *,
             h = cm.rmsnorm(lp["attn_norm"], x, cfg.rms_eps)
             a, _, _ = attn.gqa_decode(lp["attn"], h, cache["k"][i],
                                       cache["v"][i], pos, cfg,
-                                      window=windows[i] if windows else 0)
+                                      window=windows[i] if windows else 0,
+                                      cache_len=lens)
             x = x + a
         elif "ssm" in lp:
             h = cm.rmsnorm(lp["ssm_norm"], x, cfg.rms_eps)
@@ -201,5 +203,5 @@ def decode_step(params, cfg: ModelConfig, cache, token, *,
             h = cm.rmsnorm(lp["ffn_norm"], x, cfg.rms_eps)
             x = x + ffn_mod.swiglu(lp["ffn"], h)
     x = cm.rmsnorm(params["final_norm"], x, cfg.rms_eps)
-    cache["pos"] = pos + 1
+    cache["pos"] = lens
     return unembed(params, cfg, x), cache

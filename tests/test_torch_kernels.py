@@ -303,12 +303,19 @@ def test_library_name_follows_included_headers(tmp_path, monkeypatch):
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
+    # every kernel includes hopper.cuh; ssd_scan.cu also includes a header
+    # of its own in this copy, and only ssd_scan's name follows that one
+    src = csrc / "ssd_scan.cu"
+    src.write_text('#include "extra.cuh"\n' + src.read_text())
+    (csrc / "extra.cuh").write_text("// extra\n")
     before = {n: _build._library_path(n) for n in _build.SOURCES}
+    (csrc / "extra.cuh").write_text("// edited\n")
+    after = {n: _build._library_path(n) for n in _build.SOURCES}
+    assert {n for n in before if before[n] != after[n]} == {"ssd_scan"}
     header = csrc / "hopper.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
-    after = {n: _build._library_path(n) for n in _build.SOURCES}
-    assert {n for n in before if before[n] != after[n]} == {
-        "flash_attention", "similarity"}
+    again = {n: _build._library_path(n) for n in _build.SOURCES}
+    assert {n for n in after if after[n] != again[n]} == set(_build.SOURCES)
 
 
 def test_flash_rows_must_be_16_byte_aligned():
