@@ -27,7 +27,15 @@ non-zero):
    version's, one PyTorch library call's (``scaled_dot_product_attention``;
    ``torch.mv`` and ``torch.matmul`` for the cosines; none computes the SSD
    scan) and the card's bound for the same work (fp32 work at the 3xTF32
-   rate, 165 TFLOP/s).
+   rate, 165 TFLOP/s). Hymba's kernels too: ``decode_attention`` over its
+   heads (25 query over 5 KV, head_dim 64) with a sliding window of 1024
+   and without, at cache lengths 0, 1, 1023-1025, 2048 and 4096 of a
+   4096-entry cache (the rows before a window are NaN, so a kernel that
+   loaded them would fail); ``flash_attention`` with the window at every
+   prefill length and at 2048; ``ssd_scan`` over its heads (50 of 64,
+   d_state 16) at every prefill length, 272 and 2048 (fp64 too); timed:
+   the windowed decode step over 4 slots of a 4096-entry cache and the
+   scan at S = 96.
 4. serve: full-width qwen2-0.5b (24 layers, d_model 896, vocab 151936, seeded
    random weights) serves 8 requests through ``GenerationEngine`` and
    ``ContinuousBatcher``; every prefill must launch ``flash_attention`` once
@@ -41,10 +49,20 @@ non-zero):
    mamba2-1.3b (48 layers, d_model 2048, 64 SSM heads, vocab 50280): every
    prefill must launch ``ssd_scan`` once per layer and nothing else; the
    card's prefill logits and final SSM state against the CPU's.
-8. cosine_api: ``kernels.ops.cosine_matrix``, the kernel's only entry point
+8. serve_hybrid, cross_check_hybrid, profile_hybrid: phases 4-6 for
+   full-width hymba-1.5b (32 layers, d_model 1600, 25/5 attention heads of
+   64 with a window of 1024 on 29 layers, 50 SSM heads, vocab 32001):
+   every prefill launches ``flash_attention`` and ``ssd_scan`` once per
+   layer, every tick ``decode_attention`` once per layer; the card's
+   prefill logits and SSM state against the CPU's.
+9. window_decode: reduced hymba (window 64 on layer 1) decodes greedily
+   from a 16-token prompt to position 150 on the card, and its logits at
+   every step are held against the same steps on the CPU: the window
+   through the model on the card (the full-width serve never fills 1024).
+10. cosine_api: ``kernels.ops.cosine_matrix``, the kernel's only entry point
    in the package, over the embedded plots of the whole movie table against
    themselves, held against the numpy product ``core.semhash.cosine_matrix``.
-9. semantic: ``serve --semantic movie --serve 4 --cascade --no-reduced``
+11. semantic: ``serve --semantic movie --serve 4 --cascade --no-reduced``
    (q1-q4 over 32 rows; m1 is full-width qwen2-0.5b, the cascade scores
    every filter morsel with ``rowwise_cosine``). Every query must finish;
    ``rowwise_cosine`` must launch once per ``tier0-embed`` call and the
@@ -53,6 +71,10 @@ non-zero):
    and cascade stats must be equal. Then the single-query mode (q1, m1
    only), and the streaming run once more under torch.profiler for the
    card's idle share.
+12. semantic_sharded: the streaming run at reduced width on the card,
+   unsharded, with ``--shards 2`` and with ``--procs 2`` (spawned process
+   workers; m1 and the cascade stay in this process): results, per-tier
+   calls, meter totals and cascade stats must be equal.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the rest
@@ -106,6 +128,11 @@ SSM_FULL, SSM_REDUCED, SSM_GROUPED = (64, 64, 128, 1), (8, 16, 16, 1), \
 SSM_SERVE = ["--arch", "mamba2-1.3b", "--no-reduced", "--requests", "8",
              "--slots", "4", "--max-len", "160", "--max-new", "24",
              "--device", "cuda"]
+# hymba-1.5b: its attention heads, sliding window and SSM heads (H, P, N,
+# G) at full width, and its layer count
+HYMBA_HEADS, HYMBA_WINDOW, SSM_HYMBA = (25, 5, 64), 1024, (50, 64, 16, 1)
+HYMBA_LAYERS = 32
+HYMBA_SERVE = ["--arch", "hymba-1.5b"] + SSM_SERVE[2:]
 QWEN_SERVE = ["--no-reduced", "--requests", "8", "--slots", "4",
               "--max-len", "160", "--max-new", "24", "--device", "cuda"]
 # cosine_matrix: the shapes of tests/test_kernels.py, the cosine_api path's
@@ -253,7 +280,9 @@ def flash_cases():
     move the causal diagonal and the key limit off the tile edges (query
     row i at position i + q_offset, keys at or past sk_valid masked), where
     the packing of a GQA group's rows into one tile is easiest to get
-    wrong; at q_offset -6 the first 6 rows see no key and must give 0."""
+    wrong; at q_offset -6 the first 6 rows see no key and must give 0.
+    Hymba's heads (a group of 5) with its window of 1024 at every prefill
+    length and at 2048, where the window masks."""
     full = [("causal", 1, s, True, 0) for s in range(16, 161, 16)]
     full += [("causal", 1, 2048, True, 0),
              ("padded", 2, 40, True, 0), ("window", 1, 160, True, 24),
@@ -265,9 +294,12 @@ def flash_cases():
                ("offset_window", 2, 48, True, 8, 5, 41),
                ("empty_rows", 2, 48, True, 8, -6, 37),
                ("offset_noncausal", 2, 48, False, 0, 3, 28)]
+    hymba = [("hymba_window", 1, s, True, HYMBA_WINDOW)
+             for s in list(range(16, 161, 16)) + [2048]]
     return ([(FULL_HEADS, *c, 0, c[2]) for c in full]
             + [(REDUCED_HEADS, *c, 0, c[2]) for c in small]
-            + [(h, *c) for h in (FULL_HEADS, REDUCED_HEADS) for c in offsets])
+            + [(h, *c) for h in (FULL_HEADS, REDUCED_HEADS) for c in offsets]
+            + [(HYMBA_HEADS, *c, 0, c[2]) for c in hymba])
 
 
 DECODE_CASES = [(FULL_HEADS, b, s) for b in (4, 32) for s in (160, 4096)] \
@@ -277,6 +309,9 @@ DECODE_CASES = [(FULL_HEADS, b, s) for b in (4, 32) for s in (160, 4096)] \
 # (qwen2-0.5b) and 16 (the largest) at head_dim 64, and the reduced heads
 DECODE_EDGE_LENS = (0, 1, 31, 32, 33, 63, 64, 65, 160)
 DECODE_EDGE_HEADS = [(2, 2, 64), (14, 2, 64), (32, 2, 64), REDUCED_HEADS]
+# hymba's sliding window: lengths on either side of it and of twice it, of
+# a 4096-entry cache
+WINDOW_LENS = (0, 1, 1023, 1024, 1025, 2048, 4096)
 
 
 def check_decode(gen, dtype, failures):
@@ -285,14 +320,21 @@ def check_decode(gen, dtype, failures):
     at DECODE_CASES; every DECODE_EDGE_LENS at once over DECODE_EDGE_HEADS,
     the cache read as a slice of a layer-stacked tensor and, once per
     head_dim, through rows that are not 16-byte aligned (the element-wise
-    loads)."""
+    loads). Hymba's heads at WINDOW_LENS with its window of 1024 and
+    without; with the window, every K and V row before a sequence's window
+    is NaN and the plain version reads the cache with them zeroed: a kernel
+    that loaded them would give NaN."""
     from repro_torch.kernels import decode_attention as dec
-    cases = [("ragged", heads, b, s, None) for heads, b, s in DECODE_CASES]
-    cases += [("edges", heads, len(DECODE_EDGE_LENS), 160, DECODE_EDGE_LENS)
-              for heads in DECODE_EDGE_HEADS]
+    cases = [("ragged", heads, b, s, None, 0) for heads, b, s in DECODE_CASES]
+    cases += [("edges", heads, len(DECODE_EDGE_LENS), 160, DECODE_EDGE_LENS,
+               0) for heads in DECODE_EDGE_HEADS]
     cases += [("unaligned", heads, len(DECODE_EDGE_LENS), 160,
-               DECODE_EDGE_LENS) for heads in (FULL_HEADS, REDUCED_HEADS)]
-    for case, (hq, hkv, d), b, s, edge in cases:
+               DECODE_EDGE_LENS, 0) for heads in (FULL_HEADS, REDUCED_HEADS)]
+    cases += [(case, HYMBA_HEADS, len(WINDOW_LENS), WINDOW_LENS[-1],
+               WINDOW_LENS, window)
+              for case, window in (("hymba_window", HYMBA_WINDOW),
+                                   ("hymba_full", 0))]
+    for case, (hq, hkv, d), b, s, edge, window in cases:
         q, kc, vc = attn_inputs(gen, b, s, hq, hkv, d, dtype, layers=2)
         q = q[:, :1]
         if case == "unaligned":  # rows d + 1 elements apart
@@ -305,14 +347,22 @@ def check_decode(gen, dtype, failures):
             lens[0], lens[1], lens[2] = 1, s, 0
         else:
             lens = torch.tensor(edge, dtype=torch.int32, device="cuda")
-        got = dec.decode_attention(q, kc, vc, lens)
-        err, ok = held(got, dec.plain(q, kc, vc, lens), dtype)
+        clean = (kc, vc)
+        if window:
+            before = (torch.arange(s, device="cuda")[None, :]
+                      < (lens - window)[:, None])
+            clean = tuple(torch.where(before[..., None, None], 0, c)
+                          for c in (kc, vc))
+            for c in (kc, vc):
+                c[before] = float("nan")
+        got = dec.decode_attention(q, kc, vc, lens, window=window)
+        err, ok = held(got, dec.plain(q, *clean, lens, window=window), dtype)
         empty = (lens == 0).nonzero().flatten().tolist()
         zero = max([got[i].abs().max().item() for i in empty] + [0.0])
         ok = ok and zero == 0.0
         emit({"phase": "kernel", "kernel": "decode_attention",
               "case": case, "dtype": str(dtype), "B": b, "S": s,
-              "Hq": hq, "Hkv": hkv, "D": d,
+              "Hq": hq, "Hkv": hkv, "D": d, "window": window,
               "cache_len": lens.tolist()[:9], "max_abs_err": err,
               "zero_len_row_max": zero, "tol": tol_text(dtype), "ok": ok})
         if not ok:
@@ -388,13 +438,17 @@ def ssd_cases():
     """(heads, case, B, S, with an initial state): mamba2-1.3b's heads at
     every prefill length the serve phases give the kernel (prompts pad to a
     multiple of 16 and are cut at max_len 160; the served ones pad to 64, 80
-    and 96), a ragged last chunk (272 = 4 x 64 + 16) and 2048; the reduced
-    heads; two B/C groups."""
+    and 96), a ragged last chunk (272 = 4 x 64 + 16) and 2048; hymba-1.5b's
+    heads (50 of 64, d_state 16) at the same lengths; the reduced heads; two
+    B/C groups."""
     full = [("prefill", 1, s, False) for s in range(16, 161, 16)]
     full += [("prefill_init", 1, 96, True), ("ragged", 1, 272, False),
              ("ragged_init", 1, 272, True), ("long", 1, 2048, False),
              ("long_init", 1, 2048, True)]
+    hymba = [("hymba_prefill", 1, s, False) for s in range(16, 161, 16)]
+    hymba += [("hymba_ragged", 1, 272, False), ("hymba_long", 1, 2048, False)]
     return ([(SSM_FULL, *c) for c in full]
+            + [(SSM_HYMBA, *c) for c in hymba]
             + [(SSM_REDUCED, "reduced", 2, 96, False),
                (SSM_REDUCED, "reduced_init", 2, 96, True),
                (SSM_GROUPED, "grouped", 2, 128, False),
@@ -443,7 +497,7 @@ def check_ssd(gen, dtype, failures):
                "max_abs_err_state": err_s,
                "tol": "1e-4 + 2^-17 max|plain|"
                + (" + 2^-7 |plain| (y)" if dtype != torch.float32 else "")}
-        if case.startswith(("ragged", "long")):
+        if case.startswith(("ragged", "long", "hymba_ragged", "hymba_long")):
             exact = ref.ssd_ref(*(None if t is None else t.double()
                                   for t in args))
             for side, out in (("kernel", got), ("plain", want)):
@@ -530,27 +584,31 @@ def time_flash(gen, s, dtype):
         flops=4 * d * hq * (s * (s + 1) // 2))
 
 
-def time_decode(gen, s, cache_len, dtype):
+def time_decode(gen, s, cache_len, dtype, heads=FULL_HEADS, window=0):
     """One decode step over len(cache_len) slots of an s-entry cache slice:
     kernel, plain version and SDPA with a boolean mask on the same inputs;
-    the bound counts q, the valid K/V rows and cache_len read once, o
-    written once and 4 * D FLOPs per valid (query head, key) pair."""
+    the bound counts q, the K/V rows it attends to (the valid ones, or a
+    window's) and cache_len read once, o written once and 4 * D FLOPs per
+    (query head, attended key) pair."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_attention as dec
-    (hq, hkv, d), b = FULL_HEADS, len(cache_len)
+    (hq, hkv, d), b = heads, len(cache_len)
     q, kc, vc = attn_inputs(gen, b, s, hq, hkv, d, dtype, layers=N_LAYERS)
     q = q[:, :1].contiguous()
     lens = torch.tensor(cache_len, dtype=torch.int32, device="cuda")
-    mask = (torch.arange(s, device="cuda")[None, :]
-            < lens[:, None])[:, None, None, :]
+    k_pos = torch.arange(s, device="cuda")[None, :]
+    mask = k_pos < lens[:, None]
+    if window:
+        mask &= k_pos >= (lens - window)[:, None]
+    mask = mask[:, None, None, :]
     qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
-    n_valid = sum(cache_len)
+    n_valid = sum(min(n, window) if window else n for n in cache_len)
     return timing_row(
         "decode_attention", f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} "
-        f"sum(cache_len)={n_valid}", dtype,
-        lambda: dec.decode_attention(q, kc, vc, lens),
-        lambda: dec.plain(q, kc, vc, lens),
+        f"window={window} attended={n_valid}", dtype,
+        lambda: dec.decode_attention(q, kc, vc, lens, window=window),
+        lambda: dec.plain(q, kc, vc, lens, window=window),
         lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                enable_gqa=True),
         nbytes=(2 * b * hq * d + 2 * n_valid * hkv * d) * q.element_size()
@@ -593,15 +651,16 @@ def ssd_flops(s, heads):
     return min(chunked(step) for step in range(1, min(s, 256) + 1))
 
 
-def time_ssd(gen, s):
-    """One layer's scan of one sequence of s steps at mamba2-1.3b's heads,
-    fp32 (the engine's dtype): kernel and plain version on the same inputs.
+def time_ssd(gen, s, heads=SSM_FULL):
+    """One layer's scan of one sequence of s steps at ``heads`` (mamba2-1.3b's
+    or hymba-1.5b's), fp32 (the engine's dtype): kernel and plain version
+    on the same inputs.
     No single PyTorch call computes the scan, so there is no library time.
     The bound counts dx, dA, B, C read once, y and the final state written
     once, and ``ssd_flops``: the least work of the chunked form."""
     from repro_torch.kernels import ssd_scan as ssd
-    h, p, n, g = SSM_FULL
-    args = ssd_inputs(gen, 1, s, SSM_FULL, torch.float32)
+    h, p, n, g = heads
+    args = ssd_inputs(gen, 1, s, heads, torch.float32)
     chunk = ssd.model_chunk(s)
 
     def check(got, want):
@@ -611,7 +670,7 @@ def time_ssd(gen, s):
         "ssd_scan", f"B=1 S={s} H={h} P={p} N={n} G={g}", torch.float32,
         lambda: ssd.ssd_scan(*args), lambda: ssd.plain(*args, chunk=chunk),
         None, nbytes=(2 * s * h * p + s * h + 2 * s * g * n + h * n * p) * 4,
-        flops=ssd_flops(s, SSM_FULL), check=check)
+        flops=ssd_flops(s, heads), check=check)
 
 
 def time_matrix(gen, m, n):
@@ -666,13 +725,21 @@ def time_kernels(gen):
     in bf16, and times at long shapes, where the bound is more than launch
     latency: a 2048-token prefill (fp32 and bf16), a decode step over 32
     slots of a 4096-entry cache, a cascade pass over the whole game table
-    and a 4096 x 4096 product."""
+    and a 4096 x 4096 product. Hymba's rows also go into the kernels line:
+    its windowed decode step over 4 slots of a full 4096-entry cache
+    (window 1024) and its scan at the longest served prompt."""
     lens, padded = served_prefill_lengths()
     plots = movie_rows()
     rows = [time_flash(gen, max(padded), torch.float32),
             time_decode(gen, 160, [n + 12 for n in lens[:4]], torch.float32),
             time_rowwise(gen, 16), time_matrix(gen, plots, plots),
-            time_ssd(gen, max(padded))]
+            time_ssd(gen, max(padded)),
+            time_decode(gen, 4096, [4096] * 4, torch.float32,
+                        heads=HYMBA_HEADS, window=HYMBA_WINDOW),
+            time_ssd(gen, max(padded), heads=SSM_HYMBA)]
+    for row, path in zip(rows, ("serve", "serve", "semantic", "cosine_api",
+                                "serve_ssm", "serve_hybrid", "serve_hybrid")):
+        row["path"] = path
     time_flash(gen, max(padded), torch.bfloat16)
     for dtype in (torch.float32, torch.bfloat16):
         time_flash(gen, 2048, dtype)
@@ -711,9 +778,10 @@ def run_serve(phase, flags):
     return engine, counts
 
 
-def set_launches(rows, counts, *names):
+def set_launches(rows, counts, path, *names):
+    """The launch counts of ``path``'s run into its rows of ``names``."""
     for r in rows:
-        if r["name"] in names:
+        if r["name"] in names and r["path"] == path:
             r["launches"] = counts[r["name"]]
 
 
@@ -723,7 +791,7 @@ def phase_serve(rows):
     if counts != want or not (counts["flash_attention"]
                               and counts["decode_attention"]):
         raise AssertionError(f"launch counts {counts}, expected {want}")
-    set_launches(rows, counts, "flash_attention", "decode_attention")
+    set_launches(rows, counts, "serve", "flash_attention", "decode_attention")
     return engine
 
 
@@ -735,15 +803,89 @@ def phase_serve_ssm(rows):
     want = expect(ssd_scan=SSM_LAYERS * engine.stats["prefills"])
     if counts != want or not counts["ssd_scan"]:
         raise AssertionError(f"launch counts {counts}, expected {want}")
-    set_launches(rows, counts, "ssd_scan")
+    set_launches(rows, counts, "serve_ssm", "ssd_scan")
     return engine
+
+
+def phase_serve_hybrid(rows):
+    """Full-width hymba-1.5b: every prefill launches ``flash_attention`` and
+    ``ssd_scan`` once per layer (attention and the SSM side by side), every
+    decode tick ``decode_attention`` once per layer, 29 of them with the
+    window of 1024; no other kernel runs."""
+    engine, counts = run_serve("serve_hybrid", HYMBA_SERVE)
+    st = engine.stats
+    want = expect(flash_attention=HYMBA_LAYERS * st["prefills"],
+                  decode_attention=HYMBA_LAYERS * st["decode_steps"],
+                  ssd_scan=HYMBA_LAYERS * st["prefills"])
+    if counts != want or not all(counts[k] for k in (
+            "flash_attention", "decode_attention", "ssd_scan")):
+        raise AssertionError(f"launch counts {counts}, expected {want}")
+    set_launches(rows, counts, "serve_hybrid", "decode_attention", "ssd_scan")
+    return engine
+
+
+def to_cpu(tree):
+    return {k: to_cpu(v) if isinstance(v, dict) else v.cpu()
+            for k, v in tree.items()}
+
+
+def phase_window_decode():
+    """The sliding window through the model on the card: reduced hymba
+    (2 layers, window 64 on layer 1) prefills a 16-token prompt and decodes
+    greedily to position 150 on the card; the CPU decodes the same tokens
+    (the card's choices) from the same weights. Every step's logits within
+    LOGITS_ATOL of the CPU's and with the same argmax; launches one flash
+    and one ``ssd_scan`` per layer, one decode per layer and step."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    cfg = reduced(get_config("hymba-1.5b"))
+    bundle = registry.build(cfg)
+    params = bundle.init(generator=torch.Generator("cuda").manual_seed(0),
+                         device="cuda")
+    cpu_params = to_cpu(params)
+    prompt = torch.randint(0, cfg.vocab_size, (1, 16),
+                           generator=torch.Generator().manual_seed(0))
+    max_len, kw = 152, dict(max_len=152, dtype=torch.float32)
+    ops.reset_launch_counts()
+    logits, cache = bundle.prefill(params, {"tokens": prompt.cuda()}, **kw)
+    cpu_logits, cpu_cache = bundle.prefill(cpu_params, {"tokens": prompt},
+                                           **kw)
+    errs, same = [max_err(logits.cpu(), cpu_logits)], True
+    steps = 0
+    while int(cache["pos"]) < max_len - 2:
+        tok = logits[:, -1].argmax(dim=-1, keepdim=True)
+        same &= int(tok) == int(cpu_logits[:, -1].argmax())
+        logits, cache = bundle.decode_step(params, cache, tok, dtype=torch.float32)
+        cpu_logits, cpu_cache = bundle.decode_step(cpu_params, cpu_cache,
+                                                   tok.cpu(), dtype=torch.float32)
+        errs.append(max_err(logits.cpu(), cpu_logits))
+        steps += 1
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    want = expect(flash_attention=cfg.n_layers, ssd_scan=cfg.n_layers,
+                  decode_attention=cfg.n_layers * steps)
+    last = int(cache["pos"])
+    emit({"phase": "window_decode", "arch": cfg.name,
+          "windows": [0 if i in cfg.full_attn_layers else cfg.sliding_window
+                      for i in range(cfg.n_layers)],
+          "prompt": prompt.shape[1], "decode_steps": steps,
+          "last_position": last, "max_abs_err": max(errs),
+          "max_abs_err_past_window": max(errs[cfg.sliding_window - 15:]),
+          "atol": LOGITS_ATOL, "argmax_equal": same, "launches": counts})
+    if counts != want:
+        raise AssertionError(f"launch counts {counts}, expected {want}")
+    if not (same and max(errs) <= LOGITS_ATOL
+            and last > 2 * cfg.sliding_window):
+        raise AssertionError("window_decode: the card's windowed decode and "
+                             "the CPU's disagree")
 
 
 def phase_cross_check(engine, phase="cross_check", state_leaf=None):
     """Prefill logits of one prompt on the card (kernels) and on the CPU
     (plain path) from the same fp32 weights, and with ``state_leaf`` that
     cache leaf too (the SSM's final state). Tolerance: sums in another
-    order over 24 or 48 layers move fp32 logits by ~1e-5; 1e-3 leaves a
+    order over 24 to 48 layers move fp32 logits by ~1e-5; 1e-3 leaves a
     wide margin below any real fault."""
     from repro_torch.data.tokenizer import ByteTokenizer
     from repro_torch.engine.engine import PREFILL_ALIGN
@@ -751,11 +893,6 @@ def phase_cross_check(engine, phase="cross_check", state_leaf=None):
     tok = ByteTokenizer()
     ids = tok.pad_batch([tok.encode(DEMO_PROMPTS[0])], align=PREFILL_ALIGN)
     bundle = engine.bundle
-
-    def to_cpu(tree):
-        return {k: to_cpu(v) if isinstance(v, dict) else v.cpu()
-                for k, v in tree.items()}
-
     gpu, gcache = bundle.prefill(
         engine.params, {"tokens": torch.as_tensor(ids, device="cuda")},
         dtype=torch.float32)
@@ -885,8 +1022,11 @@ def query_keys(handles):
 
 
 def attention_launches(engine):
-    return {"flash_attention": N_LAYERS * engine.stats["prefills"],
-            "decode_attention": N_LAYERS * engine.stats["decode_steps"]}
+    """One flash launch per layer and prefill, one decode launch per layer
+    and tick (24 layers at full width, 2 reduced)."""
+    layers = engine.bundle.cfg.n_layers
+    return {"flash_attention": layers * engine.stats["prefills"],
+            "decode_attention": layers * engine.stats["decode_steps"]}
 
 
 def phase_semantic(rows):
@@ -936,7 +1076,7 @@ def phase_semantic(rows):
     if not same:
         raise AssertionError("the card's semantic run and the CPU's differ "
                              "in results, per-tier calls or cascade stats")
-    set_launches(rows, counts, "rowwise_cosine")
+    set_launches(rows, counts, "semantic", "rowwise_cosine")
 
 
 def phase_semantic_single():
@@ -970,6 +1110,50 @@ def phase_semantic_profile():
           **activity})
 
 
+def meter_totals(ctx):
+    """Per tier: calls, tokens and price of a run (its measured latencies
+    differ from run to run)."""
+    return {t: (u.calls, round(u.tok_in, 6), round(u.tok_out, 6),
+                round(u.usd, 9)) for t, u in sorted(ctx.meter.by_tier.items())}
+
+
+def phase_semantic_sharded():
+    """The streaming semantic run at reduced width on the card (m1 the
+    2-layer qwen2, the cascade on ``rowwise_cosine``), unsharded, through
+    two shard workers and through two spawned process workers. m1 and the
+    cascade stay in this process (they hold the card), so every kernel
+    launch is counted here; the workers serve the simulated tiers. Results,
+    per-tier calls, meter totals and cascade stats must equal the
+    unsharded run's."""
+    from repro_torch.core import cost_model
+    from repro_torch.kernels import ops
+    flags = STREAMING + ["--reduced", "--device", "cuda"]
+    runs = {}
+    for name, extra in (("unsharded", []), ("shards", ["--shards", "2"]),
+                        ("procs", ["--procs", "2"])):
+        ops.reset_launch_counts()
+        handles, engine, ctx, seconds = run_semantic(flags + extra)
+        counts = ops.launch_counts()
+        keys, totals = query_keys(handles), meter_totals(ctx)
+        want = expect(**attention_launches(engine), rowwise_cosine=totals.get(
+            cost_model.EMBED_TIER_NAME, (0,))[0])
+        emit({"phase": "semantic_sharded", "run": name,
+              "flags": flags + extra, "arch": engine.bundle.cfg.name,
+              "host_s": seconds, "tier_totals": totals,
+              "cascade": {k[0]: k[3] for k in keys},
+              "equal_to_unsharded": (keys, totals) == runs.get(
+                  "unsharded", (keys, totals)),
+              "launches": counts})
+        if counts != want or not counts["rowwise_cosine"]:
+            raise AssertionError(f"{name}: launch counts {counts}, "
+                                 f"expected {want}")
+        runs[name] = (keys, totals)
+    if not runs["shards"] == runs["procs"] == runs["unsharded"]:
+        raise AssertionError("semantic_sharded: the sharded or process runs "
+                             "differ from the unsharded one in results, "
+                             "per-tier calls, meter totals or cascade stats")
+
+
 def phase_cosine_api(rows):
     """``kernels.ops.cosine_matrix``, the kernel's one entry point (the JAX
     package calls its Pallas ``cosine_matrix`` only from ``ops`` and the
@@ -999,7 +1183,7 @@ def phase_cosine_api(rows):
     if got.shape != (table.n_rows, table.n_rows) or err > 1e-5:
         raise AssertionError("cosine_matrix on the card disagrees with the "
                              "numpy product")
-    set_launches(rows, counts, "cosine_matrix")
+    set_launches(rows, counts, "cosine_api", "cosine_matrix")
 
 
 def qwen2_phases(rows):
@@ -1014,18 +1198,28 @@ def ssm_phases(rows):
     phase_profile(engine, "profile_ssm")
 
 
+def hybrid_phases(rows):
+    engine = phase_serve_hybrid(rows)
+    phase_cross_check(engine, "cross_check_hybrid", state_leaf="ssm_state")
+    phase_profile(engine, "profile_hybrid")
+
+
 def main():
     name = phase_environment()
     phase_build()
     rows = phase_kernels()
     qwen2_phases(rows)
     ssm_phases(rows)
+    hybrid_phases(rows)
+    phase_window_decode()
     phase_cosine_api(rows)
     phase_semantic(rows)
     phase_semantic_single()
     phase_semantic_profile()
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    phase_semantic_sharded()
+    keys = ("name", "route", "source", "replaces", "path", "shape",
+            "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

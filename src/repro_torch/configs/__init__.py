@@ -144,7 +144,7 @@ class ModelConfig:
         return self._attn_params() + ffn + 2 * c.d_model
 
 
-ARCH_IDS = ("qwen2-0.5b", "mamba2-1.3b")
+ARCH_IDS = ("qwen2-0.5b", "mamba2-1.3b", "hymba-1.5b")
 
 
 def _mod_name(arch_id: str) -> str:

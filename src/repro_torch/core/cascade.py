@@ -146,6 +146,12 @@ class EmbeddingBackend:
         self._anchors: Dict[tuple, np.ndarray] = {}
         self._alock = threading.Lock()
 
+    def __getstate__(self):
+        # not shipped to the procs driver's worker processes: the scoring
+        # runs on this process's device
+        raise TypeError("EmbeddingBackend scores on its process's device "
+                        "and stays there")
+
     def _anchor(self, op: plan_ir.Operator) -> np.ndarray:
         key = (op.kind, op.instruction, op.input_column)
         with self._alock:

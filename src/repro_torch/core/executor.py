@@ -172,7 +172,12 @@ class _ClaimOrder:
 
     Liveness: morsel ``i``'s step waits only for morsel ``i - 1``'s step
     of the same operator, which sits earlier in the chain pool's FIFO
-    queue, so the dispatcher's liveness argument still holds."""
+    queue, so the dispatcher's liveness argument still holds. Sharded,
+    morsel ``i - 1`` sits on another shard's pool, ahead of every step
+    there that waits on it, so the lowest morsel that has not passed is
+    always running. A shard that dies cancels its queued steps, and
+    ``distributed.morsel_shards`` re-runs each at once on a thread of its
+    own, not behind the survivors' waiting steps."""
 
     def __init__(self, n: int):
         self._cv = threading.Condition()

@@ -4,7 +4,11 @@
 // Replaces the Pallas TPU kernel src/repro/kernels/decode_attention.py
 // (decode_attention, body _kernel). Same function: query head h reads KV
 // head h / (Hq / Hkv) for any integer group up to 16; keys at or beyond
-// cache_len[b] are masked; cache_len[b] = 0 gives 0.
+// cache_len[b] are masked; cache_len[b] = 0 gives 0. Beyond it, a sliding
+// window (window > 0, Hymba's sliding layers) masks the keys below
+// cache_len[b] - window, as the JAX model's einsum decode does
+// (src/repro/models/attention.py decode_attention; the Pallas kernel has no
+// window).
 //
 // What bounds it on an H100: at the path's shape (4 slots of a 160-entry
 // cache, 14 query heads over 2 KV heads of 64, ~340 valid entries) the
@@ -41,6 +45,9 @@
 //   bytes);
 // * cache_len is read on the device and tiles at or beyond it are never
 //   loaded, so the bytes moved follow the valid lengths, not the cache size;
+//   with a window, a block's first tile starts at the window's first key
+//   (cache_len - window), so no tile before the window is loaded either,
+//   and the cluster is sized from the keys a window reads, not from S;
 // * the engine's (B, S, Hkv, D) cache slice is read in place through its
 //   strides, with no transposed or contiguous copy; rows that are not
 //   16-byte aligned are loaded element by element.
@@ -68,6 +75,7 @@ struct Args {
   const int* cache_len;
   void* o;
   int S, g, ranks;
+  int window;  // > 0: only the last ``window`` valid keys; 0: all
   long long q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_sh;
   float scale;  // D^-0.5 log2(e): scores in log2 units, exps as ex2
 };
@@ -210,9 +218,15 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Args a) {
   const int g = a.g;
   const bool cluster = a.ranks > 1;
   if (cluster) hopper::cluster_arrive();  // waited for before the merge
-  const int len = max(0, min(a.cache_len[b], a.S));
-  const T* kp = static_cast<const T*>(a.k) + b * a.k_sb + hk * a.k_sh;
-  const T* vp = static_cast<const T*>(a.v) + b * a.v_sb + hk * a.v_sh;
+  // The keys read, first .. end: with a window, its first key on; tiles
+  // and lanes below count from ``first``.
+  const int end = max(0, min(a.cache_len[b], a.S));
+  const int first = a.window > 0 ? max(0, end - a.window) : 0;
+  const int len = end - first;
+  const T* kp = static_cast<const T*>(a.k) + b * a.k_sb + hk * a.k_sh +
+                first * a.k_ss;
+  const T* vp = static_cast<const T*>(a.v) + b * a.v_sb + hk * a.v_sh +
+                first * a.v_ss;
 
   // This warp's tiles: t, t + step, ... below len, through its own ring
   // of STAGES tiles, all in flight before the first is used.
@@ -452,21 +466,25 @@ int ranks_for(int S, int B, int Hkv, int sms) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. strides: 10 element strides, q's batch
-// and head strides, k's and v's batch, sequence and head strides, o's batch
-// and head strides, in that order. One kernel launch, no scratch. Returns
+// dtype: 0 = float32, 1 = bfloat16. window: 0 = every valid key, > 0 = the
+// last ``window`` valid keys of each sequence. strides: 10 element strides,
+// q's batch and head strides, k's and v's batch, sequence and head
+// strides, o's batch and head strides, in that order. One kernel launch, no scratch. Returns
 // the launch's cudaError_t (0 on success).
 extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
                                     const int* cache_len, void* o, int dtype,
                                     int B, int S, int Hq, int Hkv, int D,
-                                    const long long* strides, float scale,
-                                    void* stream) {
-  if (B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > GMAX)
+                                    int window, const long long* strides,
+                                    float scale, void* stream) {
+  if (B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > GMAX ||
+      window < 0)
     return cudaErrorInvalidValue;
   Args a;
   a.q = q; a.k = k; a.v = v; a.cache_len = cache_len; a.o = o;
-  a.S = S; a.g = Hq / Hkv;
-  a.ranks = ranks_for(S, B, Hkv, hopper::multiprocessors());
+  a.S = S; a.g = Hq / Hkv; a.window = window;
+  // a window reads at most ``window`` keys a sequence, wherever they lie
+  a.ranks = ranks_for(window > 0 && window < S ? window : S, B, Hkv,
+                      hopper::multiprocessors());
   a.q_sb = strides[0]; a.q_sh = strides[1];
   a.k_sb = strides[2]; a.k_ss = strides[3]; a.k_sh = strides[4];
   a.v_sb = strides[5]; a.v_ss = strides[6]; a.v_sh = strides[7];

@@ -55,6 +55,14 @@ class TorchBackend:
     _batcher: Optional[ContinuousBatcher] = dataclasses.field(
         default=None, init=False, repr=False, compare=False)
 
+    def __getstate__(self):
+        # the procs driver ships every backend that pickles to its worker
+        # processes; this one holds the engine (weights and cache on the
+        # card), so it refuses at once, before anything is serialized, and
+        # stays in the process that built it, as JAXBackend does
+        raise TypeError("TorchBackend holds the engine and stays in the "
+                        "process that built it")
+
     def _submit(self, prompts: Sequence[str]) -> List[int]:
         with self._lock:
             if self._batcher is None:

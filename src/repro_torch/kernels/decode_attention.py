@@ -6,7 +6,9 @@ with flash-decoding in one launch: the warps of a block (or of a
 thread-block cluster, for long caches) take 32-key tiles and merge their
 softmax states on chip, with no scratch in device memory. It reads the
 engine's (B, S, Hkv, D) cache slice in place through its strides and
-``cache_len`` on the device. ``plain`` is the same function in plain
+``cache_len`` on the device. A sliding ``window`` (which the TPU kernel
+lacks; the JAX model masks it in its einsum decode) starts each sequence's
+keys at ``cache_len - window``, so no tile before the window is loaded. ``plain`` is the same function in plain
 PyTorch (``kernels.ref.decode_attention_ref``); the wrapper never falls
 back to it.
 """
@@ -29,17 +31,18 @@ MAX_GROUP = 16
 def _lib():
     lib = _build.library("decode_attention")
     fn = lib.decode_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def decode_attention(q, k_cache, v_cache, cache_len):
+def decode_attention(q, k_cache, v_cache, cache_len, window=0):
     """q: (B, 1, Hq, D); caches (B, S, Hkv, D); cache_len: (B,) int32, all
     CUDA tensors (q and the caches of one dtype, float32 or bfloat16).
-    Returns a new (B, 1, Hq, D) tensor in q's dtype: the only allocation;
+    ``window > 0`` keeps the last ``window`` valid keys of each sequence
+    (keys at positions below cache_len - window are masked). Returns a new (B, 1, Hq, D) tensor in q's dtype: the only allocation;
     one kernel launch, no scratch."""
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
                     ("cache_len", cache_len)):
@@ -64,6 +67,8 @@ def decode_attention(q, k_cache, v_cache, cache_len):
     if hkv == 0 or hq % hkv or hq // hkv > MAX_GROUP:
         raise ValueError(f"{hq} query heads over {hkv} KV heads: the group "
                          f"must be an integer up to {MAX_GROUP}")
+    if window < 0:
+        raise ValueError(f"window {window} < 0 (0 = full attention)")
     if cache_len.dtype != torch.int32 or cache_len.shape != (b,) \
             or not cache_len.is_contiguous():
         raise ValueError(f"cache_len must be a contiguous ({b},) int32 tensor")
@@ -78,7 +83,8 @@ def decode_attention(q, k_cache, v_cache, cache_len):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                  cache_len.data_ptr(), out.data_ptr(), DTYPES[q.dtype], b,
-                 s, hq, hkv, d, strides, float(d ** -0.5), stream)
+                 s, hq, hkv, d, int(window), strides, float(d ** -0.5),
+                 stream)
     if err:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {err}")

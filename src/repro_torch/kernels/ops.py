@@ -49,14 +49,15 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     return fa_mod.plain(q, k, v, **kw)
 
 
-def decode_attention(q, k_cache, v_cache, cache_len):
+def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0):
     """Model layout: q (B, 1, Hq, D); caches (B, S, Hkv, D); cache_len int
-    or (B,) count of valid entries per sequence. Returns (B, 1, Hq, D)."""
+    or (B,) count of valid entries per sequence; ``window > 0`` attends to
+    the last ``window`` of them only. Returns (B, 1, Hq, D)."""
     if not q.is_cuda:
-        return dec_mod.plain(q, k_cache, v_cache, cache_len)
+        return dec_mod.plain(q, k_cache, v_cache, cache_len, window=window)
     lens = torch.as_tensor(cache_len, dtype=torch.int32, device=q.device)
     lens = lens.reshape(-1).expand(q.shape[0]).contiguous()
-    return dec_mod.decode_attention(q, k_cache, v_cache, lens)
+    return dec_mod.decode_attention(q, k_cache, v_cache, lens, window=window)
 
 
 def rowwise_cosine(a, b):

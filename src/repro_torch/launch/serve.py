@@ -5,12 +5,14 @@ versions.
 
 **Token serving** (default; no ``--semantic``): continuous-batching
 generation over a zoo model (``--arch``: qwen2-0.5b, the default, or
-mamba2-1.3b) — reports throughput, slot occupancy and per-request latency
+mamba2-1.3b or hymba-1.5b) — reports throughput, slot occupancy and per-request latency
 percentiles::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --no-reduced \\
         --requests 8 --slots 4 --max-new 24
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \\
+        --no-reduced
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
         --no-reduced
 
 **One semantic query** (``--semantic <dataset>``): the dataset's first
@@ -32,11 +34,18 @@ scores every filter/rank morsel through the row-wise cosine kernel::
         --serve 4 --cascade --no-reduced
 
 The execution knobs are those of ``repro.launch.serve`` (see its docstring
-and ``docs/SERVING.md``), under the same names and defaults, with two
-differences: ``--reduced/--no-reduced`` picks m1's width in the semantic
-modes too (the reference always serves m1 reduced there), and
-``--shards > 1`` and ``--procs > 0`` are refused, because the port has no
-shard or process workers yet.
+and ``docs/SERVING.md``), under the same names and defaults. Among them,
+``--shards N`` runs morsel-parallel shard workers and ``--procs N``
+spawned process shard workers (``repro_torch.distributed``); results,
+per-tier calls and meter totals equal those of ``--shards 1``. m1 (the
+engine) and the cascade's scoring stay in the serving process, with the
+card; the simulated tiers run in the workers::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --semantic movie \\
+        --serve 4 --cascade --procs 2
+
+One difference: ``--reduced/--no-reduced`` picks m1's width in the
+semantic modes too (the reference always serves m1 reduced there).
 """
 from __future__ import annotations
 
@@ -57,8 +66,6 @@ DEMO_PROMPTS = [
     "Summarize: NEWLY BUILT DUPLEX WITH SWIMMING POOL, PRICE: N250m",
     "Does the game support VR? Platforms: Windows, MacOS, VR supported.",
 ]
-NO_WORKERS = ("the port has no shard or process workers yet "
-              "(repro_torch.distributed comes with the distribution slice)")
 
 
 def build_engine(args, arch: str) -> GenerationEngine:
@@ -178,7 +185,8 @@ def serve_query(args, table, cfg, engine, ctx):
     q = WORKLOADS[args.semantic][0]
     print(f"[serve] semantic query {q.qid} over {table.name} "
           f"({table.n_rows} rows), m1 = {cfg.name} on {args.slots} slots, "
-          f"device={args.device} driver={args.driver} batch={args.batch} "
+          f"device={args.device} driver={args.driver} shards={args.shards} "
+          f"procs={args.procs} batch={args.batch} "
           f"coalesce={args.coalesce} linger={args.linger} "
           f"cascade={args.cascade}")
     t0 = time.time()
@@ -257,7 +265,8 @@ def serve_queries(args, table, cfg, engine, ctx):
     controller = parse_admission(args.admission)
     print(f"[serve] streaming {len(queries)} queries over {table.name} "
           f"({table.n_rows} rows), m1 = {cfg.name} on {args.slots} slots, "
-          f"device={args.device} driver={args.driver} batch={args.batch} "
+          f"device={args.device} driver={args.driver} shards={args.shards} "
+          f"procs={args.procs} batch={args.batch} "
           f"stagger={args.stagger}s tenants={args.tenants} lane={args.lane} "
           f"admission={'on' if controller else 'off'} slo={args.slo}")
     handles = []
@@ -304,18 +313,6 @@ def serve_queries(args, table, cfg, engine, ctx):
     return handles
 
 
-def _at_most(limit: int):
-    """argparse type: an int no larger than ``limit``; larger values need
-    the workers the port does not have yet."""
-    def parse(text):
-        n = int(text)
-        if n > limit:
-            raise argparse.ArgumentTypeError(
-                f"{n} > {limit}: {NO_WORKERS}")
-        return n
-    return parse
-
-
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2-0.5b")
@@ -338,12 +335,18 @@ def build_parser() -> argparse.ArgumentParser:
                     default="threads",
                     help="--semantic execution driver: real thread pools "
                          "(measured wall) or the event-model simulation")
-    ap.add_argument("--shards", type=_at_most(1), default=1,
-                    help="--semantic: morsel-parallel shard workers; only "
-                         "1 here (" + NO_WORKERS + ")")
-    ap.add_argument("--procs", type=_at_most(0), default=0,
-                    help="--semantic: spawned process shard workers; only "
-                         "0 here (" + NO_WORKERS + ")")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="--semantic: morsel-parallel shard workers "
+                         "(pool-per-(shard, tier) dispatch; morsels "
+                         "round-robin across shards, results identical "
+                         "to --shards 1)")
+    ap.add_argument("--procs", type=int, default=0,
+                    help="--semantic: spawned process shard workers — "
+                         "backend calls and host UDFs run GIL-free in "
+                         "worker subprocesses, results identical to the "
+                         "in-process drivers; mutually exclusive with "
+                         "--shards > 1 (unpicklable backends, e.g. the "
+                         "engine-backed m1, keep running in-process)")
     ap.add_argument("--batch", type=int, default=1,
                     help="--semantic batch prompting size (records per "
                          "LLM call)")

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops
 from repro_torch.models import common as cm
 
 
@@ -59,15 +59,11 @@ def write_kv(cache, new, pos):
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, window=0):
     """q: (B, 1, Hq, D); caches (B, S, Hkv, D); cache_len (B,) or 0-dim
-    count of valid entries. ``window > 0`` (a sliding layer) has no kernel
-    yet: the TPU decode kernel has none either."""
-    if window > 0:
-        if q.is_cuda:
-            raise NotImplementedError(
-                "windowed decode attention has no CUDA kernel yet")
-        return ref.decode_attention_ref(q, k_cache, v_cache, cache_len,
-                                        window=window)
-    return ops.decode_attention(q, k_cache, v_cache, cache_len)
+    count of valid entries. ``window > 0`` (a sliding layer) keeps only
+    the last ``window`` of them, as the JAX model's decode masks them (the
+    TPU decode kernel has no window; the Hopper kernel has)."""
+    return ops.decode_attention(q, k_cache, v_cache, cache_len,
+                                window=window)
 
 
 def gqa_decode(p, x, cache_k, cache_v, pos, cfg, *, cache_len, window=0):

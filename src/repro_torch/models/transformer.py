@@ -1,17 +1,18 @@
-"""Decoder-only LM of the port: the dense GQA family and the attention-free
-SSM family (Mamba2).
+"""Decoder-only LM of the port: the dense GQA family, the attention-free
+SSM family (Mamba2) and the hybrid family (Hymba: GQA attention and a
+Mamba2 mixer side by side in every layer).
 
 A Python loop over layers replaces ``lax.scan``; weights keep the stacked
-``layer`` axis and each step takes its layer's views. MLA, hybrid, MoE, the
-int8 cache and prefix embeddings raise ``NotImplementedError``: they come
-with later slices.
+``layer`` axis and each step takes its layer's views. MLA, MoE, a hybrid
+without attention, the int8 cache and prefix embeddings raise
+``NotImplementedError``: they come with later slices.
 
 Public surface (used by registry / launch / engine):
   init(cfg, generator=, device=)          -> param tree
   forward(params, cfg, tokens)            -> logits (B, S, V) fp32
-  init_cache(cfg, batch, max_len, dtype)  -> {"k", "v"} (GQA) or
+  init_cache(cfg, batch, max_len, dtype)  -> {"k", "v"} (GQA),
                                              {"ssm_state", "conv_buf"} (SSM),
-                                             and "pos"
+                                             all four (hybrid), and "pos"
   prefill(params, cfg, tokens, max_len=)  -> (last-position logits, cache)
   decode_step(params, cfg, cache, token)  -> (logits, cache updated in place)
 """
@@ -22,7 +23,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs import (ATTN_GQA, ATTN_NONE, FAMILY_DENSE,
-                                 FAMILY_SSM, ModelConfig)
+                                 FAMILY_HYBRID, FAMILY_SSM, ModelConfig)
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
 from repro_torch.models import ffn as ffn_mod
@@ -34,11 +35,14 @@ def check_supported(cfg: ModelConfig) -> None:
              and cfg.ssm is None)
     ssm = (cfg.family == FAMILY_SSM and cfg.attn_type == ATTN_NONE
            and cfg.ssm is not None)
-    if (not (dense or ssm) or cfg.moe is not None or cfg.mla is not None
-            or cfg.is_encoder_decoder or cfg.n_prefix_embeds):
+    hybrid = (cfg.family == FAMILY_HYBRID and cfg.attn_type == ATTN_GQA
+              and cfg.ssm is not None)
+    if (not (dense or ssm or hybrid) or cfg.moe is not None
+            or cfg.mla is not None or cfg.is_encoder_decoder
+            or cfg.n_prefix_embeds):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense GQA decoder and the SSM (Mamba2) "
-            f"family are ported so far")
+            f"{cfg.name}: only the dense GQA decoder, the SSM (Mamba2) "
+            f"family and the GQA + SSM hybrid (Hymba) are ported so far")
 
 
 def init(cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
@@ -50,7 +54,15 @@ def init(cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
     if cfg.attn_type == ATTN_GQA:
         layers["attn_norm"] = cm.rmsnorm_init(cfg.d_model, lead=lead, **kw)
         layers["attn"] = attn.gqa_init(generator, cfg, lead=lead, **kw)
-    if cfg.ssm is not None:
+    if cfg.ssm is not None and cfg.family == FAMILY_HYBRID:
+        # the SSM reads the attention's normed input; each mixer's output
+        # has its own norm before the two are averaged
+        layers["ssm"] = ssm_mod.mamba2_init(generator, cfg, lead=lead, **kw)
+        layers["attn_out_norm"] = cm.rmsnorm_init(cfg.d_model, lead=lead,
+                                                  **kw)
+        layers["ssm_out_norm"] = cm.rmsnorm_init(cfg.d_model, lead=lead,
+                                                 **kw)
+    elif cfg.ssm is not None:
         layers["ssm_norm"] = cm.rmsnorm_init(cfg.d_model, lead=lead, **kw)
         layers["ssm"] = ssm_mod.mamba2_init(generator, cfg, lead=lead, **kw)
     if cfg.d_ff > 0:
@@ -75,23 +87,40 @@ def layer_windows(cfg: ModelConfig):
             for i in range(cfg.n_layers)]
 
 
+def _mix(lp, a, s, cfg):
+    """The hybrid block's output: the attention's and the SSM's outputs,
+    each RMS-normed, averaged."""
+    return 0.5 * (cm.rmsnorm(lp["attn_out_norm"], a, cfg.rms_eps)
+                  + cm.rmsnorm(lp["ssm_out_norm"], s, cfg.rms_eps))
+
+
+def _ssm_forward(p, h, cfg, cache):
+    """The Mamba2 mixer over the sequence; with ``cache`` its final state
+    and conv tail go into the layer's cache slices."""
+    s, (state, buf) = ssm_mod.mamba2_forward(p, h, cfg)
+    if cache is not None:
+        cache["ssm_state"].copy_(state)
+        cache["conv_buf"].copy_(buf)
+    return s
+
+
 def _block_forward(lp, x, cfg, window, positions, cache=None):
     """One layer over the full sequence. ``cache``: this layer's slices of
     the decode cache (``k``/``v`` (B, max_len, Hkv, D); ``ssm_state``,
-    ``conv_buf``), which receive its keys and values or its final SSM state
-    and conv tail (prefill)."""
+    ``conv_buf``), which receive its keys and values and/or its final SSM
+    state and conv tail (prefill). A hybrid layer runs attention and the
+    SSM on the same normed input."""
     if "attn" in lp:
         h = cm.rmsnorm(lp["attn_norm"], x, cfg.rms_eps)
         kv_out = None if cache is None else (cache["k"], cache["v"])
-        x = x + attn.gqa_forward(lp["attn"], h, cfg, positions=positions,
-                                 window=window, kv_out=kv_out)
+        a = attn.gqa_forward(lp["attn"], h, cfg, positions=positions,
+                             window=window, kv_out=kv_out)
+        if "ssm" in lp:
+            a = _mix(lp, a, _ssm_forward(lp["ssm"], h, cfg, cache), cfg)
+        x = x + a
     elif "ssm" in lp:
         h = cm.rmsnorm(lp["ssm_norm"], x, cfg.rms_eps)
-        s, (state, buf) = ssm_mod.mamba2_forward(lp["ssm"], h, cfg)
-        if cache is not None:
-            cache["ssm_state"].copy_(state)
-            cache["conv_buf"].copy_(buf)
-        x = x + s
+        x = x + _ssm_forward(lp["ssm"], h, cfg, cache)
     if "ffn" in lp:
         h = cm.rmsnorm(lp["ffn_norm"], x, cfg.rms_eps)
         x = x + ffn_mod.swiglu(lp["ffn"], h)
@@ -130,7 +159,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                kv_dtype=None, device="cuda"):
     """Zeros. GQA: "k", "v" (L, batch, max_len, Hkv, D). SSM: "ssm_state"
     (L, batch, H, N, P) fp32 and "conv_buf" (L, batch, W-1, conv_ch) in
-    ``dtype``. Dim 1 of every leaf but "pos" is the batch (slot) axis.
+    ``dtype``. Hybrid: all four. Dim 1 of every leaf but "pos" is the batch (slot) axis.
     "pos": a (batch,) int32 vector with per_slot_pos (every slot at its own
     depth, for continuous batching), else a 0-dim one."""
     check_supported(cfg)
@@ -174,11 +203,22 @@ def prefill(params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
     return unembed(params, cfg, x[:, -1:]), cache
 
 
+def _ssm_decode(p, h, cache, i, cfg):
+    """One recurrent step of layer ``i``'s Mamba2 mixer; its new state and
+    conv tail are written into the cache."""
+    s, state, buf = ssm_mod.mamba2_decode(p, h, cache["ssm_state"][i],
+                                          cache["conv_buf"][i], cfg)
+    cache["ssm_state"][i] = state
+    cache["conv_buf"][i] = buf
+    return s
+
+
 def decode_step(params, cfg: ModelConfig, cache, token, *,
                 dtype=torch.bfloat16):
-    """token: (B, 1) int. Writes each slot's new K/V (or its new SSM state
-    and conv tail) into ``cache`` in place and advances ``cache["pos"]`` by
-    one. Returns (logits (B,1,V) f32, cache)."""
+    """token: (B, 1) int. Writes each slot's new K/V and/or its new SSM
+    state and conv tail into ``cache`` in place and advances ``cache["pos"]``
+    by one; a sliding layer attends to the last ``window`` entries only.
+    Returns (logits (B,1,V) f32, cache)."""
     pos = cache["pos"]
     lens = pos + 1  # valid entries after this tick's write, for every layer
     x = params["embed"]["embedding"][token.long()].to(dtype)
@@ -191,14 +231,12 @@ def decode_step(params, cfg: ModelConfig, cache, token, *,
                                       cache["v"][i], pos, cfg,
                                       window=windows[i] if windows else 0,
                                       cache_len=lens)
+            if "ssm" in lp:
+                a = _mix(lp, a, _ssm_decode(lp["ssm"], h, cache, i, cfg), cfg)
             x = x + a
         elif "ssm" in lp:
             h = cm.rmsnorm(lp["ssm_norm"], x, cfg.rms_eps)
-            s, state, buf = ssm_mod.mamba2_decode(
-                lp["ssm"], h, cache["ssm_state"][i], cache["conv_buf"][i], cfg)
-            cache["ssm_state"][i] = state
-            cache["conv_buf"][i] = buf
-            x = x + s
+            x = x + _ssm_decode(lp["ssm"], h, cache, i, cfg)
         if "ffn" in lp:
             h = cm.rmsnorm(lp["ffn_norm"], x, cfg.rms_eps)
             x = x + ffn_mod.swiglu(lp["ffn"], h)

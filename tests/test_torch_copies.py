@@ -3,7 +3,7 @@
 The port imports nothing of ``repro``, so it keeps its own copy of every
 module of the semantic path that imports no JAX: plan IR, tables, UDFs, the
 cost model, backends, runtime, optimizers, datasets, workloads, the query
-server and the q-error report. A copy may differ from its
+server, the q-error report, the process shard workers and the test fakes. A copy may differ from its
 original only in its import prefix (``repro.`` becomes ``repro_torch.``)
 and in its docstrings. So after the prefix is renamed and the docstrings
 are stripped, both syntax trees must dump alike.
@@ -24,17 +24,24 @@ COPIES = [
     "data/movie.py", "data/estate.py", "data/game.py", "data/workloads.py",
     "data/tokenizer.py", "launch/query_server.py", "analysis/qerror.py",
     "configs/qwen2_0_5b.py", "configs/mamba2_1_3b.py",
+    "configs/hymba_1_5b.py", "testing.py",
+    "distributed/process_workers.py",
 ]
 # Ported, not copied, so not held to the copy rule:
 # * core/semhash.py: semantic_equal_batch runs on an explicit device through
 #   the port's kernel and has no numpy fallback;
-# * core/cascade.py: EmbeddingBackend takes a device, and _kernel_scores
-#   passes the anchor as one (D,) row with no fallback;
+# * core/cascade.py: EmbeddingBackend takes a device, refuses to pickle
+#   (it stays with its device, out of the process workers), and
+#   _kernel_scores passes the anchor as one (D,) row with no fallback;
 # * core/executor.py: an uncoalesced LLM operator's morsels claim the
 #   output cache in morsel order, so the threaded driver bills what the
 #   simulated one bills;
+# * distributed/morsel_shards.py: a chain task cancelled by a shard's
+#   death re-runs at once on a thread of its own, because the executor's
+#   morsel-ordered claims can block every chain thread of a survivor;
 # * engine/torch_backend.py, launch/serve.py: drive the port's engine.
-PORTED = ["core/semhash.py", "core/cascade.py", "core/executor.py"]
+PORTED = ["core/semhash.py", "core/cascade.py", "core/executor.py",
+          "distributed/morsel_shards.py"]
 
 
 def _rename(name):

@@ -146,8 +146,9 @@ def test_decode_attention_zero_len_gives_zero():
 
 @pytest.mark.parametrize("window", [8, 40])
 def test_model_windowed_decode_matches_jax(window):
-    """A sliding decode window has no kernel; on the CPU the model runs the
-    plain windowed path, equal to the JAX model's einsum decode."""
+    """The TPU decode kernel has no window; on the CPU the model's windowed
+    decode (the plain version of the Hopper kernel's window) equals the JAX
+    model's einsum decode."""
     from repro.models import attention as jattn
     from repro_torch.models import attention as attn
     rng = np.random.default_rng(9)
@@ -385,3 +386,64 @@ def test_kernels_match_plain_on_card(cuda, dtype, hq, hkv, d):
         got.float(), dec.plain(qd, cache[0], cache[1], lens).float(),
         atol=atol, rtol=rtol)
     assert torch.all(got[0] == 0)
+
+
+# Hymba's heads at full width (25 query over 5 KV heads of 64, a group of 5
+# padded to 8 in the kernel) and reduced (4 over 2 of 16).
+HYMBA_HEADS = [(25, 5, 64), (4, 2, 16)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hq,hkv,d", HYMBA_HEADS)
+@pytest.mark.parametrize("window", [0, 1, 31, 64, 1024])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_windowed_decode_matches_plain_on_card(cuda, dtype, window, hq, hkv,
+                                               d):
+    """The decode kernel with a sliding window against its plain version
+    at cache lengths on either side of the window and of the 32-key tiles
+    (0 gives exactly 0), read as slices of a layer-stacked cache. Every K
+    and V row before a sequence's window is NaN: the kernel never loads
+    them (its first tile starts at the window), so its output stays finite
+    and equals the plain version's on the cache with those rows zeroed."""
+    from repro_torch.kernels import decode_attention as dec
+    td = DTYPES[dtype][1]
+    atol, rtol = ON_CARD_TOL[dtype]
+    g = torch.Generator(cuda).manual_seed(window)
+    w = window or 64
+    s = 2 * w + 40
+    lens = torch.tensor(sorted({0, 1, w - 1, w, w + 1, 2 * w, s}),
+                        dtype=torch.int32, device=cuda)
+    b = len(lens)
+    cache = (torch.randn(2, b, s, hkv, d, generator=g, device=cuda)
+             * 0.5).to(td)
+    q = (torch.randn(b, 1, hq, d, generator=g, device=cuda) * 0.5).to(td)
+    first = lens - window if window else torch.zeros_like(lens)
+    before = torch.arange(s, device=cuda)[None, :] < first[:, None]
+    clean = cache.clone()
+    cache[:, before] = float("nan")
+    clean[:, before] = 0
+    got = dec.decode_attention(q, cache[0], cache[1], lens, window=window)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(
+        got.float(),
+        dec.plain(q, clean[0], clean[1], lens, window=window).float(),
+        atol=atol, rtol=rtol)
+    assert torch.all(got[0] == 0)
+
+
+@pytest.mark.gpu
+def test_windowed_decode_through_ops_and_model_on_card(cuda):
+    """``ops.decode_attention`` and the model's ``decode_attention`` send a
+    windowed call to the kernel on the card (one launch each)."""
+    from repro_torch.models import attention as attn
+    g = torch.Generator(cuda).manual_seed(3)
+    q = torch.randn(3, 1, 25, 64, generator=g, device=cuda)
+    k, v = (torch.randn(3, 300, 5, 64, generator=g, device=cuda)
+            for _ in range(2))
+    lens = torch.tensor([5, 130, 300], dtype=torch.int32, device=cuda)
+    ops.reset_launch_counts()
+    got = attn.decode_attention(q, k, v, lens, window=64)
+    want = ops.decode_attention(q.cpu(), k.cpu(), v.cpu(), lens.cpu(),
+                                window=64)
+    assert ops.launch_counts()["decode_attention"] == 1
+    torch.testing.assert_close(got.cpu(), want, atol=2e-5, rtol=0)

@@ -8,7 +8,8 @@
 (c) ``TorchBackend`` against ``JAXBackend``: the same reduced qwen2 weights
     served by both engines, answers parsed from the generated text;
 (d) ``serve.main`` in streaming semantic mode with the cascade;
-(e) the flags the port does not serve yet are refused;
+(e) the shard and process flags parse as in the reference, and only
+    both at once are refused;
 (f) the threaded driver bills what the simulated one bills, also where
     the reference's threaded driver bills by thread timing.
 
@@ -210,13 +211,20 @@ def test_serve_semantic_matches_jax(capsys):
 
 
 @pytest.mark.parametrize("flags", [["--shards", "2"], ["--procs", "1"]])
-def test_serve_refuses_worker_flags(flags, capsys):
+def test_serve_refuses_worker_flags(flags):
+    """The launcher takes ``--shards`` and ``--procs`` as plain ints, as
+    the reference does, now that the port has its shard and process
+    workers. What is still refused is both at once: the runtime's two
+    shard topologies exclude each other."""
+    from repro_torch.core import runtime as rt
     from repro_torch.launch import serve
-    with pytest.raises(SystemExit):
-        serve.build_parser().parse_args(["--semantic", "movie"] + flags)
-    assert "distribution slice" in capsys.readouterr().err
-    ok = serve.build_parser().parse_args(["--shards", "1", "--procs", "0"])
-    assert (ok.shards, ok.procs) == (1, 0)
+    args = serve.build_parser().parse_args(["--semantic", "movie"] + flags)
+    want = (2, 0) if flags[0] == "--shards" else (1, 1)
+    assert (args.shards, args.procs) == want
+    both = serve.build_parser().parse_args(["--shards", "2", "--procs", "1"])
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        rt.ExecutionContext(backends={}, shards=both.shards,
+                            procs=both.procs).make_dispatcher()
 
 
 # ---------------------------------------------------------------------------

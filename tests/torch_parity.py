@@ -1,6 +1,40 @@
 """Helpers shared by the port's parity tests: carry a JAX Param tree and
-arrays over to torch through numpy."""
+arrays over to torch through numpy; a time limit for tests that wait on
+threads or processes."""
+import contextlib
+import faulthandler
+import signal
+import threading
+
 import numpy as np
+
+
+@contextlib.contextmanager
+def time_limit(seconds, grace_s=60):
+    """Fail a test that runs past ``seconds`` instead of letting it hang.
+    In the main thread an alarm raises ``TimeoutError`` in the test; since
+    a deadlocked dispatcher's pool threads would keep the process from
+    exiting, the process is also set to print every thread's stack and
+    exit ``grace_s`` later. Elsewhere that exit comes at ``seconds``."""
+    if threading.current_thread() is not threading.main_thread():
+        faulthandler.dump_traceback_later(seconds, exit=True)
+        try:
+            yield
+        finally:
+            faulthandler.cancel_dump_traceback_later()
+        return
+
+    def expire(signum, frame):
+        faulthandler.dump_traceback_later(grace_s, exit=True)
+        raise TimeoutError(f"the test ran past its limit of {seconds} s")
+
+    old = signal.signal(signal.SIGALRM, expire)
+    signal.alarm(seconds)
+    try:
+        yield
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, old)
 
 
 def flatten_params(tree, prefix=()):
