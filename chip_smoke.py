@@ -856,9 +856,10 @@ def phase_window_decode():
     while int(cache["pos"]) < max_len - 2:
         tok = logits[:, -1].argmax(dim=-1, keepdim=True)
         same &= int(tok) == int(cpu_logits[:, -1].argmax())
-        logits, cache = bundle.decode_step(params, cache, tok, dtype=torch.float32)
-        cpu_logits, cpu_cache = bundle.decode_step(cpu_params, cpu_cache,
-                                                   tok.cpu(), dtype=torch.float32)
+        logits, cache = bundle.decode_step(params, cache, tok,
+                                           dtype=torch.float32)
+        cpu_logits, cpu_cache = bundle.decode_step(
+            cpu_params, cpu_cache, tok.cpu(), dtype=torch.float32)
         errs.append(max_err(logits.cpu(), cpu_logits))
         steps += 1
     torch.cuda.synchronize()

@@ -469,8 +469,8 @@ int ranks_for(int S, int B, int Hkv, int sms) {
 // dtype: 0 = float32, 1 = bfloat16. window: 0 = every valid key, > 0 = the
 // last ``window`` valid keys of each sequence. strides: 10 element strides,
 // q's batch and head strides, k's and v's batch, sequence and head
-// strides, o's batch and head strides, in that order. One kernel launch, no scratch. Returns
-// the launch's cudaError_t (0 on success).
+// strides, o's batch and head strides, in that order. One kernel launch,
+// no scratch. Returns the launch's cudaError_t (0 on success).
 extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
                                     const int* cache_len, void* o, int dtype,
                                     int B, int S, int Hq, int Hkv, int D,

@@ -207,9 +207,7 @@ class _ResilientTask:
                 if not disp.is_dead(s):
                     raise
                 shard = s
-        fut = getattr(self._task, "_fut", None)
-        if fut is not None:
-            fut.add_done_callback(self._requeue)
+        self._task._fut.add_done_callback(self._requeue)
 
     def _requeue(self, fut: Future) -> None:
         if fut.cancelled():

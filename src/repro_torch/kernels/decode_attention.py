@@ -8,9 +8,10 @@ softmax states on chip, with no scratch in device memory. It reads the
 engine's (B, S, Hkv, D) cache slice in place through its strides and
 ``cache_len`` on the device. A sliding ``window`` (which the TPU kernel
 lacks; the JAX model masks it in its einsum decode) starts each sequence's
-keys at ``cache_len - window``, so no tile before the window is loaded. ``plain`` is the same function in plain
-PyTorch (``kernels.ref.decode_attention_ref``); the wrapper never falls
-back to it.
+keys at ``cache_len - window``, so no tile before the window is loaded.
+``plain`` is the same function in plain PyTorch
+(``kernels.ref.decode_attention_ref``); the wrapper never falls back to
+it.
 """
 from __future__ import annotations
 
@@ -42,8 +43,9 @@ def decode_attention(q, k_cache, v_cache, cache_len, window=0):
     """q: (B, 1, Hq, D); caches (B, S, Hkv, D); cache_len: (B,) int32, all
     CUDA tensors (q and the caches of one dtype, float32 or bfloat16).
     ``window > 0`` keeps the last ``window`` valid keys of each sequence
-    (keys at positions below cache_len - window are masked). Returns a new (B, 1, Hq, D) tensor in q's dtype: the only allocation;
-    one kernel launch, no scratch."""
+    (keys at positions below cache_len - window are masked). Returns a new
+    (B, 1, Hq, D) tensor in q's dtype: the only allocation; one kernel
+    launch, no scratch."""
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
                     ("cache_len", cache_len)):
         if not t.is_cuda or t.device != q.device:

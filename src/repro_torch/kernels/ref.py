@@ -54,7 +54,8 @@ def attention_ref(q, k, v, *, causal=True, window=0, q_offset=0, sk_valid=0,
 def decode_attention_ref(q, k_cache, v_cache, cache_len, *, window=0):
     """q: (B, 1, Hq, D); caches (B, S, Hkv, D); cache_len: int or (B,)
     count of valid cache entries. ``window > 0`` keeps only the last
-    ``window`` of them (the model's sliding layers). Returns (B, 1, Hq, D) in q's dtype."""
+    ``window`` of them (the model's sliding layers). Returns (B, 1, Hq, D)
+    in q's dtype."""
     b, _, hq, d = q.shape
     s, hkv = k_cache.shape[1], k_cache.shape[2]
     g = hq // hkv

@@ -4,9 +4,9 @@ through the Hopper kernels; ``--device cpu`` runs the kernels' plain
 versions.
 
 **Token serving** (default; no ``--semantic``): continuous-batching
-generation over a zoo model (``--arch``: qwen2-0.5b, the default, or
-mamba2-1.3b or hymba-1.5b) — reports throughput, slot occupancy and per-request latency
-percentiles::
+generation over a zoo model (``--arch``: qwen2-0.5b, the default,
+mamba2-1.3b or hymba-1.5b) — reports throughput, slot occupancy and
+per-request latency percentiles::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --no-reduced \\
         --requests 8 --slots 4 --max-new 24

@@ -57,20 +57,12 @@ def write_kv(cache, new, pos):
     return cache
 
 
-def decode_attention(q, k_cache, v_cache, cache_len, *, window=0):
-    """q: (B, 1, Hq, D); caches (B, S, Hkv, D); cache_len (B,) or 0-dim
-    count of valid entries. ``window > 0`` (a sliding layer) keeps only
-    the last ``window`` of them, as the JAX model's decode masks them (the
-    TPU decode kernel has no window; the Hopper kernel has)."""
-    return ops.decode_attention(q, k_cache, v_cache, cache_len,
-                                window=window)
-
-
 def gqa_decode(p, x, cache_k, cache_v, pos, cfg, *, cache_len, window=0):
     """x: (B,1,d); caches (B,S,KV,hd), written in place; pos: 0-dim or (B,)
     write index; cache_len: the valid entries after the write, ``pos + 1``
-    (a caller looping over layers computes it once). Returns (out, cache_k,
-    cache_v)."""
+    (a caller looping over layers computes it once); ``window > 0`` (a
+    sliding layer) attends to the last ``window`` of them only, as the JAX
+    model's decode masks them. Returns (out, cache_k, cache_v)."""
     q = cm.apply_dense(p["q"], x)
     k = cm.apply_dense(p["k"], x)
     v = cm.apply_dense(p["v"], x)
@@ -79,5 +71,5 @@ def gqa_decode(p, x, cache_k, cache_v, pos, cfg, *, cache_len, window=0):
     k = cm.apply_rope(k, positions, cfg.rope_theta)
     write_kv(cache_k, k, pos)
     write_kv(cache_v, v, pos)
-    o = decode_attention(q, cache_k, cache_v, cache_len, window=window)
+    o = ops.decode_attention(q, cache_k, cache_v, cache_len, window=window)
     return cm.apply_dense(p["o"], o, in_dims=2), cache_k, cache_v

@@ -1,7 +1,8 @@
 """Uniform model interface over the port's zoo.
 
 ``build(cfg)`` returns a :class:`ModelBundle` exposing init / prefill /
-decode_step / init_cache. Only decoder-only configs are ported so far;
+decode_step / init_cache. Only decoder-only configs are ported so far (the
+dense GQA, SSM and hybrid families; ``transformer.check_supported``);
 encoder-decoder configs raise.
 """
 from __future__ import annotations

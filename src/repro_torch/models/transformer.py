@@ -159,7 +159,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                kv_dtype=None, device="cuda"):
     """Zeros. GQA: "k", "v" (L, batch, max_len, Hkv, D). SSM: "ssm_state"
     (L, batch, H, N, P) fp32 and "conv_buf" (L, batch, W-1, conv_ch) in
-    ``dtype``. Hybrid: all four. Dim 1 of every leaf but "pos" is the batch (slot) axis.
+    ``dtype``. Hybrid: all four. Dim 1 of every leaf but "pos" is the batch
+    (slot) axis.
     "pos": a (batch,) int32 vector with per_slot_pos (every slot at its own
     depth, for continuous batching), else a 0-dim one."""
     check_supported(cfg)

@@ -3,9 +3,9 @@
 The port imports nothing of ``repro``, so it keeps its own copy of every
 module of the semantic path that imports no JAX: plan IR, tables, UDFs, the
 cost model, backends, runtime, optimizers, datasets, workloads, the query
-server, the q-error report, the process shard workers and the test fakes. A copy may differ from its
-original only in its import prefix (``repro.`` becomes ``repro_torch.``)
-and in its docstrings. So after the prefix is renamed and the docstrings
+server, the q-error report, the process shard workers and the test
+fakes. A copy may differ from its original only in its import prefix
+(``repro.`` becomes ``repro_torch.``) and in its docstrings. So after the prefix is renamed and the docstrings
 are stripped, both syntax trees must dump alike.
 """
 import ast

@@ -147,16 +147,15 @@ def test_decode_attention_zero_len_gives_zero():
 @pytest.mark.parametrize("window", [8, 40])
 def test_model_windowed_decode_matches_jax(window):
     """The TPU decode kernel has no window; on the CPU the model's windowed
-    decode (the plain version of the Hopper kernel's window) equals the JAX
-    model's einsum decode."""
+    decode (``ops.decode_attention`` with a window: the plain version of the
+    Hopper kernel's window) equals the JAX model's einsum decode."""
     from repro.models import attention as jattn
-    from repro_torch.models import attention as attn
     rng = np.random.default_rng(9)
     qj, qt = both(randn(rng, 3, 1, 4, 32))
     (kj, kt), (vj, vt) = (both(randn(rng, 3, 64, 2, 32)) for _ in range(2))
     lens = np.array([5, 33, 64], np.int32)
-    got = attn.decode_attention(qt, kt, vt, torch.from_numpy(lens),
-                                window=window)
+    got = ops.decode_attention(qt, kt, vt, torch.from_numpy(lens),
+                               window=window)
     want = jattn.decode_attention(qj, kj, vj, jnp.asarray(lens), window=window)
     assert_close(got, want, 2e-5)
 
@@ -432,17 +431,17 @@ def test_windowed_decode_matches_plain_on_card(cuda, dtype, window, hq, hkv,
 
 
 @pytest.mark.gpu
-def test_windowed_decode_through_ops_and_model_on_card(cuda):
-    """``ops.decode_attention`` and the model's ``decode_attention`` send a
-    windowed call to the kernel on the card (one launch each)."""
-    from repro_torch.models import attention as attn
+def test_windowed_decode_through_ops_on_card(cuda):
+    """``ops.decode_attention``, which the model's decode calls, sends a
+    windowed call on the card to the kernel: one launch, equal to the CPU
+    path's plain version."""
     g = torch.Generator(cuda).manual_seed(3)
     q = torch.randn(3, 1, 25, 64, generator=g, device=cuda)
     k, v = (torch.randn(3, 300, 5, 64, generator=g, device=cuda)
             for _ in range(2))
     lens = torch.tensor([5, 130, 300], dtype=torch.int32, device=cuda)
     ops.reset_launch_counts()
-    got = attn.decode_attention(q, k, v, lens, window=64)
+    got = ops.decode_attention(q, k, v, lens, window=64)
     want = ops.decode_attention(q.cpu(), k.cpu(), v.cpu(), lens.cpu(),
                                 window=64)
     assert ops.launch_counts()["decode_attention"] == 1

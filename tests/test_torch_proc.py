@@ -186,6 +186,68 @@ def test_proc_worker_sigkill_requeues_and_bills_exactly_once(tmp_path):
     assert _log_key(m_k) == _log_key(m_h)
 
 
+class FlagBackend(tg.SleepBackend):
+    """Touches ``flag_path`` at every call (in the worker that runs it)."""
+
+    def __init__(self, oracle, flag_path, **kw):
+        super().__init__(oracle, **kw)
+        self.flag_path = flag_path
+
+    def run_values(self, op, values, meter=None, batch_size=1):
+        open(self.flag_path, "w").close()
+        return super().run_values(op, values, meter=meter,
+                                  batch_size=batch_size)
+
+
+def test_proc_worker_death_requeues_behind_waiting_turns(tmp_path):
+    """``test_torch_shard``'s staged requeue with a worker's death in place
+    of ``kill_shard``: one-wide chain pools, shard 1's held, so its morsels
+    stay queued; once morsel 0 calls (in worker 0), worker 1 is SIGKILLed.
+    The monitor kills the shard, its queued steps are cancelled while
+    morsel 2 blocks shard 0's only chain thread waiting for morsel 1's
+    turn; the cancelled steps must re-run on their own, and the run end
+    with the healthy run's results and bill."""
+    from repro_torch.core.table import Table
+    from test_torch_shard import _narrow_chains
+    table = Table({"v": [f"pw-{i}" for i in range(32)]}, name="pw")
+    plan = plan_ir.LogicalPlan((
+        plan_ir.Operator(plan_ir.MAP, "one-pw", "v", "a"),
+        plan_ir.Operator(plan_ir.MAP, "two-pw", "a", "b")))
+    m_h = bk.UsageMeter()
+    res_h = ex.execute(plan, table, {"m*": _mk()}, default_tier="m*",
+                       morsel_size=4, meter=m_h, cache=rt.OutputCache())
+    flag = tmp_path / "called"
+    backend = FlagBackend(tg.KindOracle(), str(flag), delay_s=0.01,
+                          sleep_s=0.0)
+    disp = ShardedDispatcher(shards=2, driver="procs", concurrency=4,
+                             backends={"m*": backend})
+    _narrow_chains(disp)
+    hold = threading.Event()
+    disp._inner[1]._chain.submit(hold.wait)
+    victim = disp._inner[1].client.pid
+
+    def kill_worker_1():
+        while not flag.exists():
+            time.sleep(0.01)
+        os.kill(victim, signal.SIGKILL)
+
+    killer = threading.Thread(target=kill_worker_1, daemon=True)
+    killer.start()
+    meter = bk.UsageMeter()
+    try:
+        res = ex.execute(plan, table, {"m*": backend}, default_tier="m*",
+                         batch_size=1, morsel_size=4, meter=meter,
+                         cache=rt.OutputCache(), dispatcher=disp)
+        assert disp.live_shards() == [0]
+    finally:
+        hold.set()
+        disp.close()
+    killer.join(LIMIT_S)
+    assert not killer.is_alive()
+    assert res.table.columns["b"] == res_h.table.columns["b"]
+    assert _totals(meter) == _totals(m_h)
+
+
 def test_proc_missed_heartbeat_declares_shard_dead():
     """SIGSTOP freezes a worker without closing its pipe: the heartbeat
     monitor declares the shard dead and the run completes on the

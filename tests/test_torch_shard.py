@@ -519,6 +519,49 @@ def test_requeued_morsel_behind_waiting_turns_completes(ops):
     assert _meter_key(ctx.meter) == _meter_key(m0)
 
 
+def test_cancelled_tasks_rerun_exactly_once_under_contention():
+    """Stress: 64 tasks queued on a shard held busy; the shard is killed,
+    which starts one re-run thread per cancelled task while 16 threads
+    ask every task for its result, with a tiny switch interval. Each
+    task's ``fn`` runs exactly once and every caller gets its value."""
+    import sys
+    disp = ShardedDispatcher(shards=2, driver="threads", concurrency=4)
+    _narrow_chains(disp)
+    hold = threading.Event()
+    disp._inner[1]._chain.submit(hold.wait)
+    runs, lock = {}, threading.Lock()
+
+    def fn(i):
+        def step(value, ready):
+            with lock:
+                runs[i] = runs.get(i, 0) + 1
+            return value + i, ready
+        return step
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        tasks = [disp.defer(disp.done(1000), fn(i), shard=1)
+                 for i in range(64)]
+        got = [[] for _ in range(16)]
+
+        def ask(k):
+            got[k] = [t.result()[0] for t in reversed(tasks)]
+        askers = [threading.Thread(target=ask, args=(k,)) for k in range(16)]
+        disp.kill_shard(1)
+        for t in askers:
+            t.start()
+        for t in askers:
+            t.join(LIMIT_S)
+        assert not any(t.is_alive() for t in askers)
+    finally:
+        sys.setswitchinterval(old)
+        hold.set()
+        disp.close()
+    assert runs == {i: 1 for i in range(64)}
+    assert all(g == [1000 + i for i in reversed(range(64))] for g in got)
+
+
 # ---------------------------------------------------------------------------
 # Launcher and context wiring
 # ---------------------------------------------------------------------------

@@ -4,26 +4,17 @@ threads or processes."""
 import contextlib
 import faulthandler
 import signal
-import threading
 
 import numpy as np
 
 
 @contextlib.contextmanager
 def time_limit(seconds, grace_s=60):
-    """Fail a test that runs past ``seconds`` instead of letting it hang.
-    In the main thread an alarm raises ``TimeoutError`` in the test; since
-    a deadlocked dispatcher's pool threads would keep the process from
-    exiting, the process is also set to print every thread's stack and
-    exit ``grace_s`` later. Elsewhere that exit comes at ``seconds``."""
-    if threading.current_thread() is not threading.main_thread():
-        faulthandler.dump_traceback_later(seconds, exit=True)
-        try:
-            yield
-        finally:
-            faulthandler.cancel_dump_traceback_later()
-        return
-
+    """Fail a test that runs past ``seconds`` instead of letting it hang: an
+    alarm raises ``TimeoutError`` in the test (which runs in the main
+    thread). A deadlocked dispatcher's pool threads would keep the process
+    from exiting, so the alarm also sets the process to print every
+    thread's stack and exit ``grace_s`` later."""
     def expire(signum, frame):
         faulthandler.dump_traceback_later(grace_s, exit=True)
         raise TimeoutError(f"the test ran past its limit of {seconds} s")
