@@ -5,7 +5,7 @@ rather than copied in one place: a chain task cancelled by a shard's death
 re-runs at once on a thread of its own (:class:`_ResilientTask`), because
 the port's executor orders an operator's cache claims by morsel.
 
-The single-host ``runtime.ThreadPoolDispatcher`` (PR 2) overlaps one
+The single-host ``runtime.ThreadPoolDispatcher`` overlaps one
 execution's backend calls on per-tier worker pools; this module
 generalizes that shape to **N shard workers**: the executor's morsel
 stream is partitioned round-robin by morsel index, each shard runs behind
@@ -245,7 +245,7 @@ class ShardedDispatcher(rt.Dispatcher):
     driver-conditional logic (coalescer linger mode, ephemeral flush
     threads) behaves identically to the unsharded dispatchers.
 
-    Liveness under threads is the PR 2 chain-FIFO argument applied per
+    Liveness under threads is the chain-FIFO argument applied per
     shard: the executor defers tasks in operator-major order, so within
     every shard's FIFO a task's intra-shard dependency is earlier in the
     queue, and cross-shard waits (a coalesced batch needing another

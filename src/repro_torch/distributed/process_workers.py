@@ -37,7 +37,7 @@ Death ladder
 ------------
 A worker death — crash, SIGKILL, or ``heartbeat_timeout_s`` of silence
 (e.g. SIGSTOP) — is detected by the client's monitor/receiver threads
-and surfaces as the exact PR 8 contract: the owning ``ShardedDispatcher``
+and surfaces as the shard-kill contract: the owning ``ShardedDispatcher``
 ``kill_shard``\\ s the shard (ring-next routing, morsel requeue onto
 survivors), and every pending pipe call raises ``ShardDeadError`` so the
 ``run_llm``/``run_udf`` retry loops re-route. A call that died with the
