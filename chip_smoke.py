@@ -35,7 +35,14 @@ non-zero):
    prefill length and at 2048; ``ssd_scan`` over its heads (50 of 64,
    d_state 16) at every prefill length, 272 and 2048 (fp64 too); timed:
    the windowed decode step over 4 slots of a 4096-entry cache and the
-   scan at S = 96.
+   scan at S = 96. codeqwen1.5-7b's heads (32 over 32, head_dim 128): flash
+   at every prefill length 16-160, 2048 and the offset and empty-row
+   cases; decode at B = 4, S = 160 and B = 32, S = 4096, at the edge lengths
+   (0 must give exactly 0) and through unaligned rows; timed: the prefill
+   and decode rows of qwen2's shapes at codeqwen's heads and at
+   granite-moe-1b-a400m's (16 over 8 of 64). ``rowwise_cosine`` over the
+   whole game table is also timed with L2 cold (8 copies of the rows in
+   turn).
 4. serve: full-width qwen2-0.5b (24 layers, d_model 896, vocab 151936, seeded
    random weights) serves 8 requests through ``GenerationEngine`` and
    ``ContinuousBatcher``; every prefill must launch ``flash_attention`` once
@@ -55,14 +62,27 @@ non-zero):
    every prefill launches ``flash_attention`` and ``ssd_scan`` once per
    layer, every tick ``decode_attention`` once per layer; the card's
    prefill logits and SSM state against the CPU's.
-9. window_decode: reduced hymba (window 64 on layer 1) decodes greedily
+9. serve_codeqwen, cross_check_codeqwen, profile_codeqwen; serve_moe,
+   cross_check_moe, profile_moe; serve_mla, cross_check_mla, profile_mla:
+   phases 4-6 for the cost model's other LLM tiers at full width and depth
+   with the SSM phases' flags. codeqwen1.5-7b (m*: 32 layers, d_model
+   4096, 32/32 heads of 128, QKV bias, vocab 92416; 32.76 GB fp32):
+   ``flash_attention`` = 32 x prefills, ``decode_attention`` = 32 x ticks.
+   granite-moe-1b-a400m (m2: 24 layers, d_model 1024, 16/8 heads of 64, 32
+   experts of 512, top-8, the MoE's gather path in plain PyTorch): 24 x
+   each. minicpm3-4b (m3: 62 layers, d_model 2560, MLA in plain PyTorch):
+   no kernel launch at all. The cross-checks' CPU copies: granite whole;
+   codeqwen cut to its first 4 layers and minicpm3 to its first 8, at full
+   width (``CUT_LAYERS``). Each model's memory is released before the next
+   is built (phase ``release``).
+10. window_decode: reduced hymba (window 64 on layer 1) decodes greedily
    from a 16-token prompt to position 150 on the card, and its logits at
    every step are held against the same steps on the CPU: the window
    through the model on the card (the full-width serve never fills 1024).
-10. cosine_api: ``kernels.ops.cosine_matrix``, the kernel's only entry point
+11. cosine_api: ``kernels.ops.cosine_matrix``, the kernel's only entry point
    in the package, over the embedded plots of the whole movie table against
    themselves, held against the numpy product ``core.semhash.cosine_matrix``.
-11. semantic: ``serve --semantic movie --serve 4 --cascade --no-reduced``
+12. semantic: ``serve --semantic movie --serve 4 --cascade --no-reduced``
    (q1-q4 over 32 rows; m1 is full-width qwen2-0.5b, the cascade scores
    every filter morsel with ``rowwise_cosine``). Every query must finish;
    ``rowwise_cosine`` must launch once per ``tier0-embed`` call and the
@@ -71,7 +91,7 @@ non-zero):
    and cascade stats must be equal. Then the single-query mode (q1, m1
    only), and the streaming run once more under torch.profiler for the
    card's idle share.
-12. semantic_sharded: the streaming run at reduced width on the card,
+13. semantic_sharded: the streaming run at reduced width on the card,
    unsharded, with ``--shards 2`` and with ``--procs 2`` (spawned process
    workers; m1 and the cascade stay in this process): results, per-tier
    calls, meter totals and cascade stats must be equal.
@@ -133,6 +153,17 @@ SSM_SERVE = ["--arch", "mamba2-1.3b", "--no-reduced", "--requests", "8",
 HYMBA_HEADS, HYMBA_WINDOW, SSM_HYMBA = (25, 5, 64), 1024, (50, 64, 16, 1)
 HYMBA_LAYERS = 32
 HYMBA_SERVE = ["--arch", "hymba-1.5b"] + SSM_SERVE[2:]
+# the cost model's other LLM tiers: codeqwen1.5-7b (m*, 32 query and 32 KV
+# heads of 128), granite-moe-1b-a400m (m2, 16 over 8 heads of 64, 32
+# experts top-8) and minicpm3-4b (m3, MLA: no attention kernel), served with
+# the SSM phases' flags; the cross-checks' CPU copies of codeqwen and
+# minicpm3 keep their first CUT_LAYERS layers at full width (a full-depth
+# copy would take 33 and 17 GB of host memory)
+CODEQWEN_HEADS, GRANITE_HEADS = (32, 32, 128), (16, 8, 64)
+CODEQWEN_SERVE = ["--arch", "codeqwen1.5-7b"] + SSM_SERVE[2:]
+MOE_SERVE = ["--arch", "granite-moe-1b-a400m"] + SSM_SERVE[2:]
+MLA_SERVE = ["--arch", "minicpm3-4b"] + SSM_SERVE[2:]
+CUT_LAYERS = {"codeqwen1.5-7b": 4, "minicpm3-4b": 8}
 QWEN_SERVE = ["--no-reduced", "--requests", "8", "--slots", "4",
               "--max-len", "160", "--max-new", "24", "--device", "cuda"]
 # cosine_matrix: the shapes of tests/test_kernels.py, the cosine_api path's
@@ -282,7 +313,9 @@ def flash_cases():
     the packing of a GQA group's rows into one tile is easiest to get
     wrong; at q_offset -6 the first 6 rows see no key and must give 0.
     Hymba's heads (a group of 5) with its window of 1024 at every prefill
-    length and at 2048, where the window masks."""
+    length and at 2048, where the window masks. codeqwen1.5-7b's heads (32
+    over 32 of head_dim 128) at every prefill length, 2048 and the offset
+    cases."""
     full = [("causal", 1, s, True, 0) for s in range(16, 161, 16)]
     full += [("causal", 1, 2048, True, 0),
              ("padded", 2, 40, True, 0), ("window", 1, 160, True, 24),
@@ -296,19 +329,26 @@ def flash_cases():
                ("offset_noncausal", 2, 48, False, 0, 3, 28)]
     hymba = [("hymba_window", 1, s, True, HYMBA_WINDOW)
              for s in list(range(16, 161, 16)) + [2048]]
+    codeqwen = [("causal", 1, s, True, 0)
+                for s in list(range(16, 161, 16)) + [2048]]
     return ([(FULL_HEADS, *c, 0, c[2]) for c in full]
             + [(REDUCED_HEADS, *c, 0, c[2]) for c in small]
-            + [(h, *c) for h in (FULL_HEADS, REDUCED_HEADS) for c in offsets]
-            + [(HYMBA_HEADS, *c, 0, c[2]) for c in hymba])
+            + [(h, *c) for h in (FULL_HEADS, REDUCED_HEADS, CODEQWEN_HEADS)
+               for c in offsets]
+            + [(HYMBA_HEADS, *c, 0, c[2]) for c in hymba]
+            + [(CODEQWEN_HEADS, *c, 0, c[2]) for c in codeqwen])
 
 
 DECODE_CASES = [(FULL_HEADS, b, s) for b in (4, 32) for s in (160, 4096)] \
-    + [(REDUCED_HEADS, 4, 160)]
+    + [(REDUCED_HEADS, 4, 160), (CODEQWEN_HEADS, 4, 160),
+       (CODEQWEN_HEADS, 32, 4096)]
 # cache lengths at the kernel's edges: none, one key, either side of its
 # 32-key tiles and of two of them, the whole cache; over groups of 1, 7
-# (qwen2-0.5b) and 16 (the largest) at head_dim 64, and the reduced heads
+# (qwen2-0.5b) and 16 (the largest) at head_dim 64, the reduced heads, and
+# at head_dim 128 codeqwen1.5-7b's heads (a group of 1) and a group of 16
 DECODE_EDGE_LENS = (0, 1, 31, 32, 33, 63, 64, 65, 160)
-DECODE_EDGE_HEADS = [(2, 2, 64), (14, 2, 64), (32, 2, 64), REDUCED_HEADS]
+DECODE_EDGE_HEADS = [(2, 2, 64), (14, 2, 64), (32, 2, 64), REDUCED_HEADS,
+                     CODEQWEN_HEADS, (32, 2, 128)]
 # hymba's sliding window: lengths on either side of it and of twice it, of
 # a 4096-entry cache
 WINDOW_LENS = (0, 1, 1023, 1024, 1025, 2048, 4096)
@@ -329,7 +369,8 @@ def check_decode(gen, dtype, failures):
     cases += [("edges", heads, len(DECODE_EDGE_LENS), 160, DECODE_EDGE_LENS,
                0) for heads in DECODE_EDGE_HEADS]
     cases += [("unaligned", heads, len(DECODE_EDGE_LENS), 160,
-               DECODE_EDGE_LENS, 0) for heads in (FULL_HEADS, REDUCED_HEADS)]
+               DECODE_EDGE_LENS, 0)
+              for heads in (FULL_HEADS, REDUCED_HEADS, CODEQWEN_HEADS)]
     cases += [(case, HYMBA_HEADS, len(WINDOW_LENS), WINDOW_LENS[-1],
                WINDOW_LENS, window)
               for case, window in (("hymba_window", HYMBA_WINDOW),
@@ -563,15 +604,15 @@ KERNELS = {
 }
 
 
-def time_flash(gen, s, dtype):
-    """Causal prefill of one sequence of s tokens: kernel, plain version and
-    SDPA timed on the same inputs; the bound counts q, k, v read once, o
-    written once and 4 * D FLOPs per causal (query, key) pair, at the
-    dtype's peak (fp32: 3xTF32)."""
+def time_flash(gen, s, dtype, heads=FULL_HEADS):
+    """Causal prefill of one sequence of s tokens over ``heads``: kernel,
+    plain version and SDPA timed on the same inputs; the bound counts q, k,
+    v read once, o written once and 4 * D FLOPs per causal (query, key)
+    pair, at the dtype's peak (fp32: 3xTF32)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
-    hq, hkv, d = FULL_HEADS
+    hq, hkv, d = heads
     q, k, v = attn_inputs(gen, 1, s, hq, hkv, d, dtype, layers=N_LAYERS)
     kw = dict(causal=True, window=0, q_offset=0, sk_valid=s)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -628,6 +669,32 @@ def time_rowwise(gen, m):
         lambda: sim.rowwise_cosine(a, anchor), lambda: sim.plain(a, anchor),
         lambda: torch.mv(a, anchor),
         nbytes=(m * EMBED_DIM + EMBED_DIM + m) * 4, flops=2 * m * EMBED_DIM)
+
+
+def time_rowwise_cold(gen, m, copies=8):
+    """``time_rowwise`` with L2 cold: ``copies`` sets of m rows (8 x 19.3
+    MB at m = 18891, past the 50 MB L2) taken in turn, so each call reads
+    rows that the calls between evicted. Kernel and ``torch.mv`` only; not
+    a row of the kernels line."""
+    from repro_torch.kernels import similarity as sim
+    rows = [unit_rows(gen, m, torch.float32) for _ in range(copies)]
+    anchor = unit_rows(gen, 1, torch.float32)[0]
+    turn = [0]
+
+    def cycling(fn):
+        def call():
+            fn(rows[turn[0] % copies], anchor)
+            turn[0] += 1
+        return call
+    line = {"phase": "kernel_timing_cold_l2", "name": "rowwise_cosine",
+            "shape": f"M={m} D={EMBED_DIM} anchor float32, {copies} copies "
+                     f"of {m * EMBED_DIM * 4 / 1e6:.1f} MB in turn",
+            "ms": cuda_ms(cycling(sim.rowwise_cosine), reps=4 * copies),
+            "library_ms": cuda_ms(cycling(torch.mv), reps=4 * copies),
+            "bound_ms": (m * EMBED_DIM + EMBED_DIM + m) * 4
+            / PEAKS["bytes"] * 1e3, "bound_by": "bytes"}
+    emit(line)
+    return line
 
 
 def ssd_flops(s, heads):
@@ -727,24 +794,34 @@ def time_kernels(gen):
     slots of a 4096-entry cache, a cascade pass over the whole game table
     and a 4096 x 4096 product. Hymba's rows also go into the kernels line:
     its windowed decode step over 4 slots of a full 4096-entry cache
-    (window 1024) and its scan at the longest served prompt."""
+    (window 1024) and its scan at the longest served prompt; so do
+    codeqwen1.5-7b's and granite-moe-1b-a400m's prefill and decode step at
+    the qwen2 rows' shapes over their heads."""
     lens, padded = served_prefill_lengths()
     plots = movie_rows()
+    mid = [n + 12 for n in lens[:4]]
     rows = [time_flash(gen, max(padded), torch.float32),
-            time_decode(gen, 160, [n + 12 for n in lens[:4]], torch.float32),
+            time_decode(gen, 160, mid, torch.float32),
             time_rowwise(gen, 16), time_matrix(gen, plots, plots),
             time_ssd(gen, max(padded)),
             time_decode(gen, 4096, [4096] * 4, torch.float32,
                         heads=HYMBA_HEADS, window=HYMBA_WINDOW),
-            time_ssd(gen, max(padded), heads=SSM_HYMBA)]
+            time_ssd(gen, max(padded), heads=SSM_HYMBA),
+            time_flash(gen, max(padded), torch.float32, heads=CODEQWEN_HEADS),
+            time_decode(gen, 160, mid, torch.float32, heads=CODEQWEN_HEADS),
+            time_flash(gen, max(padded), torch.float32, heads=GRANITE_HEADS),
+            time_decode(gen, 160, mid, torch.float32, heads=GRANITE_HEADS)]
     for row, path in zip(rows, ("serve", "serve", "semantic", "cosine_api",
-                                "serve_ssm", "serve_hybrid", "serve_hybrid")):
+                                "serve_ssm", "serve_hybrid", "serve_hybrid",
+                                "serve_codeqwen", "serve_codeqwen",
+                                "serve_moe", "serve_moe")):
         row["path"] = path
     time_flash(gen, max(padded), torch.bfloat16)
     for dtype in (torch.float32, torch.bfloat16):
         time_flash(gen, 2048, dtype)
     time_decode(gen, 4096, list(range(128, 4097, 128)), torch.float32)
     time_rowwise(gen, COSINE_ROWS[-1])
+    time_rowwise_cold(gen, COSINE_ROWS[-1])
     time_matrix(gen, 4096, 4096)
     time_ssd(gen, 2048)
     return rows
@@ -785,13 +862,17 @@ def set_launches(rows, counts, path, *names):
             r["launches"] = counts[r["name"]]
 
 
-def phase_serve(rows):
-    engine, counts = run_serve("serve", QWEN_SERVE)
+def phase_serve(rows, phase="serve", flags=QWEN_SERVE):
+    """A GQA model (qwen2-0.5b; codeqwen1.5-7b, granite-moe-1b-a400m):
+    every prefill launches ``flash_attention`` and every decode tick
+    ``decode_attention`` once per layer; no other kernel runs (granite's
+    MoE is plain PyTorch: the reference has no kernel for it)."""
+    engine, counts = run_serve(phase, flags)
     want = expect(**attention_launches(engine))
     if counts != want or not (counts["flash_attention"]
                               and counts["decode_attention"]):
         raise AssertionError(f"launch counts {counts}, expected {want}")
-    set_launches(rows, counts, "serve", "flash_attention", "decode_attention")
+    set_launches(rows, counts, phase, "flash_attention", "decode_attention")
     return engine
 
 
@@ -822,6 +903,29 @@ def phase_serve_hybrid(rows):
         raise AssertionError(f"launch counts {counts}, expected {want}")
     set_launches(rows, counts, "serve_hybrid", "decode_attention", "ssd_scan")
     return engine
+
+
+def phase_serve_mla(rows):
+    """Full-width minicpm3-4b (tier m3): MLA's prefill and absorbed decode
+    run in plain PyTorch, as the reference runs them in jnp, so no kernel
+    launches at all."""
+    engine, counts = run_serve("serve_mla", MLA_SERVE)
+    want = expect()
+    if counts != want:
+        raise AssertionError(f"launch counts {counts}, expected {want}")
+    return engine
+
+
+def release():
+    """Free the card's memory of the phase that ended (its engine and
+    weights are unreachable once its function returns), so no two large
+    models are on the card at once."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "release",
+          "allocated_gb": torch.cuda.memory_allocated() / 1e9,
+          "reserved_gb": torch.cuda.memory_reserved() / 1e9})
 
 
 def to_cpu(tree):
@@ -882,22 +986,43 @@ def phase_window_decode():
                              "the CPU's disagree")
 
 
-def phase_cross_check(engine, phase="cross_check", state_leaf=None):
+def cut_depth(engine, n_layers):
+    """The served model cut to its first ``n_layers`` layers at full
+    width: (bundle, params), the layers as views of the served weights."""
+    from dataclasses import replace
+
+    from repro_torch.models import registry
+    cfg = replace(engine.bundle.cfg, n_layers=n_layers)
+    params = dict(engine.params)
+    params["layers"] = layers_upto(engine.params["layers"], n_layers)
+    return registry.build(cfg), params
+
+
+def layers_upto(tree, n):
+    return {k: layers_upto(v, n) if isinstance(v, dict) else v[:n]
+            for k, v in tree.items()}
+
+
+def phase_cross_check(engine, phase="cross_check", state_leaf=None,
+                      layers=None):
     """Prefill logits of one prompt on the card (kernels) and on the CPU
     (plain path) from the same fp32 weights, and with ``state_leaf`` that
-    cache leaf too (the SSM's final state). Tolerance: sums in another
-    order over 24 to 48 layers move fp32 logits by ~1e-5; 1e-3 leaves a
-    wide margin below any real fault."""
+    cache leaf too (the SSM's final state); with ``layers``, the model cut
+    to its first ``layers`` layers at full width, on both sides (the CPU's
+    copy of the whole model would not fit the host). Tolerance: sums in
+    another order over 24 to 62 layers move fp32 logits by ~1e-5; 1e-3
+    leaves a wide margin below any real fault."""
     from repro_torch.data.tokenizer import ByteTokenizer
     from repro_torch.engine.engine import PREFILL_ALIGN
     from repro_torch.launch.serve import DEMO_PROMPTS
     tok = ByteTokenizer()
     ids = tok.pad_batch([tok.encode(DEMO_PROMPTS[0])], align=PREFILL_ALIGN)
-    bundle = engine.bundle
+    bundle, params = ((engine.bundle, engine.params) if layers is None
+                      else cut_depth(engine, layers))
     gpu, gcache = bundle.prefill(
-        engine.params, {"tokens": torch.as_tensor(ids, device="cuda")},
+        params, {"tokens": torch.as_tensor(ids, device="cuda")},
         dtype=torch.float32)
-    cpu, ccache = bundle.prefill(to_cpu(engine.params),
+    cpu, ccache = bundle.prefill(to_cpu(params),
                                  {"tokens": torch.as_tensor(ids)},
                                  dtype=torch.float32)
     gpu = gpu.cpu()
@@ -905,6 +1030,8 @@ def phase_cross_check(engine, phase="cross_check", state_leaf=None):
     finite = bool(torch.isfinite(gpu).all())
     same_argmax = int(gpu[0, -1].argmax()) == int(cpu[0, -1].argmax())
     line = {"phase": phase, "tokens": ids.shape[1],
+            "layers": bundle.cfg.n_layers,
+            "layers_served": engine.bundle.cfg.n_layers,
             "logits_shape": list(gpu.shape), "max_abs_err": err,
             "atol": LOGITS_ATOL, "finite": finite,
             "max_abs_logit": gpu.abs().max().item(),
@@ -968,7 +1095,8 @@ def phase_profile(engine, phase="profile"):
     """Where serve time goes: torch.profiler over 4 more requests (prefills
     and decode ticks) on the served engine. The device kernels per decode
     tick show that ``decode_attention`` is one kernel per layer: the count
-    of kernels named ``decode_*`` must be layers x ticks."""
+    of kernels named ``decode_*`` must be GQA layers x ticks (0 for MLA
+    and SSM models)."""
     from repro_torch.engine import ContinuousBatcher
     from repro_torch.launch.serve import DEMO_PROMPTS
     batcher = ContinuousBatcher(engine)
@@ -977,8 +1105,9 @@ def phase_profile(engine, phase="profile"):
     before = dict(engine.stats)
     activity = profiled(batcher.run)
     ticks = engine.stats["decode_steps"] - before["decode_steps"]
-    attn_layers = (engine.bundle.cfg.n_layers
-                   if "attn" in engine.params["layers"] else 0)
+    cfg = engine.bundle.cfg
+    # layers whose decode launches the kernel: GQA ones (not MLA, not SSM)
+    attn_layers = cfg.n_layers if cfg.attn_type == "gqa" else 0
     emit({"phase": phase, "requests": 4,
           "prefills": engine.stats["prefills"] - before["prefills"],
           "decode_steps": ticks, **activity,
@@ -1205,13 +1334,34 @@ def hybrid_phases(rows):
     phase_profile(engine, "profile_hybrid")
 
 
+def codeqwen_phases(rows):
+    engine = phase_serve(rows, "serve_codeqwen", CODEQWEN_SERVE)
+    phase_cross_check(engine, "cross_check_codeqwen",
+                      layers=CUT_LAYERS["codeqwen1.5-7b"])
+    phase_profile(engine, "profile_codeqwen")
+
+
+def moe_phases(rows):
+    engine = phase_serve(rows, "serve_moe", MOE_SERVE)
+    phase_cross_check(engine, "cross_check_moe")
+    phase_profile(engine, "profile_moe")
+
+
+def mla_phases(rows):
+    engine = phase_serve_mla(rows)
+    phase_cross_check(engine, "cross_check_mla",
+                      layers=CUT_LAYERS["minicpm3-4b"])
+    phase_profile(engine, "profile_mla")
+
+
 def main():
     name = phase_environment()
     phase_build()
     rows = phase_kernels()
-    qwen2_phases(rows)
-    ssm_phases(rows)
-    hybrid_phases(rows)
+    for phases in (qwen2_phases, ssm_phases, hybrid_phases, codeqwen_phases,
+                   moe_phases, mla_phases):
+        phases(rows)
+        release()
     phase_window_decode()
     phase_cosine_api(rows)
     phase_semantic(rows)

@@ -144,7 +144,8 @@ class ModelConfig:
         return self._attn_params() + ffn + 2 * c.d_model
 
 
-ARCH_IDS = ("qwen2-0.5b", "mamba2-1.3b", "hymba-1.5b")
+ARCH_IDS = ("qwen2-0.5b", "mamba2-1.3b", "hymba-1.5b", "codeqwen1.5-7b",
+            "granite-moe-1b-a400m", "minicpm3-4b")
 
 
 def _mod_name(arch_id: str) -> str:

@@ -36,13 +36,17 @@
 // * each warp streams its tiles through its own two-stage ring in shared
 //   memory with 16-byte cp.async copies (zero-filled past cache_len), so
 //   the next tile's loads are in flight while this one is multiplied and
-//   warps never wait on each other until the merge;
+//   warps never wait on each other until the merge. fp32 at head_dim 128
+//   (codeqwen1.5-7b) has a one-stage ring: two stages (270,336 bytes)
+//   and the cluster's merge state pass the 232,448 bytes a block may have,
+//   one takes 218,112 with 8 ranks; its warps overlap each other's loads
+//   instead of their own;
 // * one block serves all query heads of its KV head's group, so each K/V
 //   row is read from memory once, not once per query head; a lane holds
 //   one key's scores for the whole group, then the output columns of the
-//   group, so both products are chains of independent FMAs with operands
-//   read from shared memory without bank conflicts (rows padded by 16
-//   bytes);
+//   group (D / 32 columns a lane at D >= 64: 4 at head_dim 128), so both
+//   products are chains of independent FMAs with operands read from shared
+//   memory without bank conflicts (rows padded by 16 bytes);
 // * cache_len is read on the device and tiles at or beyond it are never
 //   loaded, so the bytes moved follow the valid lengths, not the cache size;
 //   with a window, a block's first tile starts at the window's first key
@@ -64,8 +68,8 @@ constexpr int KEYS = 32;       // keys per tile: one a lane
 constexpr int GMAX = 16;       // largest query-head group
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
-constexpr int STAGES = 2;      // tiles in flight per warp
 constexpr int MAX_RANKS = 8;   // blocks per cluster (the portable limit)
+constexpr int SMEM_MAX = 232448;  // a block's shared memory on an H100
 constexpr float LOG2E = 1.4426950408889634f;
 
 struct Args {
@@ -87,10 +91,14 @@ struct Lay {
   static constexpr int ROW = D + E;                   // smem row, padded
   static constexpr int TILE = KEYS * ROW * sizeof(T); // K or V of a tile
   static constexpr int STAGE = 2 * TILE;
-  static constexpr int RING = WARPS * STAGES * STAGE;
   static constexpr int QS = GMAX * D * 4;             // q, pre-scaled fp32
   static constexpr int PS = WARPS * GMAX * KEYS * 4;  // each warp's P
   static constexpr int STATE = GMAX * (D + 2) * 4;    // acc rows, m, l
+  // tiles in flight per warp: two where they fit beside the rest at
+  // MAX_RANKS, else one (fp32 at D = 128)
+  static constexpr int STAGES =
+      WARPS * 2 * STAGE + QS + PS + MAX_RANKS * STATE <= SMEM_MAX ? 2 : 1;
+  static constexpr int RING = WARPS * STAGES * STAGE;
   // output columns a lane holds, lanes per row, rows between a lane's rows
   static constexpr int COLS = D >= 32 ? D / 32 : 1;
   static constexpr int CW = D / COLS;
@@ -99,6 +107,8 @@ struct Lay {
     return RING + QS + PS + static_cast<size_t>(ranks) * STATE;
   }
   static_assert(STAGES * STAGE >= STATE, "a warp's state fits its ring");
+  static_assert(RING + QS + PS + MAX_RANKS * STATE <= SMEM_MAX,
+                "a block's shared memory on an H100");
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -121,6 +131,12 @@ __device__ __forceinline__ void ldc(const float* p, float (&x)[COLS]) {
     const float2 u = *reinterpret_cast<const float2*>(p);
     x[0] = u.x;
     x[1] = u.y;
+  } else if constexpr (COLS == 4) {
+    const float4 u = hopper::ld4(p);
+    x[0] = u.x;
+    x[1] = u.y;
+    x[2] = u.z;
+    x[3] = u.w;
   } else {
 #pragma unroll
     for (int c = 0; c < COLS; ++c) x[c] = p[c];
@@ -132,6 +148,12 @@ __device__ __forceinline__ void ldc(const __nv_bfloat16* p, float (&x)[COLS]) {
     const float2 u = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
     x[0] = u.x;
     x[1] = u.y;
+  } else if constexpr (COLS == 4) {
+    const float4 u = hopper::ld4(p);
+    x[0] = u.x;
+    x[1] = u.y;
+    x[2] = u.z;
+    x[3] = u.w;
   } else {
 #pragma unroll
     for (int c = 0; c < COLS; ++c) x[c] = __bfloat162float(p[c]);
@@ -230,6 +252,7 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Args a) {
 
   // This warp's tiles: t, t + step, ... below len, through its own ring
   // of STAGES tiles, all in flight before the first is used.
+  constexpr int STAGES = Ly::STAGES;
   uint8_t* ring = smem + warp * STAGES * Ly::STAGE;
   const int step = a.ranks * WARPS;
   int t = rank * WARPS + warp;
@@ -445,6 +468,7 @@ cudaError_t by_dim(int D, const Args& a, int Hkv, int B, cudaStream_t stream) {
   switch (D) {
     case 16: return by_group<T, 16>(a, Hkv, B, stream);
     case 64: return by_group<T, 64>(a, Hkv, B, stream);
+    case 128: return by_group<T, 128>(a, Hkv, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -26,11 +26,19 @@
 //   staged once for the g heads that read it, and the 64 rows span only
 //   64 / g positions, which keeps their causal key range tight. The grid
 //   runs the blocks with the longest key range first.
-// * fp32 blocks have two warpgroups that share the Q tile and take every
-//   other key tile, each with its own K/V buffer and barrier, and merge
-//   their softmax states at the end: the serve path's S = 96 needs two key
-//   tiles, which then run side by side. bf16 blocks have one warpgroup:
-//   at S = 2048 more blocks on an SM beat the split.
+// * fp32 blocks at head_dim 16 and 64 have two warpgroups that share the
+//   Q tile and take every other key tile, each with its own K/V buffer and
+//   barrier, and merge their softmax states at the end: the serve path's
+//   S = 96 needs two key tiles, which then run side by side. bf16 blocks
+//   have one warpgroup: at S = 2048 more blocks on an SM beat the split.
+// * head_dim 128 (codeqwen1.5-7b): fp32 has one warpgroup, since two
+//   warpgroups' hi and lo K/V parts (2 x 131,584 bytes) beside Q's
+//   (65,536) pass the 232,448 bytes a block may have, where one takes
+//   197,120. The next tile is not prefetched into registers either: its
+//   128 registers a thread beside the 64-float accumulator and the 64 of
+//   P's parts would spill. The warpgroup copies each tile after its
+//   products, four chunks of K and V at a time. bf16 at 128 (49,152 bytes)
+//   keeps the prefetch.
 // * The scores stay in registers. P feeds P V as the A operand straight
 //   from the accumulator registers: in bf16 as a high and a low bf16 part
 //   (P rounded once to bf16 would move long rows' outputs by more than one
@@ -96,11 +104,17 @@ struct Tile {
   // warpgroups per block: all share the block's 64 packed rows of Q, each
   // takes every W-th key tile with its own K/V buffer, and they merge their
   // softmax states at the end
-  static constexpr int W = sizeof(T) == 4 ? 2 : 1;
+  static constexpr int W = sizeof(T) == 4 && D <= 64 ? 2 : 1;
   static constexpr int THREADS = 128 * W;
   static constexpr int E = 16 / sizeof(T);      // elements per 16-byte chunk
   static constexpr int CPR = D / E;             // chunks per row
   static constexpr int NL = CPR / 2;            // K/V chunks a thread stages
+  // Whether the next tile's K/V chunks wait in registers while this tile
+  // is multiplied: only while they and the accumulator take at most 128
+  // registers a thread (not fp32 at D = 128). Else a thread copies its
+  // chunks after the products, NR at a time.
+  static constexpr bool PREFETCH = NL * 2 * 4 + D / 2 <= 128;
+  static constexpr int NR = PREFETCH ? NL : 4;
   static constexpr int NQ = (64 * CPR + THREADS - 1) / THREADS;  // Q chunks
   static constexpr int QB = 64 * D * sizeof(T); // one part of 64 Q or K rows
   static constexpr int LBO_V = D * 16 + 16;     // V^T key chunk, padded
@@ -118,6 +132,7 @@ struct Tile {
   static constexpr int KQ = D * sizeof(T) / 32;  // k-steps of Q K^T
   static constexpr int KP = BN * sizeof(T) / 32; // k-steps of P V
   static_assert(BN == 64, "a thread holds 16 scores of each of its rows");
+  static_assert(smem <= 232448, "a block's shared memory on an H100");
 };
 
 __device__ __forceinline__ uint4 load16(const void* p, bool ok) {
@@ -237,23 +252,37 @@ __global__ void __launch_bounds__(Tile<T, D>::THREADS) flash_fwd(Args a) {
                 lr * a.k_ss + c0 * E;
   const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + hk * a.v_sh +
                 lr * a.v_ss + c0 * E;
-  uint4 kx[L::NL], vx[L::NL];
-  auto load_kv = [&](int kt) {
+  // chunks i0 .. i0 + NR of this thread's key of the tile at kt
+  uint4 kx[L::NR], vx[L::NR];
+  auto load_kv = [&](int kt, int i0) {
     const bool ok = kt + lr < k_end;
 #pragma unroll
-    for (int i = 0; i < L::NL; ++i) {
-      kx[i] = load16(kb + kt * a.k_ss + 2 * i * E, ok);
-      vx[i] = load16(vb + kt * a.v_ss + 2 * i * E, ok);
+    for (int i = 0; i < L::NR; ++i) {
+      kx[i] = load16(kb + kt * a.k_ss + 2 * (i0 + i) * E, ok);
+      vx[i] = load16(vb + kt * a.v_ss + 2 * (i0 + i) * E, ok);
     }
   };
-  auto store_kv = [&]() {
+  auto store_kv = [&](int i0) {
 #pragma unroll
-    for (int i = 0; i < L::NL; ++i) {
-      store_chunk<T>(Ks, L::QB, kx[i], c0 + 2 * i, lr);
+    for (int i = 0; i < L::NR; ++i) {
+      const int c = c0 + 2 * (i0 + i);
+      store_chunk<T>(Ks, L::QB, kx[i], c, lr);
       if constexpr (L::v_nmajor)
-        store_chunk<T>(Vs, L::VB, vx[i], c0 + 2 * i, lr);
+        store_chunk<T>(Vs, L::VB, vx[i], c, lr);
       else
-        store_vt<T, D>(Vs, vx[i], c0 + 2 * i, lr);
+        store_vt<T, D>(Vs, vx[i], c, lr);
+    }
+  };
+  // a whole tile: the prefetched chunks, or all of them NR at a time
+  auto stage_kv = [&](int kt) {
+    if constexpr (L::PREFETCH) {
+      store_kv(0);
+    } else {
+#pragma unroll
+      for (int i0 = 0; i0 < L::NL; i0 += L::NR) {
+        load_kv(kt, i0);
+        store_kv(i0);
+      }
     }
   };
   {
@@ -268,13 +297,13 @@ __global__ void __launch_bounds__(Tile<T, D>::THREADS) flash_fwd(Args a) {
       qx[i] = load16(row + (idx >> 6) * E,
                      idx < 64 * L::CPR && pr < a.rows);
     }
-    if (wg < ntiles) load_kv(k_begin + wg * BN);
+    if (L::PREFETCH && wg < ntiles) load_kv(k_begin + wg * BN, 0);
 #pragma unroll
     for (int i = 0; i < L::NQ; ++i) {
       const int idx = tid + L::THREADS * i;
       if (idx < 64 * L::CPR) store_chunk<T>(Qs, L::QB, qx[i], idx >> 6, idx & 63);
     }
-    if (wg < ntiles) store_kv();
+    if (wg < ntiles) stage_kv(k_begin + wg * BN);
   }
   fence_smem_to_async();
   __syncthreads();
@@ -296,7 +325,8 @@ __global__ void __launch_bounds__(Tile<T, D>::THREADS) flash_fwd(Args a) {
   for (int j = wg; j < ntiles; j += W) {
     const int kt = k_begin + j * BN;
     const bool more = j + W < ntiles;
-    if (more) load_kv(kt + W * BN);  // in flight while this tile is multiplied
+    // in flight while this tile is multiplied
+    if (L::PREFETCH && more) load_kv(kt + W * BN, 0);
 
     float s[BN / 2];
 #pragma unroll
@@ -408,7 +438,7 @@ __global__ void __launch_bounds__(Tile<T, D>::THREADS) flash_fwd(Args a) {
 
     if (more) {
       wg_sync(wg);  // the warpgroup's products have read its tile
-      store_kv();
+      stage_kv(kt + W * BN);
       fence_smem_to_async();
       wg_sync(wg);
     }
@@ -492,6 +522,7 @@ cudaError_t by_dim(int D, const Args& a, int B, int Hkv, cudaStream_t stream) {
   switch (D) {
     case 16: return launch<T, 16>(a, B, Hkv, stream);
     case 64: return launch<T, 64>(a, B, Hkv, stream);
+    case 128: return launch<T, 128>(a, B, Hkv, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -4,8 +4,8 @@ The slot runtime of ``repro.engine.engine``:
 
   * a fixed slot-batched decode cache (``init_cache(..., per_slot_pos=True)``)
     — every slot decodes at its own depth; each decode step writes every
-    slot's new K/V row and/or its new SSM state in place (a hybrid model
-    has both)
+    slot's new K/V row (MLA: its latent and rope-key row) and/or its new
+    SSM state in place (a hybrid model has both)
   * prefill runs per request (B=1, right-padded to a multiple of
     ``PREFILL_ALIGN``) and is copied into its slot of every cache leaf
   * decode steps run over all slots every tick; idle slots are parked at
@@ -88,8 +88,8 @@ class GenerationEngine:
                                              max_len=self.max_len,
                                              dtype=self.dtype)
         # every leaf but pos has the slot (batch) axis at dim 1: K/V for
-        # attention layers, ssm_state and conv_buf for SSM layers, all four
-        # for hybrid ones
+        # GQA layers, ckv and krope for MLA ones, ssm_state and conv_buf for
+        # SSM layers, K/V and both SSM leaves for hybrid ones
         for name, leaf in self.cache.items():
             if name != "pos":
                 leaf[:, slot] = cache1[name][:, 0]

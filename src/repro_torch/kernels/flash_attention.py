@@ -6,7 +6,8 @@ It takes the model layout (B, S, H, D) through strides, so the wrapper makes
 no transposed copy; it masks the ragged tile edges itself, so nothing is
 padded. Its rows are read as 16-byte vectors: the wrapper raises on a tensor
 whose rows do not start 16-byte aligned (the model's tensors and its
-layer-stacked cache slices do at head_dim 16 and 64). ``plain`` is the same function in plain PyTorch
+layer-stacked cache slices do at head_dim 16, 64 and
+128). ``plain`` is the same function in plain PyTorch
 (``kernels.ref.attention_ref``); the wrapper never falls back to it.
 """
 from __future__ import annotations
@@ -22,7 +23,7 @@ plain = ref.attention_ref
 stats = {"launches": 0}
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 64)  # qwen2-0.5b reduced and at full width
+HEAD_DIMS = (16, 64, 128)  # qwen2-0.5b reduced; 64 most archs; codeqwen1.5-7b
 
 
 @functools.lru_cache(maxsize=None)

@@ -5,8 +5,9 @@ versions.
 
 **Token serving** (default; no ``--semantic``): continuous-batching
 generation over a zoo model (``--arch``: qwen2-0.5b, the default,
-mamba2-1.3b or hymba-1.5b) — reports throughput, slot occupancy and
-per-request latency percentiles::
+mamba2-1.3b, hymba-1.5b, or the cost model's other LLM tiers
+codeqwen1.5-7b, granite-moe-1b-a400m and minicpm3-4b) — reports
+throughput, slot occupancy and per-request latency percentiles::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --no-reduced \\
         --requests 8 --slots 4 --max-new 24
@@ -14,6 +15,8 @@ per-request latency percentiles::
         --no-reduced
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
         --no-reduced
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch codeqwen1.5-7b --no-reduced
 
 **One semantic query** (``--semantic <dataset>``): the dataset's first
 workload query runs through the execution runtime

@@ -1,9 +1,10 @@
 """Uniform model interface over the port's zoo.
 
 ``build(cfg)`` returns a :class:`ModelBundle` exposing init / prefill /
-decode_step / init_cache. Only decoder-only configs are ported so far (the
-dense GQA, SSM and hybrid families; ``transformer.check_supported``);
-encoder-decoder configs raise.
+decode_step / init_cache. Decoder-only configs are ported (GQA or MLA
+attention, dense or MoE feed-forward, the SSM and hybrid families;
+``transformer.check_supported``). Encoder-decoder configs, prefix
+embeddings (VLM), the int8 KV cache and the MoE through shard_map raise.
 """
 from __future__ import annotations
 

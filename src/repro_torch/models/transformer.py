@@ -1,18 +1,23 @@
-"""Decoder-only LM of the port: the dense GQA family, the attention-free
-SSM family (Mamba2) and the hybrid family (Hymba: GQA attention and a
-Mamba2 mixer side by side in every layer).
+"""Decoder-only LM of the port: the dense GQA family (at head_dim 64 and
+128), the MoE family (GQA attention, the MoE's gather path), MLA
+(MiniCPM3's latent attention), the attention-free SSM family (Mamba2) and
+the hybrid family (Hymba: GQA attention and a Mamba2 mixer side by side in
+every layer).
 
 A Python loop over layers replaces ``lax.scan``; weights keep the stacked
-``layer`` axis and each step takes its layer's views. MLA, MoE, a hybrid
-without attention, the int8 cache and prefix embeddings raise
-``NotImplementedError``: they come with later slices.
+``layer`` axis and each step takes its layer's views. Still refused
+(``NotImplementedError``): the int8 KV cache, encoder-decoder models,
+prefix embeddings (VLM), a hybrid without attention, and the MoE through
+``shard_map`` (the mesh slice).
 
 Public surface (used by registry / launch / engine):
   init(cfg, generator=, device=)          -> param tree
   forward(params, cfg, tokens)            -> logits (B, S, V) fp32
   init_cache(cfg, batch, max_len, dtype)  -> {"k", "v"} (GQA),
+                                             {"ckv", "krope"} (MLA),
                                              {"ssm_state", "conv_buf"} (SSM),
-                                             all four (hybrid), and "pos"
+                                             GQA's and SSM's (hybrid), and
+                                             "pos"
   prefill(params, cfg, tokens, max_len=)  -> (last-position logits, cache)
   decode_step(params, cfg, cache, token)  -> (logits, cache updated in place)
 """
@@ -22,8 +27,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.configs import (ATTN_GQA, ATTN_NONE, FAMILY_DENSE,
-                                 FAMILY_HYBRID, FAMILY_SSM, ModelConfig)
+from repro_torch.configs import (ATTN_GQA, ATTN_MLA, ATTN_NONE,
+                                 FAMILY_DENSE, FAMILY_HYBRID, FAMILY_MOE,
+                                 FAMILY_SSM, ModelConfig)
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
 from repro_torch.models import ffn as ffn_mod
@@ -31,18 +37,22 @@ from repro_torch.models import ssm as ssm_mod
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    dense = (cfg.family == FAMILY_DENSE and cfg.attn_type == ATTN_GQA
-             and cfg.ssm is None)
+    attn = cfg.attn_type in (ATTN_GQA, ATTN_MLA) and cfg.ssm is None
+    dense = attn and cfg.family == FAMILY_DENSE and cfg.moe is None
+    moe = attn and cfg.family == FAMILY_MOE and cfg.moe is not None
     ssm = (cfg.family == FAMILY_SSM and cfg.attn_type == ATTN_NONE
-           and cfg.ssm is not None)
+           and cfg.ssm is not None and cfg.moe is None)
     hybrid = (cfg.family == FAMILY_HYBRID and cfg.attn_type == ATTN_GQA
-              and cfg.ssm is not None)
-    if (not (dense or ssm or hybrid) or cfg.moe is not None
-            or cfg.mla is not None or cfg.is_encoder_decoder
-            or cfg.n_prefix_embeds):
+              and cfg.ssm is not None and cfg.moe is None)
+    if (not (dense or moe or ssm or hybrid)
+            or (cfg.attn_type == ATTN_MLA) != (cfg.mla is not None)
+            or cfg.is_encoder_decoder or cfg.n_prefix_embeds):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense GQA decoder, the SSM (Mamba2) "
-            f"family and the GQA + SSM hybrid (Hymba) are ported so far")
+            f"{cfg.name}: the port serves the dense and MoE (gather path) "
+            f"families with GQA or MLA attention, the SSM (Mamba2) family "
+            f"and the GQA + SSM hybrid (Hymba); encoder-decoder models, "
+            f"prefix embeddings (VLM), the int8 KV cache and the MoE "
+            f"through shard_map are not ported yet")
 
 
 def init(cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
@@ -54,6 +64,9 @@ def init(cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
     if cfg.attn_type == ATTN_GQA:
         layers["attn_norm"] = cm.rmsnorm_init(cfg.d_model, lead=lead, **kw)
         layers["attn"] = attn.gqa_init(generator, cfg, lead=lead, **kw)
+    elif cfg.attn_type == ATTN_MLA:
+        layers["attn_norm"] = cm.rmsnorm_init(cfg.d_model, lead=lead, **kw)
+        layers["attn"] = attn.mla_init(generator, cfg, lead=lead, **kw)
     if cfg.ssm is not None and cfg.family == FAMILY_HYBRID:
         # the SSM reads the attention's normed input; each mixer's output
         # has its own norm before the two are averaged
@@ -67,8 +80,10 @@ def init(cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
         layers["ssm"] = ssm_mod.mamba2_init(generator, cfg, lead=lead, **kw)
     if cfg.d_ff > 0:
         layers["ffn_norm"] = cm.rmsnorm_init(cfg.d_model, lead=lead, **kw)
-        layers["ffn"] = ffn_mod.swiglu_init(generator, cfg.d_model, cfg.d_ff,
-                                            lead=lead, **kw)
+        layers["ffn"] = (
+            ffn_mod.moe_init(generator, cfg, lead=lead, **kw) if cfg.moe
+            else ffn_mod.swiglu_init(generator, cfg.d_model, cfg.d_ff,
+                                     lead=lead, **kw))
     p = {
         "embed": cm.embedding(generator, cfg.vocab_size, cfg.d_model, **kw),
         "layers": layers,
@@ -104,17 +119,30 @@ def _ssm_forward(p, h, cfg, cache):
     return s
 
 
+def _ffn(lp, h, cfg):
+    if cfg.moe is not None:
+        return ffn_mod.moe_forward_gather(lp["ffn"], h, cfg)
+    return ffn_mod.swiglu(lp["ffn"], h)
+
+
 def _block_forward(lp, x, cfg, window, positions, cache=None):
     """One layer over the full sequence. ``cache``: this layer's slices of
-    the decode cache (``k``/``v`` (B, max_len, Hkv, D); ``ssm_state``,
-    ``conv_buf``), which receive its keys and values and/or its final SSM
-    state and conv tail (prefill). A hybrid layer runs attention and the
-    SSM on the same normed input."""
+    the decode cache (``k``/``v`` (B, max_len, Hkv, D) or MLA's ``ckv``/
+    ``krope``; ``ssm_state``, ``conv_buf``), which receive its keys and
+    values, or its latent, and/or its final SSM state and conv tail
+    (prefill). A hybrid layer runs attention and the SSM on the same
+    normed input."""
     if "attn" in lp:
         h = cm.rmsnorm(lp["attn_norm"], x, cfg.rms_eps)
-        kv_out = None if cache is None else (cache["k"], cache["v"])
-        a = attn.gqa_forward(lp["attn"], h, cfg, positions=positions,
-                             window=window, kv_out=kv_out)
+        if cfg.attn_type == ATTN_MLA:
+            latent = None if cache is None else (cache["ckv"],
+                                                 cache["krope"])
+            a = attn.mla_forward(lp["attn"], h, cfg, positions=positions,
+                                 latent_out=latent)
+        else:
+            kv_out = None if cache is None else (cache["k"], cache["v"])
+            a = attn.gqa_forward(lp["attn"], h, cfg, positions=positions,
+                                 window=window, kv_out=kv_out)
         if "ssm" in lp:
             a = _mix(lp, a, _ssm_forward(lp["ssm"], h, cfg, cache), cfg)
         x = x + a
@@ -123,7 +151,7 @@ def _block_forward(lp, x, cfg, window, positions, cache=None):
         x = x + _ssm_forward(lp["ssm"], h, cfg, cache)
     if "ffn" in lp:
         h = cm.rmsnorm(lp["ffn_norm"], x, cfg.rms_eps)
-        x = x + ffn_mod.swiglu(lp["ffn"], h)
+        x = x + _ffn(lp, h, cfg)
     return x
 
 
@@ -157,7 +185,9 @@ def forward(params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, per_slot_pos: bool = False,
                kv_dtype=None, device="cuda"):
-    """Zeros. GQA: "k", "v" (L, batch, max_len, Hkv, D). SSM: "ssm_state"
+    """Zeros. GQA: "k", "v" (L, batch, max_len, Hkv, D). MLA: "ckv"
+    (L, batch, max_len, kv_lora_rank), "krope" (L, batch, max_len,
+    qk_rope_head_dim). SSM: "ssm_state"
     (L, batch, H, N, P) fp32 and "conv_buf" (L, batch, W-1, conv_ch) in
     ``dtype``. Hybrid: all four. Dim 1 of every leaf but "pos" is the batch
     (slot) axis.
@@ -172,6 +202,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         shape = (L, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
         c["k"] = torch.zeros(shape, dtype=dtype, device=device)
         c["v"] = torch.zeros(shape, dtype=dtype, device=device)
+    elif cfg.attn_type == ATTN_MLA:
+        m = cfg.mla
+        for name, width in (("ckv", m.kv_lora_rank),
+                            ("krope", m.qk_rope_head_dim)):
+            c[name] = torch.zeros((L, batch, max_len, width), dtype=dtype,
+                                  device=device)
     if cfg.ssm is not None:
         _, nh, conv_ch = ssm_mod.dims(cfg)
         s = cfg.ssm
@@ -216,8 +252,8 @@ def _ssm_decode(p, h, cache, i, cfg):
 
 def decode_step(params, cfg: ModelConfig, cache, token, *,
                 dtype=torch.bfloat16):
-    """token: (B, 1) int. Writes each slot's new K/V and/or its new SSM
-    state and conv tail into ``cache`` in place and advances ``cache["pos"]``
+    """token: (B, 1) int. Writes each slot's new K/V (MLA: its latent and
+    rope key) and/or its new SSM state and conv tail into ``cache`` in place and advances ``cache["pos"]``
     by one; a sliding layer attends to the last ``window`` entries only.
     Returns (logits (B,1,V) f32, cache)."""
     pos = cache["pos"]
@@ -228,10 +264,14 @@ def decode_step(params, cfg: ModelConfig, cache, token, *,
         lp = cm.layer_params(params["layers"], i)
         if "attn" in lp:
             h = cm.rmsnorm(lp["attn_norm"], x, cfg.rms_eps)
-            a, _, _ = attn.gqa_decode(lp["attn"], h, cache["k"][i],
-                                      cache["v"][i], pos, cfg,
-                                      window=windows[i] if windows else 0,
-                                      cache_len=lens)
+            if cfg.attn_type == ATTN_MLA:
+                a = attn.mla_decode(lp["attn"], h, cache["ckv"][i],
+                                    cache["krope"][i], pos, cfg)
+            else:
+                a, _, _ = attn.gqa_decode(lp["attn"], h, cache["k"][i],
+                                          cache["v"][i], pos, cfg,
+                                          window=windows[i] if windows else 0,
+                                          cache_len=lens)
             if "ssm" in lp:
                 a = _mix(lp, a, _ssm_decode(lp["ssm"], h, cache, i, cfg), cfg)
             x = x + a
@@ -240,7 +280,7 @@ def decode_step(params, cfg: ModelConfig, cache, token, *,
             x = x + _ssm_decode(lp["ssm"], h, cache, i, cfg)
         if "ffn" in lp:
             h = cm.rmsnorm(lp["ffn_norm"], x, cfg.rms_eps)
-            x = x + ffn_mod.swiglu(lp["ffn"], h)
+            x = x + _ffn(lp, h, cfg)
     x = cm.rmsnorm(params["final_norm"], x, cfg.rms_eps)
     cache["pos"] = lens
     return unembed(params, cfg, x), cache

@@ -24,7 +24,8 @@ COPIES = [
     "data/movie.py", "data/estate.py", "data/game.py", "data/workloads.py",
     "data/tokenizer.py", "launch/query_server.py", "analysis/qerror.py",
     "configs/qwen2_0_5b.py", "configs/mamba2_1_3b.py",
-    "configs/hymba_1_5b.py", "testing.py",
+    "configs/hymba_1_5b.py", "configs/codeqwen1_5_7b.py",
+    "configs/granite_moe_1b_a400m.py", "configs/minicpm3_4b.py", "testing.py",
     "distributed/process_workers.py",
 ]
 # Ported, not copied, so not held to the copy rule:

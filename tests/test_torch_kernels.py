@@ -48,6 +48,8 @@ def assert_close(got_torch, want_jax, atol):
     (1, 96, 8, 1, 64),      # MQA, non-pow2 seq
     (2, 40, 4, 2, 16),      # needs padding (40 % 32 != 0)
     (1, 40, 14, 2, 64),     # qwen2-0.5b heads: group of 7
+    (1, 40, 4, 4, 128),     # codeqwen1.5-7b's head_dim: group of 1
+    (2, 48, 8, 2, 128),     # head_dim 128, group of 4
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_matches_pallas(b, s, hq, hkv, d, dtype):
@@ -110,6 +112,8 @@ def test_flash_attention_empty_rows_give_zero():
     (3, 8, 2, 64, 256),
     (2, 4, 1, 32, 100),     # padding (100 % 64)
     (4, 14, 2, 64, 160),    # qwen2-0.5b heads at the serve cache length
+    (4, 4, 4, 128, 160),    # codeqwen1.5-7b's head_dim: group of 1
+    (3, 8, 2, 128, 100),    # head_dim 128, group of 4, padding
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_attention_matches_pallas(b, hq, hkv, d, s, dtype):
@@ -350,7 +354,8 @@ ON_CARD_TOL = {"float32": (2e-5, 0.0), "bfloat16": (1e-5, 2.0 ** -7)}
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("hq,hkv,d", [(14, 2, 64), (4, 2, 16)])
+@pytest.mark.parametrize("hq,hkv,d", [(14, 2, 64), (4, 2, 16), (32, 32, 128),
+                                      (8, 2, 128)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernels_match_plain_on_card(cuda, dtype, hq, hkv, d):
     from repro_torch.kernels import decode_attention as dec
