@@ -42,7 +42,14 @@ non-zero):
    and decode rows of qwen2's shapes at codeqwen's heads and at
    granite-moe-1b-a400m's (16 over 8 of 64). ``rowwise_cosine`` over the
    whole game table is also timed with L2 cold (8 copies of the rows in
-   turn).
+   turn). The flash backward (``flash_attention_bwd``) against autograd
+   of the plain forward, and the forward's log-sum-exp, at qwen2's
+   training shape (B = 8, S = 512), the rewriter's (4 over 2 heads of 32,
+   B = 16, S = 384), head_dim 16 at S = 1, 17 and 127-129, with a window,
+   non-causal and off the tile edges, in fp32 and bf16 (``BWD_TOL``), and
+   twice on the same inputs (the same bits); the forward at head_dim 32
+   too. Timed: forward and backward at both training shapes (the library
+   baseline of the backward: ``torch.autograd.grad`` through SDPA).
 4. serve: full-width qwen2-0.5b (24 layers, d_model 896, vocab 151936, seeded
    random weights) serves 8 requests through ``GenerationEngine`` and
    ``ContinuousBatcher``; every prefill must launch ``flash_attention`` once
@@ -95,6 +102,20 @@ non-zero):
    unsharded, with ``--shards 2`` and with ``--procs 2`` (spawned process
    workers; m1 and the cascade stay in this process): results, per-tier
    calls, meter totals and cascade stats must be equal.
+14. train (after the serve phases, before window_decode): ``launch.train
+   --arch qwen2-0.5b --steps 12 --batch 8 --seq 512 --ckpt-every 4`` at
+   full width (fp32 weights and AdamW moments, bf16 activations, remat):
+   losses finite and falling, tok/s, step times, peak memory, the card's
+   idle share over two more steps; the flash forward launches 2 x 24 x 12
+   times (remat runs each layer's forward again), the backward 24 x 12.
+   train_restart: the same run with a failure after step 6 under
+   ``run_with_restarts``; its final state within 1e-6 (relative to each
+   leaf's largest value) of the uninterrupted run's, and whether
+   bit-identical. cross_check_train: one step's loss, grad norm and every
+   gradient leaf in fp32 on the card and on the CPU, the model cut to its
+   first 4 layers. train_rewriter: ``examples.train_rewriter`` (§3.3) on
+   the card with 100 steps: train and eval accuracy, and the plan cost of
+   the cloud rewriter and of the trained LocalModelRewriter.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the rest
@@ -127,6 +148,18 @@ PEAKS = {"bytes": 3.35e12, "float32": 495e12 / 3, "bfloat16": 989e12}
 # and a kernel that drops or double-counts keys fails even where the outputs
 # are ~0.01 (long rows over 0.5 * randn values).
 TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (1e-5, 2.0 ** -7)}
+# The flash backward's dQ, dK and dV against autograd of the plain version:
+# |kernel - plain| <= a max|plain| + r |plain|, elementwise (a gradient's
+# scale follows the sequence length and the group, so the absolute part
+# follows each output's largest value). fp32: both sum in fp32 in other
+# orders (~3e-6 of the max at qwen2's heads, B = 8, S = 512): a = 1e-5. bf16:
+# both round fp32 gradients to bf16 once (<= 2^-7 |x| apart, as TOL), and
+# the kernel's Delta = rowsum(dO o) reads the forward's bf16 output where
+# autograd keeps fp32 (~2^-9 of |dO| |o| through every dS): a = 2^-8. The
+# log-sum-exp the forward writes for it: 1e-5 absolute where finite
+# (values ~log S, fp32 on both sides), -inf exactly where the plain one is.
+BWD_TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: (2.0 ** -8, 2.0 ** -7)}
+LSE_ATOL = 1e-5
 LOGITS_ATOL = 1e-3
 N_LAYERS = 24
 SSM_LAYERS = 48
@@ -137,10 +170,12 @@ EMBED_DIM = 256
 COSINE_ROWS = (1, 16, 127, 133, 18891)
 SEMANTIC = ["--semantic", "movie", "--slots", "4", "--requests", "8"]
 STREAMING = SEMANTIC + ["--serve", "4", "--cascade"]
-# (Hq, Hkv, D) of qwen2-0.5b at full width (what chip_smoke serves) and
-# reduced (the serve launcher's default): one case per head_dim the kernels
+# (Hq, Hkv, D) of qwen2-0.5b at full width (what chip_smoke serves and
+# trains), reduced (the serve launcher's default) and reduced to d_model
+# 128 (the rewriter example's model): one case per head_dim the kernels
 # are built for.
-FULL_HEADS, REDUCED_HEADS = (14, 2, 64), (4, 2, 16)
+FULL_HEADS, REDUCED_HEADS, REWRITER_HEADS = (14, 2, 64), (4, 2, 16), \
+    (4, 2, 32)
 # (H, P, N, G) of the SSD scan: mamba2-1.3b at full width and reduced, and a
 # two-group case of the JAX sweep
 SSM_FULL, SSM_REDUCED, SSM_GROUPED = (64, 64, 128, 1), (8, 16, 16, 1), \
@@ -164,6 +199,19 @@ CODEQWEN_SERVE = ["--arch", "codeqwen1.5-7b"] + SSM_SERVE[2:]
 MOE_SERVE = ["--arch", "granite-moe-1b-a400m"] + SSM_SERVE[2:]
 MLA_SERVE = ["--arch", "minicpm3-4b"] + SSM_SERVE[2:]
 CUT_LAYERS = {"codeqwen1.5-7b": 4, "minicpm3-4b": 8}
+# training: full-width qwen2-0.5b through the launcher (checkpoints every 4
+# steps, into a directory of the build tree removed afterwards), the same
+# run with a failure injected after step FAIL_AT, a card-vs-CPU step of the
+# model cut to its first TRAIN_CUT layers on a (2, 256) batch, and the
+# rewriter example with REWRITER_STEPS steps
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_EVERY = 12, 8, 512, 4
+TRAIN = ["--arch", "qwen2-0.5b", "--steps", str(TRAIN_STEPS), "--batch",
+         str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--ckpt-every",
+         str(TRAIN_EVERY)]
+FAIL_AT, RESTART_RTOL = 6, 1e-6
+TRAIN_CUT, CROSS_BATCH, CROSS_SEQ = 4, 2, 256
+REWRITER_STEPS = 100
+CKPT_ROOT = os.path.join(ROOT, "build", "smoke_ckpt")
 QWEN_SERVE = ["--no-reduced", "--requests", "8", "--slots", "4",
               "--max-len", "160", "--max-new", "24", "--device", "cuda"]
 # cosine_matrix: the shapes of tests/test_kernels.py, the cosine_api path's
@@ -315,7 +363,8 @@ def flash_cases():
     Hymba's heads (a group of 5) with its window of 1024 at every prefill
     length and at 2048, where the window masks. codeqwen1.5-7b's heads (32
     over 32 of head_dim 128) at every prefill length, 2048 and the offset
-    cases."""
+    cases. The rewriter's heads (4 over 2 of head_dim 32) at the reduced
+    cases, its training shape (B = 16, S = 384) and the offset cases."""
     full = [("causal", 1, s, True, 0) for s in range(16, 161, 16)]
     full += [("causal", 1, 2048, True, 0),
              ("padded", 2, 40, True, 0), ("window", 1, 160, True, 24),
@@ -331,9 +380,12 @@ def flash_cases():
              for s in list(range(16, 161, 16)) + [2048]]
     codeqwen = [("causal", 1, s, True, 0)
                 for s in list(range(16, 161, 16)) + [2048]]
+    rewriter = small + [("train", 16, 384, True, 0)]
     return ([(FULL_HEADS, *c, 0, c[2]) for c in full]
             + [(REDUCED_HEADS, *c, 0, c[2]) for c in small]
-            + [(h, *c) for h in (FULL_HEADS, REDUCED_HEADS, CODEQWEN_HEADS)
+            + [(REWRITER_HEADS, *c, 0, c[2]) for c in rewriter]
+            + [(h, *c) for h in (FULL_HEADS, REDUCED_HEADS, CODEQWEN_HEADS,
+                                 REWRITER_HEADS)
                for c in offsets]
             + [(HYMBA_HEADS, *c, 0, c[2]) for c in hymba]
             + [(CODEQWEN_HEADS, *c, 0, c[2]) for c in codeqwen])
@@ -432,6 +484,7 @@ def phase_kernels():
                   "tol": tol_text(dtype), "ok": ok})
             if not ok:
                 failures.append(("flash_attention", case, str(dtype), s, d, err))
+        check_backward(gen, dtype, failures)
         check_decode(gen, dtype, failures)
         check_rowwise(gen, dtype, failures)
         check_ssd(gen, dtype, failures)
@@ -441,6 +494,80 @@ def phase_kernels():
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{failures}")
     return time_kernels(gen)
+
+
+def bwd_cases():
+    """(heads, case, B, S, causal, window, q_offset, sk_valid) of the
+    backward: qwen2-0.5b's training shape, the rewriter's, head_dim 16 at
+    S = 1, 17 and either side of two 64-row tiles, with the window, and
+    non-causal; the offset cases move the masks off the tile edges, and at
+    q_offset -6 the first 6 rows see no key (zero gradient, no NaN)."""
+    return ([(FULL_HEADS, "train", TRAIN_BATCH, TRAIN_SEQ, True, 0, 0,
+              TRAIN_SEQ),
+             (REWRITER_HEADS, "rewriter", 16, 384, True, 0, 0, 384)]
+            + [(REDUCED_HEADS, "causal", 2, s, True, 0, 0, s)
+               for s in (1, 17, 127, 128, 129)]
+            + [(REDUCED_HEADS, "window", 2, 129, True, 24, 0, 129),
+               (REDUCED_HEADS, "noncausal", 2, 129, False, 0, 0, 129),
+               (REDUCED_HEADS, "noncausal_window", 2, 127, False, 24, 0, 127),
+               (FULL_HEADS, "offset", 2, 200, True, 0, 9, 187),
+               (FULL_HEADS, "empty_rows", 2, 48, True, 8, -6, 37),
+               (REWRITER_HEADS, "offset_noncausal", 2, 48, False, 0, 3, 28)])
+
+
+def bwd_held(got, want, dtype):
+    """(max |got - want| over dQ, dK, dV, whether every element of each is
+    within BWD_TOL[dtype])."""
+    a, r = BWD_TOL[dtype]
+    errs, ok = [], True
+    for x, w in zip(got, want):
+        x, w = x.float(), w.float()
+        err = (x - w).abs()
+        errs.append(err.max().item())
+        ok = ok and bool((err <= a * w.abs().max() + r * w.abs()).all())
+    return max(errs), ok
+
+
+def check_backward(gen, dtype, failures):
+    """The flash backward against ``plain_backward`` (autograd of the plain
+    forward) at ``bwd_cases``, from the forward kernel's own output and
+    log-sum-exp; the log-sum-exp against ``plain_lse``; a second launch on
+    the same inputs must give the same bits (no atomics)."""
+    from repro_torch.kernels import flash_attention as fa
+    for ((hq, hkv, d), case, b, s, causal, window, q_offset,
+         sk_valid) in bwd_cases():
+        q, k, v = attn_inputs(gen, b, s, hq, hkv, d, dtype)
+        dout = (torch.randn(b, s, hq, d, generator=gen, device="cuda")
+                * 0.5).to(dtype)
+        kw = dict(causal=causal, window=window, q_offset=q_offset,
+                  sk_valid=sk_valid)
+        out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+        want_lse = fa.plain_lse(q, k, **kw)
+        fin = torch.isfinite(want_lse)
+        lse_err = (lse[fin] - want_lse[fin]).abs().max().item() \
+            if fin.any() else 0.0
+        lse_ok = lse_err <= LSE_ATOL and bool(
+            (lse[~fin] == float("-inf")).all())
+        got = fa.flash_attention_backward(q, k, v, out, dout, lse, **kw)
+        err, ok = bwd_held(got, fa.plain_backward(q, k, v, dout, **kw), dtype)
+        again = fa.flash_attention_backward(q, k, v, out, dout, lse, **kw)
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        if q_offset < 0:  # rows with no valid key get 0
+            ok = ok and bool((got[0][:, :-q_offset] == 0).all())
+        ok = ok and lse_ok and same and all(
+            bool(torch.isfinite(x).all()) for x in got)
+        a, r = BWD_TOL[dtype]
+        emit({"phase": "kernel", "kernel": "flash_attention_bwd",
+              "case": case, "dtype": str(dtype), "B": b, "S": s, "Hq": hq,
+              "Hkv": hkv, "D": d, "causal": causal, "window": window,
+              "q_offset": q_offset, "sk_valid": sk_valid,
+              "max_abs_err": err, "lse_max_abs_err": lse_err,
+              "max_abs_grad": max(x.float().abs().max().item() for x in got),
+              "tol": f"{a} * max|plain| + {r} * |plain|",
+              "deterministic": same, "ok": ok})
+        if not ok:
+            failures.append(("flash_attention_bwd", case, str(dtype), s, d,
+                             err))
 
 
 def unit_rows(gen, m, dtype, d=EMBED_DIM):
@@ -589,6 +716,9 @@ KERNELS = {
     "flash_attention": dict(
         route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:85"),
+    "flash_attention_bwd": dict(
+        route="cuda", source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/flash_attention.py:85"),
     "decode_attention": dict(
         route="cuda", source="src/repro_torch/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:69"),
@@ -604,8 +734,8 @@ KERNELS = {
 }
 
 
-def time_flash(gen, s, dtype, heads=FULL_HEADS):
-    """Causal prefill of one sequence of s tokens over ``heads``: kernel,
+def time_flash(gen, s, dtype, heads=FULL_HEADS, b=1):
+    """Causal prefill of b sequences of s tokens over ``heads``: kernel,
     plain version and SDPA timed on the same inputs; the bound counts q, k,
     v read once, o written once and 4 * D FLOPs per causal (query, key)
     pair, at the dtype's peak (fp32: 3xTF32)."""
@@ -613,16 +743,69 @@ def time_flash(gen, s, dtype, heads=FULL_HEADS):
 
     from repro_torch.kernels import flash_attention as fa
     hq, hkv, d = heads
-    q, k, v = attn_inputs(gen, 1, s, hq, hkv, d, dtype, layers=N_LAYERS)
+    q, k, v = attn_inputs(gen, b, s, hq, hkv, d, dtype, layers=N_LAYERS)
     kw = dict(causal=True, window=0, q_offset=0, sk_valid=s)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     return timing_row(
-        "flash_attention", f"B=1 S={s} Hq={hq} Hkv={hkv} D={d} causal", dtype,
+        "flash_attention", f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} causal",
+        dtype,
         lambda: fa.flash_attention(q, k, v, **kw), lambda: fa.plain(q, k, v, **kw),
         lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                enable_gqa=True),
-        nbytes=(2 * s * hq * d + 2 * s * hkv * d) * q.element_size(),
-        flops=4 * d * hq * (s * (s + 1) // 2))
+        nbytes=b * (2 * s * hq * d + 2 * s * hkv * d) * q.element_size(),
+        flops=4 * d * hq * b * (s * (s + 1) // 2))
+
+
+def events_ms(fn, reps=10):
+    """Device time of one call of ``fn`` from CUDA events around ``reps``
+    calls (no CUDA graph: autograd's backward is not captured); at the
+    backward's ~0.1-5 ms a call, the host's launch cost between calls is
+    hidden behind the queued work."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def time_flash_bwd(gen, b, s, dtype, heads=FULL_HEADS):
+    """The causal backward of b sequences of s tokens: kernel (from the
+    forward kernel's output and log-sum-exp), ``plain_backward`` (autograd
+    of the plain forward, forward included) and, as the library baseline,
+    ``torch.autograd.grad`` through SDPA's backward alone (its forward run
+    once before). The bound counts q, k, v, o, dO and the lse read once,
+    dQ, dK and dV written once, and the five products of the backward (S,
+    dP, dV, dQ, dK: 10 D FLOPs per causal (query, key) pair and query head)
+    at the dtype's peak (fp32: 3xTF32); the kernel computes S and dP twice
+    (seven products)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    hq, hkv, d = heads
+    q, k, v = attn_inputs(gen, b, s, hq, hkv, d, dtype)
+    dout = (torch.randn(b, s, hq, d, generator=gen, device="cuda")
+            * 0.5).to(dtype)
+    kw = dict(causal=True, window=0, q_offset=0, sk_valid=s)
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                        enable_gqa=True)
+    dot = dout.transpose(1, 2)
+    return timing_row(
+        "flash_attention_bwd", f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} causal",
+        dtype,
+        lambda: fa.flash_attention_backward(q, k, v, out, dout, lse, **kw),
+        lambda: fa.plain_backward(q, k, v, dout, **kw),
+        lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True),
+        nbytes=b * s * (4 * hq + 4 * hkv) * d * q.element_size() + 4 * b * hq * s,
+        flops=10 * d * hq * b * (s * (s + 1) // 2),
+        check=lambda got, want: bwd_held(got, want, dtype), timer=events_ms)
 
 
 def time_decode(gen, s, cache_len, dtype, heads=FULL_HEADS, window=0):
@@ -755,10 +938,11 @@ def time_matrix(gen, m, n):
 
 
 def timing_row(name, shape, dtype, kernel, plain, library, *, nbytes, flops,
-               check=None):
+               check=None, timer=cuda_ms):
     """Time kernel, plain version and library call (None: no single PyTorch
-    call computes the function) after holding the kernel against the plain
-    version (``check(got, want) -> (max error, ok)``; default: ``held``)."""
+    call computes the function) with ``timer`` after holding the kernel
+    against the plain version (``check(got, want) -> (max error, ok)``;
+    default: ``held``)."""
     t_bytes = nbytes / PEAKS["bytes"] * 1e3
     t_ops = flops / PEAKS[str(dtype).split(".")[-1]] * 1e3
     check = check or (lambda got, want: held(got, want, dtype))
@@ -767,9 +951,9 @@ def timing_row(name, shape, dtype, kernel, plain, library, *, nbytes, flops,
         raise AssertionError(f"{name} at {shape} {dtype}: max error {err} "
                              f"beyond its tolerance")
     row = dict(name=name, **KERNELS[name], shape=f"{shape} {dtype}",
-               max_abs_err=err, ms=cuda_ms(kernel),
-               plain_ms=cuda_ms(plain),
-               library_ms=cuda_ms(library) if library else None,
+               max_abs_err=err, ms=timer(kernel),
+               plain_ms=timer(plain),
+               library_ms=timer(library) if library else None,
                bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations")
     emit({"phase": "kernel_timing", **row})
@@ -796,7 +980,10 @@ def time_kernels(gen):
     its windowed decode step over 4 slots of a full 4096-entry cache
     (window 1024) and its scan at the longest served prompt; so do
     codeqwen1.5-7b's and granite-moe-1b-a400m's prefill and decode step at
-    the qwen2 rows' shapes over their heads."""
+    the qwen2 rows' shapes over their heads. Training's rows too: the flash
+    forward and backward at the launcher's B = 8, S = 512 over qwen2's heads
+    in bf16 (its activations) and at the rewriter's B = 16, S = 384 over
+    its heads in fp32; then the backward at the other dtype of each."""
     lens, padded = served_prefill_lengths()
     plots = movie_rows()
     mid = [n + 12 for n in lens[:4]]
@@ -811,10 +998,16 @@ def time_kernels(gen):
             time_decode(gen, 160, mid, torch.float32, heads=CODEQWEN_HEADS),
             time_flash(gen, max(padded), torch.float32, heads=GRANITE_HEADS),
             time_decode(gen, 160, mid, torch.float32, heads=GRANITE_HEADS)]
+    rows += [time_flash(gen, TRAIN_SEQ, torch.bfloat16, b=TRAIN_BATCH),
+             time_flash_bwd(gen, TRAIN_BATCH, TRAIN_SEQ, torch.bfloat16),
+             time_flash(gen, 384, torch.float32, heads=REWRITER_HEADS, b=16),
+             time_flash_bwd(gen, 16, 384, torch.float32,
+                            heads=REWRITER_HEADS)]
     for row, path in zip(rows, ("serve", "serve", "semantic", "cosine_api",
                                 "serve_ssm", "serve_hybrid", "serve_hybrid",
                                 "serve_codeqwen", "serve_codeqwen",
-                                "serve_moe", "serve_moe")):
+                                "serve_moe", "serve_moe", "train", "train",
+                                "train_rewriter", "train_rewriter")):
         row["path"] = path
     time_flash(gen, max(padded), torch.bfloat16)
     for dtype in (torch.float32, torch.bfloat16):
@@ -824,6 +1017,8 @@ def time_kernels(gen):
     time_rowwise_cold(gen, COSINE_ROWS[-1])
     time_matrix(gen, 4096, 4096)
     time_ssd(gen, 2048)
+    time_flash_bwd(gen, TRAIN_BATCH, TRAIN_SEQ, torch.float32)
+    time_flash_bwd(gen, 16, 384, torch.bfloat16, heads=REWRITER_HEADS)
     return rows
 
 
@@ -1070,7 +1265,8 @@ def profiled(run):
     if not spans:
         raise AssertionError("the profiler recorded no device activity")
     busy, end = 0.0, float("-inf")
-    by_kind = {"attention kernels": 0.0, "ssd_scan": 0.0,
+    by_kind = {"attention kernels": 0.0, "flash backward": 0.0,
+               "ssd_scan": 0.0,
                "rowwise_cosine": 0.0, "cosine_matrix": 0.0, "matmul": 0.0,
                "other": 0.0}
     decode_kernels = 0
@@ -1079,6 +1275,8 @@ def profiled(run):
         end = max(end, stop)
         decode_kernels += "decode_" in name
         kind = ("attention kernels" if "flash_fwd" in name or "decode_" in name
+                else "flash backward" if any(
+                    k in name for k in ("bwd_dq", "bwd_dkdv", "bwd_sum"))
                 else "ssd_scan" if "ssd_scan_kernel" in name
                 else "rowwise_cosine" if "rowwise_kernel" in name
                 else "cosine_matrix" if "matrix_kernel" in name
@@ -1316,6 +1514,239 @@ def phase_cosine_api(rows):
     set_launches(rows, counts, "cosine_api", "cosine_matrix")
 
 
+def train_args(ckpt_dir):
+    from repro_torch.launch import train
+    return train.build_parser().parse_args(TRAIN + ["--ckpt-dir", ckpt_dir])
+
+
+def phase_train(rows):
+    """``launch.train`` at full-width qwen2-0.5b (24 layers, fp32 weights
+    and AdamW moments, bf16 activations, each layer recomputed in the
+    backward), 12 steps of 8 x 512 tokens with a checkpoint every 4 steps:
+    every loss finite and the last below the first; the flash forward
+    launches twice per layer and step (the forward and remat's recompute),
+    the backward once, nothing else launches. Then two more steps from the
+    final state under torch.profiler for the card's idle share. Returns
+    the final state, for train_restart."""
+    import shutil
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    ckpt = os.path.join(CKPT_ROOT, "train")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = train.run(train_args(ckpt))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cfg, log = out["cfg"], out["log"]
+    losses = [e["loss"] for e in log]
+    step_s = [e["seconds"] for e in log]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    want = expect(flash_attention=2 * cfg.n_layers * TRAIN_STEPS,
+                  flash_attention_bwd=cfg.n_layers * TRAIN_STEPS)
+    disk_free_gb = shutil.disk_usage(CKPT_ROOT).free / 1e9
+    state = out["state"]
+
+    def two_steps():  # from the final state; the new states are dropped
+        for i in range(2):
+            out["train_step"](state, out["batch_fn"](TRAIN_STEPS + i))
+    activity = profiled(two_steps)
+    emit({"phase": "train", "flags": TRAIN, "arch": cfg.name,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "params": sum(p.numel() for p in leaves(state["params"])),
+          "steps": len(log), "seconds": out["seconds"],
+          "tok_per_s": TRAIN_STEPS * tokens / out["seconds"],
+          "step_s": step_s, "median_step_s": float(np.median(step_s)),
+          "tok_per_s_median_step": tokens / float(np.median(step_s)),
+          "loss_first": losses[0], "loss_last": losses[-1],
+          "losses": losses, "grad_norm_last": log[-1]["grad_norm"],
+          "stragglers": out["straggler"].flagged,
+          "checkpoints": sorted(os.listdir(ckpt)),
+          "disk_free_gb": disk_free_gb, "peak_memory_gb": peak_gb,
+          "launches": counts, "profile_2_steps": activity})
+    shutil.rmtree(ckpt, ignore_errors=True)
+    if counts != want:
+        raise AssertionError(f"train: launch counts {counts}, expected {want}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"train: losses {losses} not finite and falling")
+    set_launches(rows, counts, "train", "flash_attention",
+                 "flash_attention_bwd")
+    return state
+
+
+def leaves(tree):
+    from repro_torch.training.optimizer import leaves as tree_leaves
+    return tree_leaves(tree)
+
+
+def phase_train_restart(reference):
+    """The train phase's run again, with a failure injected after step
+    FAIL_AT: ``run_with_restarts`` restores the checkpoint of step 3 and
+    runs steps 4-11 again. Its final state (params, moments, step) against
+    the uninterrupted run's, leaf by leaf: within RESTART_RTOL of each
+    leaf's largest |value|, and whether bit-identical (every kernel of the
+    step is deterministic: the flash backward has no atomics, the
+    embedding's gradient sorts). Launches: the 7 steps before the failure
+    and the 8 after the restore."""
+    import shutil
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    ckpt = os.path.join(CKPT_ROOT, "restart")
+    ops.reset_launch_counts()
+    out = train.run(train_args(ckpt), fail_at={FAIL_AT})
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    resumed = (FAIL_AT + 1) // TRAIN_EVERY * TRAIN_EVERY
+    ran = FAIL_AT + 1 + TRAIN_STEPS - resumed
+    layers = out["cfg"].n_layers
+    want = expect(flash_attention=2 * layers * ran,
+                  flash_attention_bwd=layers * ran)
+    rel, same = 0.0, True
+    for x, y in zip(leaves(out["state"]), leaves(reference)):
+        x, y = x.detach().double(), y.detach().double()
+        rel = max(rel, (x - y).abs().max().item()
+                  / max(y.abs().max().item(), 1e-30))
+        same = same and torch.equal(x, y)
+    emit({"phase": "train_restart", "fail_at": FAIL_AT,
+          "restarts": out["restarts"], "resumed_at_step": resumed,
+          "steps_run": ran, "seconds": out["seconds"],
+          "loss_last": out["log"][-1]["loss"],
+          "leaves": len(leaves(reference)), "max_rel_diff": rel,
+          "rtol": RESTART_RTOL, "bit_identical": same, "launches": counts})
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    if counts != want:
+        raise AssertionError(f"train_restart: launch counts {counts}, "
+                             f"expected {want}")
+    if out["restarts"] != 1 or rel > RESTART_RTOL:
+        raise AssertionError("train_restart: the restarted run's state "
+                             "differs from the uninterrupted run's")
+
+
+def phase_cross_check_train():
+    """One training step's loss and gradient in fp32 on the card (the
+    flash kernels, forward and backward) and on the CPU (plain versions),
+    from the same weights: qwen2-0.5b at full width cut to its first
+    TRAIN_CUT layers, seeded on the CPU and carried to the card through
+    ``convert.params_from_numpy``, on a (2, 256) batch of the launcher's
+    pipeline, with remat. Tolerances: the loss 1e-5 relative and the grad
+    norm 1e-4 relative; every gradient leaf within 1e-4 of its largest
+    |value| (fp32 sums in other orders through 4 layers and their
+    backward, as the CPU tests hold the port against JAX)."""
+    from dataclasses import replace
+
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.training.optimizer import global_norm, tree_map
+    cfg = replace(get_config("qwen2-0.5b"), n_layers=TRAIN_CUT)
+    bundle = registry.build(cfg)
+    cpu = bundle.init(generator=torch.Generator().manual_seed(0),
+                      device="cpu", requires_grad=True)
+    flat = {}
+
+    def collect(tree, path):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                collect(v, path + (k,))
+            else:
+                axes = (("layer",) if path[:1] == ("layers",) else ()) + \
+                    (None,) * (v.dim() - (path[:1] == ("layers",)))
+                flat["/".join(path + (k,))] = (v.detach().numpy(), axes)
+    collect(cpu, ())
+    card = convert.params_from_numpy(flat, device="cuda", requires_grad=True)
+    toks = TokenPipeline(vocab_size=cfg.vocab_size, global_batch=CROSS_BATCH,
+                         seq_len=CROSS_SEQ).batch_at(0)["tokens"]
+    out = {}
+    for side, params in (("cuda", card), ("cpu", cpu)):
+        ops.reset_launch_counts()
+        loss = bundle.loss_fn(params, {"tokens": torch.as_tensor(
+            toks, device=side)}, dtype=torch.float32, remat=True)
+        grads = torch.autograd.grad(loss, leaves(params))
+        it = iter(grads)
+        out[side] = (float(loss), float(global_norm(grads)),
+                     tree_map(lambda _: next(it), params),
+                     ops.launch_counts())
+    counts = out["cuda"][3]
+    want = expect(flash_attention=2 * TRAIN_CUT,
+                  flash_attention_bwd=TRAIN_CUT)
+    worst, worst_leaf = 0.0, None
+    for g, c, name in zip(leaves(out["cuda"][2]), leaves(out["cpu"][2]),
+                          sorted(flat)):
+        rel = (g.cpu() - c).abs().max().item() / max(
+            c.abs().max().item(), 1e-30)
+        if rel >= worst:
+            worst, worst_leaf = rel, name
+    loss_rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    norm_rel = abs(out["cuda"][1] - out["cpu"][1]) / out["cpu"][1]
+    emit({"phase": "cross_check_train", "layers": TRAIN_CUT,
+          "d_model": cfg.d_model, "tokens": list(toks.shape),
+          "loss_card": out["cuda"][0], "loss_cpu": out["cpu"][0],
+          "loss_rel_diff": loss_rel, "grad_norm_card": out["cuda"][1],
+          "grad_norm_cpu": out["cpu"][1], "grad_norm_rel_diff": norm_rel,
+          "worst_leaf": worst_leaf, "worst_leaf_rel_diff": worst,
+          "tol": {"loss": 1e-5, "grad_norm": 1e-4, "leaf": 1e-4},
+          "launches": counts})
+    if counts != want:
+        raise AssertionError(f"cross_check_train: launch counts {counts}, "
+                             f"expected {want}")
+    if not (loss_rel <= 1e-5 and norm_rel <= 1e-4 and worst <= 1e-4):
+        raise AssertionError("cross_check_train: the card's step and the "
+                             "CPU's disagree")
+
+
+def phase_train_rewriter(rows):
+    """The §3.3 example on the card with REWRITER_STEPS steps: the reduced
+    qwen2 (4/2 heads of 32) trains in fp32 through the flash forward and
+    backward kernels (no remat: one forward launch per layer and step),
+    then scores rewrites as the LocalModelRewriter. Launches: the backward
+    2 x steps; the forward 2 x (steps + accuracy evaluations + policy
+    calls); every rewrite the logical optimizer asked for scored by the
+    model (none fell back to a random pick)."""
+    from repro_torch.examples import train_rewriter
+    from repro_torch.kernels import ops
+    steps = REWRITER_STEPS
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = train_rewriter.main(["--steps", str(steps)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    evals = 3 + sum((i + 1) % max(1, steps // 5) == 0 for i in range(steps))
+    layers = train_rewriter.make_model()[0].n_layers
+    want = expect(
+        flash_attention=layers * (steps + evals + out["policy_calls"]),
+        flash_attention_bwd=layers * steps)
+    emit({"phase": "train_rewriter", "steps": steps, "seconds": seconds,
+          "loss_first": out["losses"][0], "loss_last": out["losses"][-1],
+          "initial_eval_acc": out["initial_eval_acc"],
+          "train_acc": out["train_acc"], "eval_acc": out["eval_acc"],
+          "plan_cost": out["plan_cost"], "policy_calls": out["policy_calls"],
+          "rewriter_calls": out["rewriter_calls"], "launches": counts})
+    if counts != want:
+        raise AssertionError(f"train_rewriter: launch counts {counts}, "
+                             f"expected {want}")
+    if not (all(np.isfinite(out["losses"]))
+            and out["policy_calls"] == out["rewriter_calls"] > 0):
+        raise AssertionError("train_rewriter: a loss is not finite or a "
+                             "rewrite was not scored by the model")
+    set_launches(rows, counts, "train_rewriter", "flash_attention",
+                 "flash_attention_bwd")
+
+
+def training_phases(rows):
+    state = phase_train(rows)
+    phase_train_restart(state)
+    del state
+    release()
+    phase_cross_check_train()
+    phase_train_rewriter(rows)
+
+
 def qwen2_phases(rows):
     engine = phase_serve(rows)
     phase_cross_check(engine)
@@ -1359,7 +1790,7 @@ def main():
     phase_build()
     rows = phase_kernels()
     for phases in (qwen2_phases, ssm_phases, hybrid_phases, codeqwen_phases,
-                   moe_phases, mla_phases):
+                   moe_phases, mla_phases, training_phases):
         phases(rows)
         release()
     phase_window_decode()

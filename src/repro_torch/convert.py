@@ -17,7 +17,9 @@ import torch
 
 
 def params_from_numpy(flat: Dict[str, Tuple[np.ndarray, tuple]], *,
-                      device="cuda"):
+                      device="cuda", requires_grad=False):
+    """The nested dict of tensors on ``device``; with ``requires_grad``
+    every leaf needs a gradient (training)."""
     tree: dict = {}
     for path, (arr, axes) in flat.items():
         arr = np.asarray(arr)
@@ -30,5 +32,6 @@ def params_from_numpy(flat: Dict[str, Tuple[np.ndarray, tuple]], *,
         node = tree
         for k in keys[:-1]:
             node = node.setdefault(k, {})
-        node[keys[-1]] = torch.tensor(arr, device=device)
+        node[keys[-1]] = torch.tensor(arr, device=device,
+                                      requires_grad=requires_grad)
     return tree

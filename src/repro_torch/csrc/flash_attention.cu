@@ -26,7 +26,7 @@
 //   staged once for the g heads that read it, and the 64 rows span only
 //   64 / g positions, which keeps their causal key range tight. The grid
 //   runs the blocks with the longest key range first.
-// * fp32 blocks at head_dim 16 and 64 have two warpgroups that share the
+// * fp32 blocks at head_dim 16, 32 and 64 have two warpgroups that share the
 //   Q tile and take every other key tile, each with its own K/V buffer and
 //   barrier, and merge their softmax states at the end: the serve path's
 //   S = 96 needs two key tiles, which then run side by side. bf16 blocks
@@ -57,6 +57,11 @@
 //   conflicts. The wgmma descriptors are built once and stepped by
 //   constants, so ptxas issues the products back to back.
 //
+// * For training, the launch may pass an fp32 (B, Hq, Sq) buffer that
+//   receives each row's log-sum-exp, from the max and sum the block keeps
+//   anyway (flash_attention_bwd.cu reads it); serving passes none and
+//   writes nothing more.
+//
 // Layout: q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D), o (B, Sq, Hq, D), read
 // through element strides for the batch, sequence and head axes (the last
 // axis is contiguous; rows 16-byte aligned), so the model's layout needs no
@@ -80,6 +85,7 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
+  float* lse;   // (B, Hq, Sq) fp32 log-sum-exp of the scaled scores, or null
   int g, rows;  // query heads per KV head; packed rows Sq * g
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
   long long o_sb, o_ss, o_sh;
@@ -498,6 +504,15 @@ __global__ void __launch_bounds__(Tile<T, D>::THREADS) flash_fwd(Args a) {
     for (int i = 0; i < D / 8; ++i)
       store_pair(op + 8 * i + 2 * t, o[4 * i + 2 * half] * inv,
                  o[4 * i + 2 * half + 1] * inv);
+    // the row's log-sum-exp for the backward, in natural units: the max is
+    // kept in base 2 (scores times scale log2 e); -inf for a row with no
+    // valid key
+    if (a.lse != nullptr && t == 0) {
+      const float den = half ? den_b : den_a, m = half ? m_b : m_a;
+      a.lse[(static_cast<long long>(b) * gridDim.y * g + hk * g + pr % g) *
+                (a.rows / g) + pr / g] =
+          den == 0.f ? -INFINITY : (m + log2f(den)) * 0.6931471805599453f;
+    }
   }
 }
 
@@ -521,6 +536,7 @@ template <typename T>
 cudaError_t by_dim(int D, const Args& a, int B, int Hkv, cudaStream_t stream) {
   switch (D) {
     case 16: return launch<T, 16>(a, B, Hkv, stream);
+    case 32: return launch<T, 32>(a, B, Hkv, stream);
     case 64: return launch<T, 64>(a, B, Hkv, stream);
     case 128: return launch<T, 128>(a, B, Hkv, stream);
     default: return cudaErrorInvalidValue;
@@ -531,16 +547,19 @@ cudaError_t by_dim(int D, const Args& a, int B, int Hkv, cudaStream_t stream) {
 
 // dtype: 0 = float32, 1 = bfloat16. strides: 12 element strides, the batch,
 // sequence and head strides of q, k, v and o in that order; every row must
-// start 16-byte aligned. Returns the launch's cudaError_t (0 on success).
+// start 16-byte aligned. lse: null, or a contiguous (B, Hq, Sq) fp32 tensor
+// that receives each row's log-sum-exp of the scaled scores (the backward's
+// input; -inf for a row with no valid key). Returns the launch's
+// cudaError_t (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* o, int dtype, int B, int Sq, int Hq,
+                                   void* o, float* lse, int dtype, int B, int Sq, int Hq,
                                    int Hkv, int D, const long long* strides,
                                    int causal, int window, int q_offset,
                                    int sk_valid, float scale, void* stream) {
   if (B <= 0 || Sq <= 0 || Hkv <= 0 || Hq % Hkv != 0)
     return cudaErrorInvalidValue;
   Args a;
-  a.q = q; a.k = k; a.v = v; a.o = o;
+  a.q = q; a.k = k; a.v = v; a.o = o; a.lse = lse;
   a.g = Hq / Hkv;
   a.rows = Sq * a.g;
   a.q_sb = strides[0]; a.q_ss = strides[1]; a.q_sh = strides[2];

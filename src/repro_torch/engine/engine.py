@@ -73,6 +73,7 @@ class GenerationEngine:
     def free_slots(self) -> List[int]:
         return [i for i in range(self.n_slots) if not self.active[i]]
 
+    @torch.no_grad()
     def insert(self, req: Request, slot: int) -> Optional[Request]:
         """Prefill one request and copy it into its slot. Returns the request
         if it finished at prefill (prompt fills the window)."""
@@ -109,6 +110,7 @@ class GenerationEngine:
         self.slot_req[slot] = req
         return None
 
+    @torch.no_grad()
     def decode_tick(self, generator: Optional[torch.Generator] = None
                     ) -> List[Request]:
         """One decode step across all slots; returns finished requests.

@@ -21,9 +21,12 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Iterable
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("flash_attention", "decode_attention", "similarity", "ssd_scan")
+SOURCES = ("flash_attention", "flash_attention_bwd", "decode_attention",
+           "similarity", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -110,6 +113,18 @@ def count_launch(stats: dict) -> None:
     changes under one lock."""
     with LAUNCH_LOCK:
         stats["launches"] += 1
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise where autograd would record a kernel that has no backward: a
+    new tensor from such a kernel carries no graph, so a loss through it
+    would get no gradient for its inputs and nothing would say so. Inputs
+    that need no gradient, or grad mode off (serving), pass."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name} has no backward kernel: call it under torch.no_grad() "
+            f"or on inputs that need no gradient")
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -21,10 +21,11 @@ import functools
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.flash_attention import DTYPES, HEAD_DIMS
+from repro_torch.kernels.flash_attention import DTYPES
 
 plain = ref.decode_attention_ref
 stats = {"launches": 0}
+HEAD_DIMS = (16, 64, 128)  # qwen2-0.5b reduced; 64 most archs; codeqwen1.5-7b
 MAX_GROUP = 16
 
 
@@ -45,7 +46,8 @@ def decode_attention(q, k_cache, v_cache, cache_len, window=0):
     ``window > 0`` keeps the last ``window`` valid keys of each sequence
     (keys at positions below cache_len - window are masked). Returns a new
     (B, 1, Hq, D) tensor in q's dtype: the only allocation; one kernel
-    launch, no scratch."""
+    launch, no scratch. Raises under grad (``_build.refuse_grad``)."""
+    _build.refuse_grad("decode_attention", q, k_cache, v_cache)
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
                     ("cache_len", cache_len)):
         if not t.is_cuda or t.device != q.device:

@@ -22,7 +22,9 @@ from repro_torch.kernels import similarity as sim_mod
 from repro_torch.kernels import ssd_scan as ssd_mod
 
 # each kernel's launch count, by kernel name
-_KERNELS = {"flash_attention": fa_mod.stats, "decode_attention": dec_mod.stats,
+_KERNELS = {"flash_attention": fa_mod.stats,
+            "flash_attention_bwd": fa_mod.bwd_stats,
+            "decode_attention": dec_mod.stats,
             "rowwise_cosine": sim_mod.stats,
             "cosine_matrix": sim_mod.matrix_stats, "ssd_scan": ssd_mod.stats}
 
@@ -40,12 +42,14 @@ def reset_launch_counts() -> None:
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """Model layout: q (B, Sq, Hq, D); k/v (B, Sk, Hkv, D).
-    Returns (B, Sq, Hq, D)."""
+    Returns (B, Sq, Hq, D). Differentiable on both devices: on the card
+    through the backward kernel (``flash_attention.attention``), on the CPU
+    by autograd of the plain version."""
     sq, sk = q.shape[1], k.shape[1]
     kw = dict(causal=causal, window=int(window),
               q_offset=(sk - sq) if causal else 0, sk_valid=sk)
     if q.is_cuda:
-        return fa_mod.flash_attention(q, k, v, **kw)
+        return fa_mod.attention(q, k, v, **kw)
     return fa_mod.plain(q, k, v, **kw)
 
 

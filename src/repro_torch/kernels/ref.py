@@ -27,17 +27,12 @@ def _masked_softmax(s, mask):
     return p / torch.where(l == 0, torch.ones_like(l), l)
 
 
-def attention_ref(q, k, v, *, causal=True, window=0, q_offset=0, sk_valid=0,
-                  scale=None):
-    """q: (B, Sq, Hq, D); k/v: (B, Sk, Hkv, D); query head h reads KV head
-    h // (Hq // Hkv). Query row i sits at absolute position i + q_offset;
-    keys at or beyond ``sk_valid`` (0 = all) are masked. Returns
-    (B, Sq, Hq, D) in q's dtype."""
+def _scores(q, k, causal, window, q_offset, sk_valid, scale):
+    """fp32 scaled scores (B, Hkv, g, Sq, Sk) and their mask (Sq, Sk)."""
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
-    g = hq // hkv
     scale = d ** -0.5 if scale is None else scale
-    qg = (q.float() * scale).reshape(b, sq, hkv, g, d)
+    qg = (q.float() * scale).reshape(b, sq, hkv, hq // hkv, d)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float())
     q_pos = torch.arange(sq, device=q.device)[:, None] + q_offset
     k_pos = torch.arange(sk, device=q.device)[None, :]
@@ -46,9 +41,31 @@ def attention_ref(q, k, v, *, causal=True, window=0, q_offset=0, sk_valid=0,
         mask = mask & (q_pos >= k_pos)
     if window > 0:
         mask = mask & (q_pos - k_pos < window)
+    return s, mask
+
+
+def attention_ref(q, k, v, *, causal=True, window=0, q_offset=0, sk_valid=0,
+                  scale=None):
+    """q: (B, Sq, Hq, D); k/v: (B, Sk, Hkv, D); query head h reads KV head
+    h // (Hq // Hkv). Query row i sits at absolute position i + q_offset;
+    keys at or beyond ``sk_valid`` (0 = all) are masked. Returns
+    (B, Sq, Hq, D) in q's dtype."""
+    b, sq, hq, d = q.shape
+    s, mask = _scores(q, k, causal, window, q_offset, sk_valid, scale)
     p = _masked_softmax(s, mask)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     return o.reshape(b, sq, hq, d).to(q.dtype)
+
+
+def attention_lse_ref(q, k, *, causal=True, window=0, q_offset=0,
+                      sk_valid=0, scale=None):
+    """Each query row's log-sum-exp of its visible scaled scores, the
+    flash forward's second output: (B, Hq, Sq) fp32, -inf for a row with
+    no valid key."""
+    b, sq, hq, _ = q.shape
+    s, mask = _scores(q, k, causal, window, q_offset, sk_valid, scale)
+    lse = torch.logsumexp(s.masked_fill(~mask, float("-inf")), dim=-1)
+    return lse.reshape(b, hq, sq)
 
 
 def decode_attention_ref(q, k_cache, v_cache, cache_len, *, window=0):

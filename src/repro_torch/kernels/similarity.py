@@ -68,7 +68,9 @@ def rowwise_cosine(a, b):
     """a: (M, D); b: (M, D), or (D,) for one row against every row of a.
     CUDA tensors on one device, of one dtype (float32 or bfloat16), each
     with a contiguous last axis. Returns a new (M,) float32 tensor:
-    out[m] = sum_d a[m, d] * b[m, d], summed in fp32."""
+    out[m] = sum_d a[m, d] * b[m, d], summed in fp32. Raises under grad
+    (``_build.refuse_grad``)."""
+    _build.refuse_grad("rowwise_cosine", a, b)
     _check_pair(a, b)
     if a.dim() != 2 or b.shape not in (a.shape, a.shape[1:]):
         raise ValueError(f"shapes a {tuple(a.shape)}, b {tuple(b.shape)}: "
@@ -95,7 +97,8 @@ def cosine_matrix(a, b):
     """a: (M, D), b: (N, D) CUDA tensors on one device, of one dtype
     (float32 or bfloat16), each with a contiguous last axis. Returns a new
     (M, N) float32 tensor: out[m, n] = sum_d a[m, d] * b[n, d], summed in
-    fp32."""
+    fp32. Raises under grad (``_build.refuse_grad``)."""
+    _build.refuse_grad("cosine_matrix", a, b)
     _check_pair(a, b)
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[1]:
         raise ValueError(f"shapes a {tuple(a.shape)}, b {tuple(b.shape)}: "

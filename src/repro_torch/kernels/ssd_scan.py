@@ -146,7 +146,9 @@ def ssd_scan(dx, dA, B, C, initial_state=None):
     (float32 or bfloat16), each with a contiguous last axis; dA: (B, S, H)
     float32; initial_state: None (zeros) or a contiguous (B, H, N, P)
     float32. Any S. Returns new tensors (y (B, S, H, P) in dx's dtype,
-    final state (B, H, N, P) float32)."""
+    final state (B, H, N, P) float32). Raises under grad
+    (``_build.refuse_grad``): the scan has no backward kernel yet."""
+    _build.refuse_grad("ssd_scan", dx, dA, B, C, initial_state)
     _check_inputs(dx, dA, B, C, initial_state)
     b, s, h, p = dx.shape
     g, n = B.shape[2], B.shape[3]

@@ -1,4 +1,5 @@
-"""Shared layers of the model zoo: dense, embedding, RMSNorm, RoPE.
+"""Shared layers of the model zoo: dense, embedding, RMSNorm, RoPE, and
+the training loss (softmax cross-entropy).
 
 Parameters are nested dicts of tensors with the same keys and layouts as
 ``repro``'s Param trees: a dense weight is ``(d_in..., d_out...)`` and
@@ -68,6 +69,21 @@ def layer_params(tree, layer: int):
     if isinstance(tree, dict):
         return {k: layer_params(v, layer) for k, v in tree.items()}
     return tree[layer]
+
+
+def softmax_cross_entropy(logits, labels, mask=None):
+    """logits (..., V); labels int ids; mask optional {0, 1} of labels'
+    shape. The mean negative log-likelihood in fp32, over the mask's ones
+    where it is given. The reference reads the label's logit with a
+    one-hot reduction (it keeps a vocab-sharded reduction sharded under
+    GSPMD); a gather gives the same value."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - ll
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None):

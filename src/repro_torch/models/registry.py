@@ -1,7 +1,7 @@
 """Uniform model interface over the port's zoo.
 
-``build(cfg)`` returns a :class:`ModelBundle` exposing init / prefill /
-decode_step / init_cache. Decoder-only configs are ported (GQA or MLA
+``build(cfg)`` returns a :class:`ModelBundle` exposing init / loss_fn /
+prefill / decode_step / init_cache. Decoder-only configs are ported (GQA or MLA
 attention, dense or MoE feed-forward, the SSM and hybrid families;
 ``transformer.check_supported``). Encoder-decoder configs, prefix
 embeddings (VLM), the int8 KV cache and the MoE through shard_map raise.
@@ -20,7 +20,9 @@ from repro_torch.models import transformer
 @dataclasses.dataclass
 class ModelBundle:
     cfg: ModelConfig
-    init: Callable             # (generator=None, device="cuda", dtype) -> params
+    init: Callable             # (generator=None, device="cuda", dtype,
+                               #  requires_grad=False) -> params
+    loss_fn: Callable          # (params, batch, *, dtype, remat) -> scalar
     prefill: Callable          # (params, batch, max_len, **kw) -> (logits, cache)
     decode_step: Callable      # (params, cache, token, **kw) -> (logits, cache)
     init_cache: Callable       # (batch, max_len, dtype, ...) -> cache
@@ -36,9 +38,15 @@ def build(cfg: ModelConfig) -> ModelBundle:
 def _build_decoder(cfg: ModelConfig) -> ModelBundle:
     transformer.check_supported(cfg)
 
-    def init_fn(generator=None, device="cuda", dtype=torch.float32):
+    def init_fn(generator=None, device="cuda", dtype=torch.float32,
+                requires_grad=False):
         return transformer.init(cfg, generator=generator, device=device,
-                                dtype=dtype)
+                                dtype=dtype, requires_grad=requires_grad)
+
+    def loss_fn(params, batch, *, dtype=torch.bfloat16, remat=True,
+                moe_ctx=None):
+        return transformer.loss_fn(params, cfg, batch, dtype=dtype,
+                                   remat=remat, moe_ctx=moe_ctx)
 
     def prefill_fn(params, batch, max_len=None, *, dtype=torch.bfloat16):
         return transformer.prefill(params, cfg, batch["tokens"],
@@ -54,4 +62,5 @@ def _build_decoder(cfg: ModelConfig) -> ModelBundle:
                                       per_slot_pos=per_slot_pos,
                                       kv_dtype=kv_dtype, device=device)
 
-    return ModelBundle(cfg, init_fn, prefill_fn, decode_fn, init_cache)
+    return ModelBundle(cfg, init_fn, loss_fn, prefill_fn, decode_fn,
+                       init_cache)

@@ -11,8 +11,10 @@ prefix embeddings (VLM), a hybrid without attention, and the MoE through
 ``shard_map`` (the mesh slice).
 
 Public surface (used by registry / launch / engine):
-  init(cfg, generator=, device=)          -> param tree
-  forward(params, cfg, tokens)            -> logits (B, S, V) fp32
+  init(cfg, generator=, device=,
+       requires_grad=)                    -> param tree
+  forward(params, cfg, tokens, remat=)    -> logits (B, S, V) fp32
+  loss_fn(params, cfg, batch, remat=)     -> next-token cross-entropy
   init_cache(cfg, batch, max_len, dtype)  -> {"k", "v"} (GQA),
                                              {"ckv", "krope"} (MLA),
                                              {"ssm_state", "conv_buf"} (SSM),
@@ -26,6 +28,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import (ATTN_GQA, ATTN_MLA, ATTN_NONE,
                                  FAMILY_DENSE, FAMILY_HYBRID, FAMILY_MOE,
@@ -56,7 +59,10 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def init(cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
-         device="cuda", dtype=torch.float32):
+         device="cuda", dtype=torch.float32, requires_grad=False):
+    """Seeded random weights. With ``requires_grad`` every leaf is a leaf
+    tensor that autograd gives a ``.grad`` (training); serving keeps the
+    default."""
     check_supported(cfg)
     kw = dict(device=device, dtype=dtype)
     lead = (cfg.n_layers,)
@@ -91,7 +97,17 @@ def init(cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
     }
     if not cfg.tie_embeddings:
         p["unembed"] = cm.dense(generator, cfg.d_model, cfg.vocab_size, **kw)
-    return p
+    return requires_grad_(p) if requires_grad else p
+
+
+def requires_grad_(tree):
+    """Mark every leaf of a param tree as needing a gradient, in place."""
+    for v in tree.values():
+        if isinstance(v, dict):
+            requires_grad_(v)
+        else:
+            v.requires_grad_(True)
+    return tree
 
 
 def layer_windows(cfg: ModelConfig):
@@ -157,9 +173,13 @@ def _block_forward(lp, x, cfg, window, positions, cache=None):
 
 def embed_inputs(params, cfg, tokens, prefix_embeds=None,
                  dtype=torch.bfloat16):
+    """The tokens' embedding rows in ``dtype``. ``F.embedding`` gathers the
+    rows as indexing does; its gradient on the card sums repeated tokens'
+    rows in a fixed order (no atomics), which restart determinism needs."""
     if prefix_embeds is not None:
         raise NotImplementedError("prefix embeddings (VLM) are not ported yet")
-    return params["embed"]["embedding"][tokens.long()].to(dtype)
+    return torch.nn.functional.embedding(
+        tokens.long(), params["embed"]["embedding"]).to(dtype)
 
 
 def unembed(params, cfg, x):
@@ -170,16 +190,45 @@ def unembed(params, cfg, x):
 
 
 def forward(params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
-            dtype=torch.bfloat16):
-    """tokens: (B, S) int. Returns logits (B, S, vocab) f32."""
+            dtype=torch.bfloat16, remat=False, moe_ctx=None):
+    """tokens: (B, S) int. Returns logits (B, S, vocab) f32. ``remat``
+    recomputes each layer's activations in the backward instead of keeping
+    them (the reference's ``jax.checkpoint`` with ``nothing_saveable``):
+    autograd keeps each layer's input only, and the backward runs the
+    layer's forward once more, attention kernel included."""
+    if moe_ctx is not None:
+        raise NotImplementedError("the MoE through shard_map (moe_ctx) "
+                                  "waits for the mesh slice")
     x = embed_inputs(params, cfg, tokens, prefix_embeds, dtype)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     windows = layer_windows(cfg)
     for i in range(cfg.n_layers):
-        x = _block_forward(cm.layer_params(params["layers"], i), x, cfg,
-                           windows[i] if windows else 0, positions)
+        args = (cm.layer_params(params["layers"], i), x, cfg,
+                windows[i] if windows else 0, positions)
+        x = (checkpoint(_block_forward, *args, use_reentrant=False) if remat
+             else _block_forward(*args))
     x = cm.rmsnorm(params["final_norm"], x, cfg.rms_eps)
     return unembed(params, cfg, x)
+
+
+def loss_fn(params, cfg: ModelConfig, batch, *, dtype=torch.bfloat16,
+            remat=True, moe_ctx=None):
+    """batch: {"tokens": (B, S)}. Next-token cross-entropy: the labels are
+    the tokens shifted left with a 0 in the last place, which the mask
+    leaves out. Encoder inputs (``enc_embeds``) and prefix embeddings
+    raise: those families are not ported."""
+    if "enc_embeds" in batch:
+        raise NotImplementedError("encoder-decoder models are not ported yet")
+    tokens = batch["tokens"]
+    logits = forward(params, cfg, tokens,
+                     prefix_embeds=batch.get("prefix_embeds"), dtype=dtype,
+                     remat=remat, moe_ctx=moe_ctx)
+    labels = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
+                       dim=1)
+    mask = torch.cat([torch.ones_like(tokens[:, 1:], dtype=torch.float32),
+                      torch.zeros_like(tokens[:, :1], dtype=torch.float32)],
+                     dim=1)
+    return cm.softmax_cross_entropy(logits, labels, mask)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

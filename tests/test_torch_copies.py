@@ -22,7 +22,7 @@ COPIES = [
     "core/logical_optimizer.py", "core/physical_optimizer.py",
     "core/dataframe.py", "data/__init__.py", "data/oracle.py",
     "data/movie.py", "data/estate.py", "data/game.py", "data/workloads.py",
-    "data/tokenizer.py", "launch/query_server.py", "analysis/qerror.py",
+    "data/tokenizer.py", "data/pipeline.py", "launch/query_server.py", "analysis/qerror.py",
     "configs/qwen2_0_5b.py", "configs/mamba2_1_3b.py",
     "configs/hymba_1_5b.py", "configs/codeqwen1_5_7b.py",
     "configs/granite_moe_1b_a400m.py", "configs/minicpm3_4b.py", "testing.py",
