@@ -149,9 +149,11 @@ PEAKS = {"bytes": 3.35e12, "float32": 495e12 / 3, "bfloat16": 989e12}
 # are ~0.01 (long rows over 0.5 * randn values).
 TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (1e-5, 2.0 ** -7)}
 # The flash backward's dQ, dK and dV against autograd of the plain version:
-# |kernel - plain| <= a max|plain| + r |plain|, elementwise (a gradient's
-# scale follows the sequence length and the group, so the absolute part
-# follows each output's largest value). fp32: both sum in fp32 in other
+# |kernel - plain| <= a M + r |plain|, elementwise, M the largest |value|
+# of the three plain gradients (a gradient's scale follows the sequence
+# length and the group; dQ and dK are differences dP - Delta of terms on
+# dV's scale, exactly 0 at S = 1, where their own max would allow no
+# rounding at all). fp32: both sum in fp32 in other
 # orders (~3e-6 of the max at qwen2's heads, B = 8, S = 512): a = 1e-5. bf16:
 # both round fp32 gradients to bf16 once (<= 2^-7 |x| apart, as TOL), and
 # the kernel's Delta = rowsum(dO o) reads the forward's bf16 output where
@@ -200,14 +202,16 @@ MOE_SERVE = ["--arch", "granite-moe-1b-a400m"] + SSM_SERVE[2:]
 MLA_SERVE = ["--arch", "minicpm3-4b"] + SSM_SERVE[2:]
 CUT_LAYERS = {"codeqwen1.5-7b": 4, "minicpm3-4b": 8}
 # training: full-width qwen2-0.5b through the launcher (checkpoints every 4
-# steps, into a directory of the build tree removed afterwards), the same
+# steps, into a directory of the build tree removed afterwards) on the
+# movie plots (the launcher's synthetic batches are uniform random tokens:
+# their loss stays at ~12.1 +- 0.03, nothing to learn), the same
 # run with a failure injected after step FAIL_AT, a card-vs-CPU step of the
 # model cut to its first TRAIN_CUT layers on a (2, 256) batch, and the
 # rewriter example with REWRITER_STEPS steps
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_EVERY = 12, 8, 512, 4
 TRAIN = ["--arch", "qwen2-0.5b", "--steps", str(TRAIN_STEPS), "--batch",
          str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--ckpt-every",
-         str(TRAIN_EVERY)]
+         str(TRAIN_EVERY), "--corpus", "movie"]
 FAIL_AT, RESTART_RTOL = 6, 1e-6
 TRAIN_CUT, CROSS_BATCH, CROSS_SEQ = 4, 2, 256
 REWRITER_STEPS = 100
@@ -517,14 +521,15 @@ def bwd_cases():
 
 def bwd_held(got, want, dtype):
     """(max |got - want| over dQ, dK, dV, whether every element of each is
-    within BWD_TOL[dtype])."""
+    within BWD_TOL[dtype] of the three's largest |value|)."""
     a, r = BWD_TOL[dtype]
+    scale = max(w.float().abs().max().item() for w in want)
     errs, ok = [], True
     for x, w in zip(got, want):
         x, w = x.float(), w.float()
         err = (x - w).abs()
         errs.append(err.max().item())
-        ok = ok and bool((err <= a * w.abs().max() + r * w.abs()).all())
+        ok = ok and bool((err <= a * scale + r * w.abs()).all())
     return max(errs), ok
 
 
@@ -563,7 +568,7 @@ def check_backward(gen, dtype, failures):
               "q_offset": q_offset, "sk_valid": sk_valid,
               "max_abs_err": err, "lse_max_abs_err": lse_err,
               "max_abs_grad": max(x.float().abs().max().item() for x in got),
-              "tol": f"{a} * max|plain| + {r} * |plain|",
+              "tol": f"{a} * max|plain dQ, dK, dV| + {r} * |plain|",
               "deterministic": same, "ok": ok})
         if not ok:
             failures.append(("flash_attention_bwd", case, str(dtype), s, d,

@@ -7,7 +7,11 @@
 trains full-width qwen2-0.5b on the card (494M parameters, fp32 weights
 and AdamW moments, bf16 activations, each layer recomputed in the
 backward); ``--reduced --device cpu`` trains the same-family tiny config on
-the CPU. The loop runs under the fault-tolerance supervisor: checkpoint
+the CPU. The batches are the pipeline's synthetic ones, uniform random
+tokens, as the reference's are: nothing in them can be learnt, so the loss
+stays near ln(vocab). ``--corpus movie|estate|game`` feeds the pipeline's
+text source instead (``TokenPipeline(documents=...)``: a dataset's longest
+text column packed by the byte tokenizer), on which the loss falls. The loop runs under the fault-tolerance supervisor: checkpoint
 every ``--ckpt-every`` steps, restart from the last committed one,
 straggler flagging on. ``--ckpt-dir`` resumes from what it holds, so give
 a fresh one for a fresh run.
@@ -29,15 +33,26 @@ from repro_torch.training import optimizer as opt_mod
 from repro_torch.training import train_loop
 
 
+# the text column of each dataset that --corpus packs into sequences
+CORPUS_COLUMNS = {"movie": "Plot", "estate": "Details", "game": "description"}
+
+
+def corpus_documents(name: str):
+    from repro_torch.data import load_dataset
+    table, _ = load_dataset(name)
+    return [str(x) for x in table.columns[CORPUS_COLUMNS[name]]]
+
+
 def synthetic_batch_fn(cfg, batch: int, seq: int, seed: int = 0,
-                       device="cuda"):
-    """Deterministic per-step batches: tokens from the pipeline, a pure
-    function of (seed, step), so a restart sees the batches it would have
-    seen; the noise of prefix and encoder inputs from a generator seeded by
-    the step (those families' losses raise: not ported)."""
+                       device="cuda", documents=None):
+    """Deterministic per-step batches: tokens from the pipeline (uniform
+    random, or sequences of ``documents`` packed by the byte tokenizer), a
+    pure function of (seed, step), so a restart sees the batches it would
+    have seen; the noise of prefix and encoder inputs from a generator
+    seeded by the step (those families' losses raise: not ported)."""
     from repro_torch.data.pipeline import TokenPipeline
     pipe = TokenPipeline(vocab_size=cfg.vocab_size, global_batch=batch,
-                         seq_len=seq, seed=seed)
+                         seq_len=seq, seed=seed, documents=documents)
 
     def fn(step: int):
         out = {"tokens": torch.as_tensor(pipe.batch_at(step)["tokens"],
@@ -72,6 +87,9 @@ def build_parser():
     ap.add_argument("--async-ckpt", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--corpus", default=None, choices=sorted(CORPUS_COLUMNS),
+                    help="train on this dataset's text (default: the "
+                         "synthetic random tokens)")
     return ap
 
 
@@ -87,7 +105,7 @@ def run(args, fail_at=None):
     bundle = registry.build(cfg)
     print(f"[train] arch={cfg.name} params={cfg.param_count()/1e6:.1f}M "
           f"steps={args.steps} batch={args.batch}x{args.seq} "
-          f"device={args.device}")
+          f"device={args.device} data={args.corpus or 'synthetic'}")
     gen = torch.Generator(args.device).manual_seed(args.seed)
     state = train_loop.init_train_state(bundle, gen, device=args.device)
     opt_cfg = opt_mod.AdamWConfig(lr=args.lr, warmup_steps=10,
@@ -95,8 +113,9 @@ def run(args, fail_at=None):
     step_fn = train_loop.make_train_step(
         bundle, opt_cfg, remat=True, microbatches=args.microbatches,
         compress_grads=args.compress_grads)
-    batch_fn = synthetic_batch_fn(cfg, args.batch, args.seq,
-                                  device=args.device)
+    batch_fn = synthetic_batch_fn(
+        cfg, args.batch, args.seq, device=args.device,
+        documents=corpus_documents(args.corpus) if args.corpus else None)
     sup = TrainSupervisor(
         step_fn, batch_fn,
         SupervisorConfig(ckpt_dir=args.ckpt_dir,

@@ -237,3 +237,15 @@ def test_training_entry_points_default_to_cuda():
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     assert train.build_parser().parse_args([]).device == "cuda"
     assert train_rewriter.build_parser().parse_args([]).device == "cuda"
+
+
+def test_train_launcher_learns_a_corpus_on_cpu(tmp_path):
+    """``--corpus movie``: the pipeline's text source (the plots packed by
+    the byte tokenizer), on which the loss falls; the synthetic batches
+    are uniform random tokens."""
+    from repro_torch.launch import train
+    losses = train.main(["--reduced", "--device", "cpu", "--steps", "12",
+                         "--batch", "8", "--seq", "64", "--ckpt-every",
+                         "100", "--ckpt-dir", str(tmp_path), "--corpus",
+                         "movie"])
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0] - 0.1

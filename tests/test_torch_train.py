@@ -405,7 +405,8 @@ def cuda():
 
 
 # The backward kernel against plain_backward, elementwise:
-# |kernel - plain| <= a max|plain| + r |plain|. fp32: both sum in fp32 in
+# |kernel - plain| <= a M + r |plain|, M the largest |value| of the three
+# plain gradients (dQ and dK are exactly 0 at S = 1). fp32: both sum in fp32 in
 # other orders (readings ~3e-6 of the max on an H100): a = 1e-5. bf16: both
 # round fp32 gradients to bf16 (one step, <= 2^-7 |x|), and the kernel's
 # Delta = rowsum(dO o) reads the forward's bf16 output where autograd keeps
@@ -438,9 +439,11 @@ def test_backward_kernel_matches_plain_on_card(cuda, dtype, case):
     out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
     got = fa.flash_attention_backward(q, k, v, out, do, lse, **kw)
     a, r = BWD_TOL[dtype]
-    for x, want in zip(got, fa.plain_backward(q, k, v, do, **kw)):
+    wants = fa.plain_backward(q, k, v, do, **kw)
+    scale = max(w.float().abs().max().item() for w in wants)
+    for x, want in zip(got, wants):
         err = (x.float() - want.float()).abs()
-        lim = a * want.float().abs().max() + r * want.float().abs()
+        lim = a * scale + r * want.float().abs()
         assert bool((err <= lim).all()), err.max().item()
     again = fa.flash_attention_backward(q, k, v, out, do, lse, **kw)
     assert all(torch.equal(x, y) for x, y in zip(got, again))  # no atomics
