@@ -102,9 +102,11 @@ non-zero):
    unsharded, with ``--shards 2`` and with ``--procs 2`` (spawned process
    workers; m1 and the cascade stay in this process): results, per-tier
    calls, meter totals and cascade stats must be equal.
-14. train (after the serve phases, before window_decode): ``launch.train
-   --arch qwen2-0.5b --steps 12 --batch 8 --seq 512 --ckpt-every 4`` at
-   full width (fp32 weights and AdamW moments, bf16 activations, remat):
+14. train_synthetic (after the serve phases, before window_decode): the
+   launcher's own random-token batches, 12 steps of qwen2-0.5b at full
+   width without checkpoints (losses finite, reported, not held to fall;
+   launch counts exact). train: ``launch.train --arch qwen2-0.5b --steps
+   12 --batch 8 --seq 512 --ckpt-every 4 --corpus movie`` at full width (fp32 weights and AdamW moments, bf16 activations, remat):
    losses finite and falling, tok/s, step times, peak memory, the card's
    idle share over two more steps; the flash forward launches 2 x 24 x 12
    times (remat runs each layer's forward again), the backward 24 x 12.
@@ -1275,7 +1277,9 @@ def profiled(run):
                "rowwise_cosine": 0.0, "cosine_matrix": 0.0, "matmul": 0.0,
                "other": 0.0}
     decode_kernels = 0
+    by_name = {}
     for start, stop, name in spans:
+        by_name[name] = by_name.get(name, 0.0) + stop - start
         busy += max(0.0, stop - max(start, end))
         end = max(end, stop)
         decode_kernels += "decode_" in name
@@ -1285,12 +1289,15 @@ def profiled(run):
                 else "ssd_scan" if "ssd_scan_kernel" in name
                 else "rowwise_cosine" if "rowwise_kernel" in name
                 else "cosine_matrix" if "matrix_kernel" in name
-                else "matmul" if "gemm" in name.lower() or "gemv" in name.lower()
+                else "matmul" if any(k in name.lower() for k in (
+                    "gemm", "gemv", "nvjet"))
                 else "other")
         by_kind[kind] += stop - start
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
             "device_idle_share": 1.0 - busy / wall_us,
             "device_ms_by_kind": {k: v / 1e3 for k, v in by_kind.items()},
+            "top_kernels_ms": {n[:80]: v / 1e3 for n, v in sorted(
+                by_name.items(), key=lambda kv: -kv[1])[:8]},
             "device_kernels": len(spans), "decode_kernels": decode_kernels}
 
 
@@ -1519,9 +1526,40 @@ def phase_cosine_api(rows):
     set_launches(rows, counts, "cosine_api", "cosine_matrix")
 
 
-def train_args(ckpt_dir):
+def train_args(ckpt_dir, flags=TRAIN):
     from repro_torch.launch import train
-    return train.build_parser().parse_args(TRAIN + ["--ckpt-dir", ckpt_dir])
+    return train.build_parser().parse_args(flags + ["--ckpt-dir", ckpt_dir])
+
+
+def phase_train_synthetic():
+    """The launcher's own batches, uniform random tokens, for the train
+    phase's 12 steps without a checkpoint: every loss finite, the launch
+    counts exact. The losses are reported and not held to fall: nothing in
+    these batches can be learnt (the loss can only fall towards ln(vocab) =
+    11.93 from the tied embedding's initial excess)."""
+    import shutil
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    flags = TRAIN[:TRAIN.index("--ckpt-every")] + ["--ckpt-every", "1000"]
+    ckpt = os.path.join(CKPT_ROOT, "synthetic")
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    ops.reset_launch_counts()
+    out = train.run(train_args(ckpt, flags))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    losses = [e["loss"] for e in out["log"]]
+    layers = out["cfg"].n_layers
+    want = expect(flash_attention=2 * layers * TRAIN_STEPS,
+                  flash_attention_bwd=layers * TRAIN_STEPS)
+    emit({"phase": "train_synthetic", "flags": flags,
+          "seconds": out["seconds"], "losses": losses,
+          "median_step_s": float(np.median([e["seconds"]
+                                            for e in out["log"]])),
+          "launches": counts})
+    if counts != want or not all(np.isfinite(losses)):
+        raise AssertionError(f"train_synthetic: launch counts {counts} "
+                             f"(expected {want}) or a loss not finite")
 
 
 def phase_train(rows):
@@ -1558,6 +1596,7 @@ def phase_train(rows):
         for i in range(2):
             out["train_step"](state, out["batch_fn"](TRAIN_STEPS + i))
     activity = profiled(two_steps)
+    busy_step_ms = activity["device_busy_ms"] / 2
     emit({"phase": "train", "flags": TRAIN, "arch": cfg.name,
           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
           "params": sum(p.numel() for p in leaves(state["params"])),
@@ -1570,7 +1609,10 @@ def phase_train(rows):
           "stragglers": out["straggler"].flagged,
           "checkpoints": sorted(os.listdir(ckpt)),
           "disk_free_gb": disk_free_gb, "peak_memory_gb": peak_gb,
-          "launches": counts, "profile_2_steps": activity})
+          "launches": counts, "profile_2_steps": activity,
+          "busy_ms_per_profiled_step": busy_step_ms,
+          "idle_share_of_median_step":
+              1.0 - busy_step_ms / (1e3 * float(np.median(step_s)))})
     shutil.rmtree(ckpt, ignore_errors=True)
     if counts != want:
         raise AssertionError(f"train: launch counts {counts}, expected {want}")
@@ -1647,7 +1689,8 @@ def phase_cross_check_train():
     from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.kernels import ops
     from repro_torch.models import registry
-    from repro_torch.training.optimizer import global_norm, tree_map
+    from repro_torch.training.optimizer import global_norm
+    from repro_torch.training.train_loop import grad_tree
     cfg = replace(get_config("qwen2-0.5b"), n_layers=TRAIN_CUT)
     bundle = registry.build(cfg)
     cpu = bundle.init(generator=torch.Generator().manual_seed(0),
@@ -1671,10 +1714,8 @@ def phase_cross_check_train():
         ops.reset_launch_counts()
         loss = bundle.loss_fn(params, {"tokens": torch.as_tensor(
             toks, device=side)}, dtype=torch.float32, remat=True)
-        grads = torch.autograd.grad(loss, leaves(params))
-        it = iter(grads)
-        out[side] = (float(loss), float(global_norm(grads)),
-                     tree_map(lambda _: next(it), params),
+        grads = grad_tree(loss, params)
+        out[side] = (float(loss.detach()), float(global_norm(grads)), grads,
                      ops.launch_counts())
     counts = out["cuda"][3]
     want = expect(flash_attention=2 * TRAIN_CUT,
@@ -1744,6 +1785,7 @@ def phase_train_rewriter(rows):
 
 
 def training_phases(rows):
+    phase_train_synthetic()
     state = phase_train(rows)
     phase_train_restart(state)
     del state

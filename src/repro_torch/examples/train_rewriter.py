@@ -33,6 +33,7 @@ from repro_torch.data import WORKLOADS, load_dataset
 from repro_torch.data.tokenizer import ByteTokenizer
 from repro_torch.models import registry, transformer
 from repro_torch.training import optimizer as opt_mod
+from repro_torch.training.train_loop import grad_tree
 
 MAXLEN = 384
 
@@ -116,11 +117,8 @@ def main(argv=None):
 
     def step(params, opt_state, batch):
         loss = loss_fn(params, batch)
-        grads = torch.autograd.grad(loss, opt_mod.leaves(params))
-        it = iter(grads)
-        grads = opt_mod.tree_map(lambda _: next(it), params)
-        params, opt_state, _ = opt_mod.apply_updates(opt_cfg, params, grads,
-                                                     opt_state)
+        params, opt_state, _ = opt_mod.apply_updates(
+            opt_cfg, params, grad_tree(loss, params), opt_state)
         return params, opt_state, loss.detach()
 
     def make_batch(rows_sel):

@@ -8,8 +8,8 @@ It takes the model layout (B, S, H, D) through strides, so the wrapper makes
 no transposed copy; it masks the ragged tile edges itself, so nothing is
 padded. Its rows are read as 16-byte vectors: the wrapper raises on a tensor
 whose rows do not start 16-byte aligned (the model's tensors and its
-layer-stacked cache slices do at head_dim 16, 64 and
-128). ``plain`` is the same function in plain PyTorch
+layer-stacked cache slices do at head_dim 16, 32, 64
+and 128). ``plain`` is the same function in plain PyTorch
 (``kernels.ref.attention_ref``); the wrapper never falls back to it.
 
 For training, ``attention`` runs the forward through ``FlashAttention``:

@@ -19,6 +19,13 @@ def init_train_state(bundle, generator: Optional[torch.Generator] = None,
     return {"params": params, "opt": opt_mod.init_state(params)}
 
 
+def grad_tree(loss, params):
+    """The gradient of ``loss`` for every leaf of ``params``, as a tree of
+    the same keys."""
+    it = iter(torch.autograd.grad(loss, opt_mod.leaves(params)))
+    return opt_mod.tree_map(lambda _: next(it), params)
+
+
 def make_train_step(bundle, opt_cfg: opt_mod.AdamWConfig, *,
                     dtype=torch.bfloat16, remat=True, moe_ctx=None,
                     microbatches: int = 1, compress_grads: bool = False):
@@ -28,9 +35,7 @@ def make_train_step(bundle, opt_cfg: opt_mod.AdamWConfig, *,
     def loss_and_grads(params, batch):
         loss = bundle.loss_fn(params, batch, dtype=dtype, remat=remat,
                               moe_ctx=moe_ctx)
-        grads = torch.autograd.grad(loss, opt_mod.leaves(params))
-        it = iter(grads)
-        return loss.detach(), opt_mod.tree_map(lambda _: next(it), params)
+        return loss.detach(), grad_tree(loss, params)
 
     def grads_of(params, batch):
         if microbatches <= 1:
