@@ -66,6 +66,17 @@ def _limit():
         yield
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the models here are tiny, and the suite runs
+    several worker processes at once, whose thread pools would otherwise
+    contend for the same cores (a step then takes tens of times longer)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module", params=ARCHS)
 def pair(request):
     return model_pair(request.param)
