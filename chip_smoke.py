@@ -49,7 +49,10 @@ non-zero):
    non-causal and off the tile edges, in fp32 and bf16 (``BWD_TOL``), and
    twice on the same inputs (the same bits); the forward at head_dim 32
    too. Timed: forward and backward at both training shapes (the library
-   baseline of the backward: ``torch.autograd.grad`` through SDPA).
+   baseline of the backward: ``torch.autograd.grad`` through SDPA's
+   backward, pinned to the fastest backend that takes the inputs; kernel,
+   plain version and baseline each in a CUDA graph where capture works,
+   else the median of 5 windows of 100 calls between CUDA events).
 4. serve: full-width qwen2-0.5b (24 layers, d_model 896, vocab 151936, seeded
    random weights) serves 8 requests through ``GenerationEngine`` and
    ``ContinuousBatcher``; every prefill must launch ``flash_attention`` once
@@ -507,7 +510,9 @@ def bwd_cases():
     backward: qwen2-0.5b's training shape, the rewriter's, head_dim 16 at
     S = 1, 17 and either side of two 64-row tiles, with the window, and
     non-causal; the offset cases move the masks off the tile edges, and at
-    q_offset -6 the first 6 rows see no key (zero gradient, no NaN)."""
+    q_offset -6 the first 6 rows see no key (zero gradient, no NaN); qwen2's
+    group of 7 at S = 73 (511 packed rows, the last tile cut mid-tile), and
+    a window of 24 crossing key tiles at head_dim 32 and 64."""
     return ([(FULL_HEADS, "train", TRAIN_BATCH, TRAIN_SEQ, True, 0, 0,
               TRAIN_SEQ),
              (REWRITER_HEADS, "rewriter", 16, 384, True, 0, 0, 384)]
@@ -518,7 +523,10 @@ def bwd_cases():
                (REDUCED_HEADS, "noncausal_window", 2, 127, False, 24, 0, 127),
                (FULL_HEADS, "offset", 2, 200, True, 0, 9, 187),
                (FULL_HEADS, "empty_rows", 2, 48, True, 8, -6, 37),
-               (REWRITER_HEADS, "offset_noncausal", 2, 48, False, 0, 3, 28)])
+               (REWRITER_HEADS, "offset_noncausal", 2, 48, False, 0, 3, 28),
+               (FULL_HEADS, "group7_ragged", 2, 73, True, 0, 0, 73),
+               (REWRITER_HEADS, "window_tiles", 2, 200, True, 24, 0, 200),
+               (FULL_HEADS, "window_tiles", 2, 200, True, 24, 0, 200)])
 
 
 def bwd_held(got, want, dtype):
@@ -763,21 +771,60 @@ def time_flash(gen, s, dtype, heads=FULL_HEADS, b=1):
         flops=4 * d * hq * b * (s * (s + 1) // 2))
 
 
-def events_ms(fn, reps=10):
-    """Device time of one call of ``fn`` from CUDA events around ``reps``
-    calls (no CUDA graph: autograd's backward is not captured); at the
-    backward's ~0.1-5 ms a call, the host's launch cost between calls is
-    hidden behind the queued work."""
+def steady_ms(fn):
+    """Device ms of one call of ``fn``, with host time kept out, and the
+    timer that read it: ``cuda_ms`` (20 calls captured in a CUDA graph)
+    where capture works, else the median of 5 windows of 100 calls between
+    CUDA events."""
+    try:
+        return cuda_ms(fn), "graph"
+    except RuntimeError:  # this call cannot be captured
+        torch.cuda.synchronize()
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    windows = []
+    for _ in range(5):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(100):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        windows.append(start.elapsed_time(end) / 100)
+    return float(np.median(windows)), "events"
+
+
+def sdpa_backward(q, k, v, dout):
+    """``torch.autograd.grad`` through SDPA's causal GQA backward on the
+    model-layout inputs, pinned to each backend that takes them
+    (``torch.nn.attention.sdpa_kernel``): (call, backend name, ms, timer)
+    of the fastest."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    dot = dout.transpose(1, 2)
+    best = None
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel(backend):
+                ot = F.scaled_dot_product_attention(qt, kt, vt,
+                                                    is_causal=True,
+                                                    enable_gqa=True)
+
+            def call(ot=ot):
+                return torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                           retain_graph=True)
+            ms, timer = steady_ms(call)
+        except RuntimeError:  # the backend refuses these inputs
+            torch.cuda.synchronize()
+            continue
+        if best is None or ms < best[2]:
+            best = (call, backend.name, ms, timer)
+    return best
 
 
 def time_flash_bwd(gen, b, s, dtype, heads=FULL_HEADS):
@@ -785,13 +832,12 @@ def time_flash_bwd(gen, b, s, dtype, heads=FULL_HEADS):
     forward kernel's output and log-sum-exp), ``plain_backward`` (autograd
     of the plain forward, forward included) and, as the library baseline,
     ``torch.autograd.grad`` through SDPA's backward alone (its forward run
-    once before). The bound counts q, k, v, o, dO and the lse read once,
-    dQ, dK and dV written once, and the five products of the backward (S,
-    dP, dV, dQ, dK: 10 D FLOPs per causal (query, key) pair and query head)
-    at the dtype's peak (fp32: 3xTF32); the kernel computes S and dP twice
-    (seven products)."""
-    import torch.nn.functional as F
-
+    once before), pinned to the fastest backend that takes the inputs
+    (``sdpa_backward``); each timed by ``steady_ms``. The bound counts q, k,
+    v, o, dO and the lse read once, dQ, dK and dV written once, and the
+    five products of the backward (S, dP, dV, dQ, dK: 10 D FLOPs per causal
+    (query, key) pair and query head) at the dtype's peak (fp32: 3xTF32);
+    the kernel computes S and dP twice (seven products)."""
     from repro_torch.kernels import flash_attention as fa
     hq, hkv, d = heads
     q, k, v = attn_inputs(gen, b, s, hq, hkv, d, dtype)
@@ -799,20 +845,16 @@ def time_flash_bwd(gen, b, s, dtype, heads=FULL_HEADS):
             * 0.5).to(dtype)
     kw = dict(causal=True, window=0, q_offset=0, sk_valid=s)
     out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
-    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
-                  for x in (q, k, v))
-    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                        enable_gqa=True)
-    dot = dout.transpose(1, 2)
+    library, backend, _, _ = sdpa_backward(q, k, v, dout)
     return timing_row(
         "flash_attention_bwd", f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} causal",
         dtype,
         lambda: fa.flash_attention_backward(q, k, v, out, dout, lse, **kw),
-        lambda: fa.plain_backward(q, k, v, dout, **kw),
-        lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True),
+        lambda: fa.plain_backward(q, k, v, dout, **kw), library,
         nbytes=b * s * (4 * hq + 4 * hkv) * d * q.element_size() + 4 * b * hq * s,
         flops=10 * d * hq * b * (s * (s + 1) // 2),
-        check=lambda got, want: bwd_held(got, want, dtype), timer=events_ms)
+        check=lambda got, want: bwd_held(got, want, dtype), timer=steady_ms,
+        library_name=f"autograd.grad through SDPA ({backend})")
 
 
 def time_decode(gen, s, cache_len, dtype, heads=FULL_HEADS, window=0):
@@ -945,11 +987,11 @@ def time_matrix(gen, m, n):
 
 
 def timing_row(name, shape, dtype, kernel, plain, library, *, nbytes, flops,
-               check=None, timer=cuda_ms):
+               check=None, timer=cuda_ms, library_name=None):
     """Time kernel, plain version and library call (None: no single PyTorch
     call computes the function) with ``timer`` after holding the kernel
     against the plain version (``check(got, want) -> (max error, ok)``;
-    default: ``held``)."""
+    default: ``held``). A timer may return (ms, the timer's name)."""
     t_bytes = nbytes / PEAKS["bytes"] * 1e3
     t_ops = flops / PEAKS[str(dtype).split(".")[-1]] * 1e3
     check = check or (lambda got, want: held(got, want, dtype))
@@ -957,13 +999,22 @@ def timing_row(name, shape, dtype, kernel, plain, library, *, nbytes, flops,
     if not ok:
         raise AssertionError(f"{name} at {shape} {dtype}: max error {err} "
                              f"beyond its tolerance")
+    timers = {}
+
+    def timed(key, fn):
+        out = timer(fn)
+        ms, timers[key] = out if isinstance(out, tuple) else (out, "graph")
+        return ms
     row = dict(name=name, **KERNELS[name], shape=f"{shape} {dtype}",
-               max_abs_err=err, ms=timer(kernel),
-               plain_ms=timer(plain),
-               library_ms=timer(library) if library else None,
+               max_abs_err=err, ms=timed("ms", kernel),
+               plain_ms=timed("plain_ms", plain),
+               library_ms=timed("library_ms", library) if library else None,
                bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations")
-    emit({"phase": "kernel_timing", **row})
+    extra = {"timers": timers}
+    if library_name:
+        extra["library"] = library_name
+    emit({"phase": "kernel_timing", **row, **extra})
     return row
 
 
@@ -1285,9 +1336,9 @@ def profiled(run):
         decode_kernels += "decode_" in name
         kind = ("attention kernels" if "flash_fwd" in name or "decode_" in name
                 else "flash backward" if any(
-                    k in name for k in ("bwd_dq", "bwd_dkdv", "bwd_sum"))
+                    k in name for k in ("bwd_delta", "bwd_dq_wgmma", "bwd_dkdv_wgmma"))
                 else "ssd_scan" if "ssd_scan_kernel" in name
-                else "rowwise_cosine" if "rowwise_kernel" in name
+                else "rowwise_cosine" if "rowwise_" in name
                 else "cosine_matrix" if "matrix_kernel" in name
                 else "matmul" if any(k in name.lower() for k in (
                     "gemm", "gemv", "nvjet"))

@@ -5,23 +5,34 @@
 // rowwise_cosine replaces the Pallas TPU kernel
 // src/repro/kernels/similarity.py (rowwise_cosine, body _rowwise_kernel).
 // Same function on any M: the TPU padded M up to a block of 128 rows and
-// sliced the result back; here every warp owns one row and warps past M
-// return, so nothing is padded.
+// sliced the result back; here rows past M are masked, so nothing is
+// padded.
 //
 // What bounds it on an H100: bytes. Each pair of elements read takes one
 // fused multiply-add, 2 FLOPs per 8 bytes at fp32, far below the ~20
-// FLOP/byte where the CUDA cores would become the limit. What the design
-// does about it:
-// * one warp per row and 8 rows per block, so a 256-wide fp32 row is two
-//   16-byte loads a lane, neighbouring lanes on neighbouring addresses;
-// * 16-byte loads (4 fp32 or 8 bf16 a lane) where D and the row strides are
-//   multiples of the vector and the rows are 16-byte aligned, else one
-//   element a lane;
-// * b is read through its own row stride, so a stride of 0 broadcasts one
-//   anchor row to every row of a: the cascade scores a morsel against its
-//   predicate without a (M, D) copy of the anchor, and the anchor's bytes
-//   come from the L1/L2 caches after the first warp reads them;
-// * the fp32 partial sums of the lanes meet in a __shfl_xor_sync tree, with
+// FLOP/byte where the CUDA cores would become the limit. So the card's
+// memory has to see enough bytes in flight (~2 MB across the card at 3.35
+// TB/s and its latency). What the design does about it:
+// * A warp streams RW = 4 rows at a time and issues all their 16-byte
+//   loads (4 fp32 or 8 bf16 a lane, neighbouring lanes on neighbouring
+//   addresses) before any sum: 4 KB in flight a warp at D = 256 fp32, with
+//   the anchor, 4x the one row a warp of the first version. Below 4 rows
+//   a warp for every multiprocessor's block (M < 4 x 8 x 132), one row a
+//   warp, so a short pass spreads over more warps.
+// * b is read through its own row stride. With a stride of 0 (one anchor
+//   row against every row of a: the cascade scores a morsel against its
+//   predicate, no (M, D) copy of the anchor) each warp loads the anchor
+//   into registers once (2 x 16 B a lane at D = 256 fp32) and half the
+//   load instructions, which fetched the same 1 KB for every row, go.
+// * The grid is the row groups of 8 warps x 4 rows, up to 8 blocks of 256
+//   threads on each multiprocessor (the most an SM holds), with a
+//   grid-stride loop past that; a small M (a 16-row morsel) is one short
+//   block.
+// * Rows whose D, stride or start do not allow 16-byte loads, and rows of
+//   more than 64 chunks (whose RW rows of a and b would pass 128 registers
+//   a thread), take the first version: one warp a row, one element a lane
+//   or a loop of 16-byte loads.
+// * The fp32 partial sums of the lanes meet in a __shfl_xor_sync tree, with
 //   no shared memory and no second pass.
 //
 // cosine_matrix replaces the Pallas TPU kernel
@@ -123,6 +134,86 @@ rowwise_kernel(const T* __restrict__ a, const T* __restrict__ b,
   if (lane == 0) out[row] = acc;
 }
 
+// 16-byte rows of at most 32 CH chunks: each warp takes RW rows at a time,
+// all their loads in flight before the sums; with ANCHOR (b's row stride 0)
+// b's one row is loaded into registers once.
+template <typename T, int CH, int RW, bool ANCHOR>
+__global__ void __launch_bounds__(THREADS)
+rowwise_rows(const T* __restrict__ a, const T* __restrict__ b,
+             float* __restrict__ out, int M, int D, long long sa,
+             long long sb) {
+  constexpr int E = 16 / sizeof(T);
+  const int lane = threadIdx.x & 31, nc = D / E;
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+  uint4 an[CH];
+  if (ANCHOR) {
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      const int i = lane + 32 * c;
+      an[c] = i < nc ? __ldg(reinterpret_cast<const uint4*>(b) + i) : zero;
+    }
+  }
+  const long long step = (long long)gridDim.x * WARPS * RW;
+  for (long long r0 = ((long long)blockIdx.x * WARPS + (threadIdx.x >> 5)) * RW;
+       r0 < M; r0 += step) {
+    uint4 x[RW][CH], y[RW][CH];
+#pragma unroll
+    for (int r = 0; r < RW; ++r) {
+      const bool ok = r0 + r < M;
+      const uint4* ar = reinterpret_cast<const uint4*>(a + (r0 + r) * sa);
+      const uint4* br = reinterpret_cast<const uint4*>(b + (r0 + r) * sb);
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        const int i = lane + 32 * c;
+        x[r][c] = ok && i < nc ? __ldg(ar + i) : zero;
+        if (!ANCHOR) y[r][c] = ok && i < nc ? __ldg(br + i) : zero;
+      }
+    }
+    float acc[RW];
+#pragma unroll
+    for (int r = 0; r < RW; ++r) {
+      acc[r] = 0.f;
+#pragma unroll
+      for (int c = 0; c < CH; ++c)
+        acc[r] += dot16<T>(x[r][c], ANCHOR ? an[c] : y[r][c]);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+      for (int r = 0; r < RW; ++r)
+        acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], o);
+    if (lane == 0) {
+#pragma unroll
+      for (int r = 0; r < RW; ++r)
+        if (r0 + r < M) out[r0 + r] = acc[r];
+    }
+  }
+}
+
+template <typename T, int CH, int RW>
+int launch_rows(const T* a, const T* b, float* out, int M, int D,
+                long long sa, long long sb, int sms, cudaStream_t stream) {
+  const long long groups = ((long long)M + WARPS * RW - 1) / (WARPS * RW);
+  const long long cap = sms > 0 ? 8LL * sms : groups;
+  const dim3 grid(static_cast<unsigned>(groups < cap ? groups : cap));
+  if (sb == 0)
+    rowwise_rows<T, CH, RW, true><<<grid, THREADS, 0, stream>>>(a, b, out, M, D, sa, sb);
+  else
+    rowwise_rows<T, CH, RW, false><<<grid, THREADS, 0, stream>>>(a, b, out, M, D, sa, sb);
+  return cudaGetLastError();
+}
+
+// RW = 4 rows a warp where that still gives every multiprocessor a block;
+// a smaller M (a 16-row morsel) takes one row a warp, over more warps.
+template <typename T, int CH>
+int launch_rows(const T* a, const T* b, float* out, int M, int D,
+                long long sa, long long sb, cudaStream_t stream) {
+  static const int sms = hopper::multiprocessors();
+  if ((long long)M >= 4LL * WARPS * sms)
+    return launch_rows<T, CH, 4>(a, b, out, M, D, sa, sb, sms, stream);
+  return launch_rows<T, CH, 1>(a, b, out, M, D, sa, sb, sms, stream);
+}
+
 template <typename T>
 int launch(const void* a, const void* b, float* out, int M, int D,
            long long sa, long long sb, cudaStream_t stream) {
@@ -130,9 +221,12 @@ int launch(const void* a, const void* b, float* out, int M, int D,
   const bool vec = D % E == 0 && sa % E == 0 && sb % E == 0 &&
                    reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(b) % 16 == 0;
-  const dim3 grid((M + WARPS - 1) / WARPS);
   const T* at = static_cast<const T*>(a);
   const T* bt = static_cast<const T*>(b);
+  const int nc = D / E;
+  if (vec && nc <= 32) return launch_rows<T, 1>(at, bt, out, M, D, sa, sb, stream);
+  if (vec && nc <= 64) return launch_rows<T, 2>(at, bt, out, M, D, sa, sb, stream);
+  const dim3 grid((M + WARPS - 1) / WARPS);
   if (vec)
     rowwise_kernel<T, true><<<grid, THREADS, 0, stream>>>(at, bt, out, M, D, sa, sb);
   else

@@ -1,5 +1,6 @@
-"""Time the port's flash_attention, cosine_matrix, decode_attention and
-ssd_scan kernels of two source trees on one CUDA card, in turns: A, B, B, A.
+"""Time the port's flash_attention (forward and backward), cosine_matrix,
+rowwise_cosine, decode_attention and ssd_scan kernels of two source trees on
+one CUDA card, in turns: A, B, B, A.
 
     python3 src/repro_torch/kernels/bench_ab.py --a OLD_ROOT --b NEW_ROOT
 
@@ -8,10 +9,14 @@ unpacked into a directory that .gitignore lists, for instance). Every turn
 is a fresh process that builds and imports that root's ``repro_torch`` and
 prints one JSON line: device ms per call (20 calls in a CUDA graph, timed
 with CUDA events) at the paths' shapes and long ones, the same for one
-PyTorch call computing the function (SDPA, ``torch.matmul``; none computes
-the SSD scan), and the wrapper's host time per call (mean of 200 calls, no
-synchronisation between them) at the paths' shapes. The last line is a
-JSON summary: the mean of each number over each root's two turns, and the
+PyTorch call computing the function (SDPA, ``torch.matmul``, ``torch.mv``;
+none computes the SSD scan), and the wrapper's host time per call (mean of
+200 calls, no synchronisation between them) at the paths' shapes. The flash
+backward is timed at the training shapes (qwen2-0.5b's heads, B = 8,
+S = 512, bf16; the rewriter's, B = 16, S = 384, fp32) and
+``rowwise_cosine`` at a 16-row morsel and the 18,891-row game table, warm
+and with L2 cold (8 copies of the rows in turn). The last line is a JSON
+summary: the mean of each number over each root's two turns, and the
 card's name and power limit.
 """
 from __future__ import annotations
@@ -102,7 +107,56 @@ def one_turn(root):
                     lambda: sim.cosine_matrix(a, a))
     time_decode(out, gen)
     time_ssd(out, gen)
+    time_backward(out, gen)
+    time_rowwise(out, gen)
     return out
+
+
+def time_backward(out, gen):
+    """flash_attention_backward from the forward kernel's output and
+    log-sum-exp at the training shapes."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    for (hq, hkv, d), b, s, dtype in ((HEADS, 8, 512, torch.bfloat16),
+                                      ((4, 2, 32), 16, 384, torch.float32)):
+        def rn(*shape):
+            return (torch.randn(*shape, generator=gen, device="cuda")
+                    * 0.5).to(dtype)
+        q, k, v, dout = rn(b, s, hq, d), rn(b, s, hkv, d), rn(b, s, hkv, d), \
+            rn(b, s, hq, d)
+        o, lse = fa.flash_attention(q, k, v, return_lse=True)
+        name = f"flash_bwd {str(dtype)[6:]} B={b} S={s} {hq}/{hkv}x{d}"
+        out[name] = cuda_ms(
+            lambda: fa.flash_attention_backward(q, k, v, o, dout, lse))
+
+
+def time_rowwise(out, gen, m=18891, copies=8):
+    """rowwise_cosine (fp32) of unit rows against one anchor row: a 16-row
+    morsel, the game table warm, and the game table with L2 cold
+    (``copies`` sets of rows, 8 x 19.3 MB, taken in turn)."""
+    import torch
+    from repro_torch.kernels import similarity as sim
+
+    def unit(n):
+        x = torch.randn(n, 256, generator=gen, device="cuda")
+        return x / x.norm(dim=1, keepdim=True)
+    anchor = unit(1)[0]
+    for rows in (16, m):
+        a = unit(rows)
+        out[f"rowwise M={rows}"] = cuda_ms(lambda: sim.rowwise_cosine(a, anchor))
+        out[f"rowwise M={rows} mv"] = cuda_ms(lambda: torch.mv(a, anchor))
+    sets = [unit(m) for _ in range(copies)]
+    turn = [0]
+
+    def cycling(fn):
+        def call():
+            fn(sets[turn[0] % copies], anchor)
+            turn[0] += 1
+        return call
+    out[f"rowwise M={m} cold"] = cuda_ms(cycling(sim.rowwise_cosine),
+                                         reps=4 * copies)
+    out[f"rowwise M={m} cold mv"] = cuda_ms(cycling(torch.mv),
+                                            reps=4 * copies)
 
 
 def time_decode(out, gen):

@@ -53,7 +53,7 @@ def _fn():
 @functools.lru_cache(maxsize=None)
 def _bwd_fn():
     fn = _build.library("flash_attention_bwd").flash_attention_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
                    + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 4
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -151,8 +151,11 @@ def flash_attention_backward(q, k, v, out, dout, lse, *, causal=True,
     dout of one dtype (float32 or bfloat16), lse fp32 (B, Hq, Sq). Returns
     new tensors in q's dtype, shaped like q, k and v. Head_dim 16, 32 or 64:
     128 (codeqwen1.5-7b) trains only across cards, which the port does not
-    yet do. One call launches three kernels (dQ with Delta, dK/dV partials
-    per query head, their sum over each group) and counts one launch."""
+    yet do. One call counts one launch of three kernels: each row's
+    Delta = rowsum(dO out), then dK and dV (summed over each KV head's
+    group) on the current stream beside dQ on a second stream that the
+    current one waits for; the two on the tensor cores. ``out`` and
+    ``dout`` rows that do not start 16-byte aligned are copied first."""
     _check_inputs(q, k, v)
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
@@ -167,7 +170,8 @@ def flash_attention_backward(q, k, v, out, dout, lse, *, causal=True,
             or not lse.is_contiguous() or lse.device != q.device):
         raise ValueError(f"lse must be a contiguous fp32 {(b, hq, sq)} on "
                          f"q's device")
-    out, dout = (t if t.stride(3) == 1 else t.contiguous()
+    out, dout = (t if t.stride(3) == 1 and rows_aligned(t)
+                 else t.clone(memory_format=torch.contiguous_format)
                  for t in (out, dout))
     sk_valid = _sk_valid(sk_valid, sk)
     scale = float(d ** -0.5 if scale is None else scale)
@@ -175,10 +179,7 @@ def flash_attention_backward(q, k, v, out, dout, lse, *, causal=True,
                   for t in (q, k, v))
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    f32 = dict(dtype=torch.float32, device=q.device)
-    delta = torch.empty((b, hq, sq), **f32)
-    dk_part = torch.empty((b, sk, hq, d), **f32)
-    dv_part = torch.empty((b, sk, hq, d), **f32)
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 24)(*(
         s for t in (q, k, v, out, dout, dq, dk, dv) for s in t.stride()[:3]))
     with torch.cuda.device(q.device):
@@ -186,10 +187,9 @@ def flash_attention_backward(q, k, v, out, dout, lse, *, causal=True,
         err = _bwd_fn()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), delta.data_ptr(), dk_part.data_ptr(),
-            dv_part.data_ptr(), DTYPES[q.dtype], b, sq, sk, hq, hkv, d,
-            strides, int(causal), int(window), int(q_offset), sk_valid,
-            scale, stream)
+            dv.data_ptr(), delta.data_ptr(), DTYPES[q.dtype], b, sq, sk, hq,
+            hkv, d, strides, int(causal), int(window), int(q_offset),
+            sk_valid, scale, stream)
     if err:
         raise RuntimeError(f"flash_attention backward kernel launch failed: "
                            f"CUDA error {err}")

@@ -152,15 +152,24 @@ def cuda():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_on_card(cuda, dtype):
     """Full rows and an anchor, aligned (16-byte loads) and not (D = 250,
-    one element a lane); both sum in fp32, in another order."""
+    and rows that start two elements past an aligned address: one element a
+    lane); M = 1, a 16-row morsel, 31 (one row a warp), 133, 4096 and the
+    18,891-row game table (four rows a warp); both sum in fp32, in another
+    order."""
     g = torch.Generator(cuda).manual_seed(0)
-    for m, d in ((1, 256), (133, 256), (18891, 256), (37, 250)):
+    for m, d in ((1, 256), (16, 256), (31, 256), (133, 256), (4096, 256),
+                 (18891, 256), (37, 250)):
         a = torch.randn(m, d, generator=g, device=cuda).to(dtype)
         b = torch.randn(m, d, generator=g, device=cuda).to(dtype)
         for other in (b, b[0]):
             torch.testing.assert_close(sim.rowwise_cosine(a, other),
                                        sim.plain(a, other), atol=2e-4,
                                        rtol=1e-5)
+    flat = torch.randn(2 * 64 * 256 + 2, generator=g, device=cuda).to(dtype)
+    a, b = flat[2:64 * 256 + 2].view(64, 256), flat[:64 * 256].view(64, 256)
+    for other in (b, b[0]):
+        torch.testing.assert_close(sim.rowwise_cosine(a, other),
+                                   sim.plain(a, other), atol=2e-4, rtol=1e-5)
     empty = torch.zeros(0, 256, device=cuda, dtype=dtype)
     assert sim.rowwise_cosine(empty, empty[0:0]).shape == (0,)
 

@@ -144,14 +144,18 @@ def test_loss_and_gradients_match_jax(pair, remat):
                         GRAD_TOL)
 
 
-def test_attention_gradient_matches_jax():
+@pytest.mark.parametrize("heads", [(4, 2, 32), (14, 2, 64)])
+def test_attention_gradient_matches_jax(heads):
     """``ops.flash_attention``'s gradient (autograd of the plain version on
     the CPU) against ``jax.grad`` of the JAX model's attention, causal and
-    windowed, at a GQA group of 2 and head_dim 32 (the rewriter's)."""
+    windowed, at a GQA group of 2 and head_dim 32 (the rewriter's) and at
+    qwen2-0.5b's group of 7 and head_dim 64 (the training shape's, whose
+    rows the backward kernel packs seven heads to a position)."""
+    hq, hkv, d = heads
     rng = np.random.default_rng(4)
     q, k, v, w = (rng.normal(size=s).astype(np.float32) for s in
-                  ((2, 40, 4, 32), (2, 40, 2, 32), (2, 40, 2, 32),
-                   (2, 40, 4, 32)))
+                  ((2, 40, hq, d), (2, 40, hkv, d), (2, 40, hkv, d),
+                   (2, 40, hq, d)))
     for window in (0, 8):
         jg = jax.grad(lambda q, k, v: jnp.sum(jattention.chunked_attention(
             q, k, v, causal=True, window=window) * w), argnums=(0, 1, 2))(
@@ -423,6 +427,11 @@ def cuda():
 # Delta = rowsum(dO o) reads the forward's bf16 output where autograd keeps
 # fp32 (~2^-9 of |dO||o| through dS): r = 2^-7, a = 2^-8.
 BWD_TOL = {"float32": (1e-5, 0.0), "bfloat16": (2.0 ** -8, 2.0 ** -7)}
+# (heads, B, S, causal, window, q_offset, sk_valid), each in fp32 and bf16:
+# the training shape, the rewriter's, head_dim 16 at the tile edges, with
+# the window, non-causal, rows with no key; then the kernel's own edges:
+# qwen2's group of 7 at S = 73 (511 packed rows, the last tile cut
+# mid-tile), and a window of 24 crossing key tiles at head_dim 32 and 64.
 BWD_CASES = [((14, 2, 64), 8, 512, True, 0, 0, 0),
              ((4, 2, 32), 16, 384, True, 0, 0, 0),
              ((4, 2, 16), 2, 1, True, 0, 0, 0),
@@ -430,7 +439,10 @@ BWD_CASES = [((14, 2, 64), 8, 512, True, 0, 0, 0),
              ((4, 2, 16), 2, 129, True, 24, 0, 0),
              ((4, 2, 16), 2, 128, False, 0, 0, 0),
              ((4, 2, 16), 2, 127, False, 24, 0, 0),
-             ((14, 2, 64), 2, 48, True, 8, -6, 37)]
+             ((14, 2, 64), 2, 48, True, 8, -6, 37),
+             ((14, 2, 64), 2, 73, True, 0, 0, 0),
+             ((4, 2, 32), 2, 200, True, 24, 0, 0),
+             ((14, 2, 64), 2, 200, True, 24, 0, 0)]
 
 
 @pytest.mark.gpu
@@ -458,6 +470,28 @@ def test_backward_kernel_matches_plain_on_card(cuda, dtype, case):
         assert bool((err <= lim).all()), err.max().item()
     again = fa.flash_attention_backward(q, k, v, out, do, lse, **kw)
     assert all(torch.equal(x, y) for x, y in zip(got, again))  # no atomics
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [("bfloat16", (14, 2, 64), 8, 512),
+                                  ("float32", (4, 2, 32), 16, 384)])
+def test_backward_kernel_is_deterministic_on_card(cuda, case):
+    """Three launches on the same inputs at the training shapes give the
+    same bits: no atomics, and the sums' order does not depend on which
+    pass or block runs first."""
+    dtype, (hq, hkv, d), b, s = case
+    td = getattr(torch, dtype)
+    g = torch.Generator(cuda).manual_seed(7)
+
+    def rn(*shape):
+        return (torch.randn(*shape, generator=g, device=cuda) * 0.5).to(td)
+    q, k, v, do = rn(b, s, hq, d), rn(b, s, hkv, d), rn(b, s, hkv, d), \
+        rn(b, s, hq, d)
+    out, lse = fa.flash_attention(q, k, v, return_lse=True)
+    runs = [fa.flash_attention_backward(q, k, v, out, do, lse)
+            for _ in range(3)]
+    for again in runs[1:]:
+        assert all(torch.equal(x, y) for x, y in zip(runs[0], again))
 
 
 @pytest.mark.gpu
