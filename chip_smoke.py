@@ -50,9 +50,11 @@ non-zero):
    twice on the same inputs (the same bits); the forward at head_dim 32
    too. Timed: forward and backward at both training shapes (the library
    baseline of the backward: ``torch.autograd.grad`` through SDPA's
-   backward, pinned to the fastest backend that takes the inputs; kernel,
-   plain version and baseline each in a CUDA graph where capture works,
-   else the median of 5 windows of 100 calls between CUDA events).
+   backward, pinned to the fastest backend that takes the inputs; kernel
+   and plain version in a CUDA graph, the baseline as the median of 5
+   windows of 100 calls between CUDA events: SDPA's flash backward cannot
+   be captured, and a failed capture would leave the allocator routing
+   every later allocation into a private pool that is never freed).
 4. serve: full-width qwen2-0.5b (24 layers, d_model 896, vocab 151936, seeded
    random weights) serves 8 requests through ``GenerationEngine`` and
    ``ContinuousBatcher``; every prefill must launch ``flash_attention`` once
@@ -121,6 +123,41 @@ non-zero):
    first 4 layers. train_rewriter: ``examples.train_rewriter`` (§3.3) on
    the card with 100 steps: train and eval accuracy, and the plan cost of
    the cloud rewriter and of the trained LocalModelRewriter.
+15. serve_encdec (after the training phases): full-width
+   seamless-m4t-large-v2 (24 encoder and 24 decoder layers, d_model 1024,
+   16/16 heads of 64, d_ff 8192, vocab 256206, 2.03B parameters, 8.1 GB
+   fp32) through ``registry.build``: ``prefill`` of 4 prompts of 32 tokens
+   over (4, 4096, 1024) seeded encoder frames, max_len 160, then 24 greedy
+   ``decode_step``s: prefill s, decode s a step, tok/s, the card's idle
+   share (profiled prefill and 8 steps); flash 72 per prefill (24 encoder,
+   24 decoder self, 24 cross), decode 48 a step (self and cross).
+   cross_check_encdec: the same inputs with the model cut to its first 2
+   encoder and 2 decoder layers, card against CPU: the prefill's and every
+   step's logits within LOGITS_ATOL, the same argmax. The kernels phase
+   holds flash at cross-attention's shapes (1, 17, 96 and 160 queries
+   against 77 and 4096 keys at 16/16 heads of 64), the backward at the
+   group of 1 with Sq != Sk and at the training shape, and decode over the
+   whole 4096-frame cache.
+16. train_encdec: ``launch.train --arch seamless-m4t-large-v2 --steps 8
+   --batch 4 --seq 512 --corpus movie`` at full width, no checkpoint (one
+   would be 24.4 GB): step time, tok/s, peak memory, losses finite and
+   falling, the idle share over two profiled steps; per step the flash
+   forward 24 + 2 x 48 times (remat recomputes the decoder only), the
+   backward 72. cross_check_train_encdec: one fp32 step cut to 2 + 2
+   layers, card against CPU (loss 1e-5, grad norm 1e-4, every leaf 1e-4
+   of its max).
+17. int8_decode: full-width qwen2-0.5b, 4 sequences: 64 prompt tokens one
+   at a time through ``decode_step``, then 24 greedy steps, with the fp32
+   cache and then the int8 cache fed the same tokens; at every step the
+   int8 logits within 0.05 of the fp32 logits' largest |value| (the
+   reference's bound); both caches' bytes and ms a step; decode launches
+   24 a step for each.
+18. serve_vlm: internvl2-76b at full width (d_model 8192, 64/8 heads of
+   128, d_ff 28672, vocab 128256) cut to 4 of its 80 layers (~22 GB fp32):
+   (4, 256, 8192) seeded patch embeddings and 32 tokens, 24 greedy steps
+   through the bundle (flash 4 per prefill, decode 4 a step), then 4
+   text-only requests through the engine. cross_check_vlm: the model cut
+   to 1 layer, card against CPU, the prefill and 4 steps.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the rest
@@ -202,6 +239,9 @@ HYMBA_SERVE = ["--arch", "hymba-1.5b"] + SSM_SERVE[2:]
 # minicpm3 keep their first CUT_LAYERS layers at full width (a full-depth
 # copy would take 33 and 17 GB of host memory)
 CODEQWEN_HEADS, GRANITE_HEADS = (32, 32, 128), (16, 8, 64)
+# seamless-m4t-large-v2 (16 query over 16 KV heads of 64: a GQA group of 1)
+# and internvl2-76b (64 over 8 of 128)
+SEAMLESS_HEADS, VLM_HEADS = (16, 16, 64), (64, 8, 128)
 CODEQWEN_SERVE = ["--arch", "codeqwen1.5-7b"] + SSM_SERVE[2:]
 MOE_SERVE = ["--arch", "granite-moe-1b-a400m"] + SSM_SERVE[2:]
 MLA_SERVE = ["--arch", "minicpm3-4b"] + SSM_SERVE[2:]
@@ -223,6 +263,31 @@ REWRITER_STEPS = 100
 CKPT_ROOT = os.path.join(ROOT, "build", "smoke_ckpt")
 QWEN_SERVE = ["--no-reduced", "--requests", "8", "--slots", "4",
               "--max-len", "160", "--max-new", "24", "--device", "cuda"]
+# seamless-m4t-large-v2 through its bundle: 4 prompts of ENCDEC_PROMPT
+# tokens over ENC_FRAMES encoder frames (the reference's ENC_CTX_SERVE),
+# max_len 160, ENCDEC_STEPS greedy steps; the card-vs-CPU check cut to
+# ENCDEC_CUT encoder and ENCDEC_CUT decoder layers. Training: launch.train
+# at full width, B = 4, S = 512 (a checkpoint would be 24.4 GB: none is
+# taken, --ckpt-every is past --steps; the enc-dec tree's checkpoint and
+# restart are held on the CPU by tests/test_torch_encdec.py)
+ENC_FRAMES, ENCDEC_BATCH, ENCDEC_PROMPT, ENCDEC_MAX_LEN = 4096, 4, 32, 160
+ENCDEC_STEPS, ENCDEC_CUT, ENCDEC_TRAIN_STEPS = 24, 2, 8
+TRAIN_ENCDEC = ["--arch", "seamless-m4t-large-v2", "--steps",
+                str(ENCDEC_TRAIN_STEPS), "--batch", str(ENCDEC_BATCH),
+                "--seq", str(TRAIN_SEQ), "--corpus", "movie", "--ckpt-every",
+                "1000"]
+# int8_decode: full-width qwen2-0.5b, 4 sequences fed INT8_PROMPT tokens one
+# at a time, then INT8_STEPS greedy steps, with the int8 and the fp32 cache;
+# the reference's bound on the logits' difference
+INT8_PROMPT, INT8_STEPS, INT8_BOUND = 64, 24, 0.05
+# serve_vlm: internvl2-76b at full width cut to VLM_LAYERS of its 80 layers
+# (4 x 3.4 GB fp32 beside 8.7 GB of embedding, unembedding and prefix
+# projection: what one card holds with room for the run), 4 sequences of
+# VLM_PREFIX patch embeddings and VLM_TEXT tokens, VLM_STEPS greedy steps;
+# max_len 576 holds the prefill's pos (288 + 256: the reference counts the
+# prefix twice) and the steps; the card-vs-CPU check at VLM_CUT layer
+VLM_LAYERS, VLM_CUT, VLM_BATCH, VLM_PREFIX, VLM_TEXT = 4, 1, 4, 256, 32
+VLM_STEPS, VLM_MAX_LEN = 24, 576
 # cosine_matrix: the shapes of tests/test_kernels.py, the cosine_api path's
 # all-pairs product of the 250 movie plots, a small one, ragged M, N and D
 # (D 250 and 33 are read element by element), and products in each of the
@@ -351,16 +416,20 @@ def phase_build():
           "registers_per_thread": regs})
 
 
-def attn_inputs(gen, b, s, hq, hkv, d, dtype, layers=1):
-    """q (b, s, hq, d) and k/v slices of a layer-stacked (layers, b, s, hkv,
-    d) tensor, read in place as the model reads its cache."""
+def attn_inputs(gen, b, s, hq, hkv, d, dtype, layers=1, sk=None):
+    """q (b, s, hq, d) and k/v slices of a layer-stacked (layers, b, sk,
+    hkv, d) tensor (sk = s by default), read in place as the model reads
+    its cache."""
+    sk = sk or s
+
     def rn(*shape):
         return (torch.randn(*shape, generator=gen, device="cuda") * 0.5).to(dtype)
-    return rn(b, s, hq, d), rn(layers, b, s, hkv, d)[-1], rn(layers, b, s, hkv, d)[-1]
+    return (rn(b, s, hq, d), rn(layers, b, sk, hkv, d)[-1],
+            rn(layers, b, sk, hkv, d)[-1])
 
 
 def flash_cases():
-    """(heads, case, B, S, causal, window, q_offset, sk_valid): qwen2-0.5b's
+    """(heads, case, B, S, causal, window, q_offset, sk_valid, Sk): qwen2-0.5b's
     heads at every prefill length the serve and semantic phases give the
     kernel (prompts pad to a multiple of PREFILL_ALIGN = 16 and are cut at
     max_len 160, so 16 to 160; the serve phase's are 64, 80 and 96) and at
@@ -373,7 +442,13 @@ def flash_cases():
     length and at 2048, where the window masks. codeqwen1.5-7b's heads (32
     over 32 of head_dim 128) at every prefill length, 2048 and the offset
     cases. The rewriter's heads (4 over 2 of head_dim 32) at the reduced
-    cases, its training shape (B = 16, S = 384) and the offset cases."""
+    cases, its training shape (B = 16, S = 384) and the offset cases.
+    Sk is None (= S) but for cross-attention: seamless-m4t-large-v2's heads
+    (a group of 1) with 1, 17, 96 and 160 queries against 77 and 4096 keys,
+    non-causal; its encoder's self-attention at 4096 frames and its
+    training shape (S = 512, causal and not). internvl2-76b's heads (64
+    over 8 of 128) causal at its served prefill (256 prefix + 32 text) and
+    at 96."""
     full = [("causal", 1, s, True, 0) for s in range(16, 161, 16)]
     full += [("causal", 1, 2048, True, 0),
              ("padded", 2, 40, True, 0), ("window", 1, 160, True, 24),
@@ -390,26 +465,38 @@ def flash_cases():
     codeqwen = [("causal", 1, s, True, 0)
                 for s in list(range(16, 161, 16)) + [2048]]
     rewriter = small + [("train", 16, 384, True, 0)]
-    return ([(FULL_HEADS, *c, 0, c[2]) for c in full]
-            + [(REDUCED_HEADS, *c, 0, c[2]) for c in small]
-            + [(REWRITER_HEADS, *c, 0, c[2]) for c in rewriter]
-            + [(h, *c) for h in (FULL_HEADS, REDUCED_HEADS, CODEQWEN_HEADS,
-                                 REWRITER_HEADS)
-               for c in offsets]
-            + [(HYMBA_HEADS, *c, 0, c[2]) for c in hymba]
-            + [(CODEQWEN_HEADS, *c, 0, c[2]) for c in codeqwen])
+    seamless = [("encoder", 1, 4096, False, 0), ("train", 2, 512, True, 0),
+                ("train_noncausal", 2, 512, False, 0)]
+    vlm = [("causal", 1, 96, True, 0), ("vlm_prefill", 1, 288, True, 0)]
+    cases = ([(FULL_HEADS, *c, 0, c[2]) for c in full]
+             + [(REDUCED_HEADS, *c, 0, c[2]) for c in small]
+             + [(REWRITER_HEADS, *c, 0, c[2]) for c in rewriter]
+             + [(h, *c) for h in (FULL_HEADS, REDUCED_HEADS, CODEQWEN_HEADS,
+                                  REWRITER_HEADS)
+                for c in offsets]
+             + [(HYMBA_HEADS, *c, 0, c[2]) for c in hymba]
+             + [(CODEQWEN_HEADS, *c, 0, c[2]) for c in codeqwen]
+             + [(SEAMLESS_HEADS, *c, 0, c[2]) for c in seamless]
+             + [(VLM_HEADS, *c, 0, c[2]) for c in vlm])
+    return ([c + (None,) for c in cases]
+            + [(SEAMLESS_HEADS, "cross", 2, sq, False, 0, 0, sk, sk)
+               for sq in (1, 17, 96, 160) for sk in (77, 4096)])
 
 
 DECODE_CASES = [(FULL_HEADS, b, s) for b in (4, 32) for s in (160, 4096)] \
     + [(REDUCED_HEADS, 4, 160), (CODEQWEN_HEADS, 4, 160),
-       (CODEQWEN_HEADS, 32, 4096)]
+       (CODEQWEN_HEADS, 32, 4096), (SEAMLESS_HEADS, 4, 160),
+       (SEAMLESS_HEADS, 4, 4096), (VLM_HEADS, 4, 576), (VLM_HEADS, 4, 4096)]
+# seamless's cross decode reads the whole encoder cache: every slot's
+# cache_len is its 4096 frames
+ENCODER_LENS = (4096,) * 4
 # cache lengths at the kernel's edges: none, one key, either side of its
 # 32-key tiles and of two of them, the whole cache; over groups of 1, 7
 # (qwen2-0.5b) and 16 (the largest) at head_dim 64, the reduced heads, and
 # at head_dim 128 codeqwen1.5-7b's heads (a group of 1) and a group of 16
 DECODE_EDGE_LENS = (0, 1, 31, 32, 33, 63, 64, 65, 160)
 DECODE_EDGE_HEADS = [(2, 2, 64), (14, 2, 64), (32, 2, 64), REDUCED_HEADS,
-                     CODEQWEN_HEADS, (32, 2, 128)]
+                     CODEQWEN_HEADS, (32, 2, 128), SEAMLESS_HEADS, VLM_HEADS]
 # hymba's sliding window: lengths on either side of it and of twice it, of
 # a 4096-entry cache
 WINDOW_LENS = (0, 1, 1023, 1024, 1025, 2048, 4096)
@@ -424,9 +511,12 @@ def check_decode(gen, dtype, failures):
     loads). Hymba's heads at WINDOW_LENS with its window of 1024 and
     without; with the window, every K and V row before a sequence's window
     is NaN and the plain version reads the cache with them zeroed: a kernel
-    that loaded them would give NaN."""
+    that loaded them would give NaN. Seamless's heads (a group of 1) with
+    every slot at the whole 4096-entry encoder cache (cross decode)."""
     from repro_torch.kernels import decode_attention as dec
     cases = [("ragged", heads, b, s, None, 0) for heads, b, s in DECODE_CASES]
+    cases += [("encoder", SEAMLESS_HEADS, len(ENCODER_LENS), ENCODER_LENS[0],
+               ENCODER_LENS, 0)]
     cases += [("edges", heads, len(DECODE_EDGE_LENS), 160, DECODE_EDGE_LENS,
                0) for heads in DECODE_EDGE_HEADS]
     cases += [("unaligned", heads, len(DECODE_EDGE_LENS), 160,
@@ -478,8 +568,9 @@ def phase_kernels():
     failures = []
     for dtype in (torch.float32, torch.bfloat16):
         for ((hq, hkv, d), case, b, s, causal, window, q_offset,
-             sk_valid) in flash_cases():
-            q, k, v = attn_inputs(gen, b, s, hq, hkv, d, dtype, layers=2)
+             sk_valid, sk) in flash_cases():
+            q, k, v = attn_inputs(gen, b, s, hq, hkv, d, dtype, layers=2,
+                                  sk=sk)
             kw = dict(causal=causal, window=window, q_offset=q_offset,
                       sk_valid=sk_valid)
             got = fa.flash_attention(q, k, v, **kw)
@@ -487,7 +578,8 @@ def phase_kernels():
             if q_offset < 0:  # rows with no valid key give 0
                 ok = ok and bool((got[:, :-q_offset] == 0).all())
             emit({"phase": "kernel", "kernel": "flash_attention", "case": case,
-                  "dtype": str(dtype), "B": b, "S": s, "Hq": hq, "Hkv": hkv,
+                  "dtype": str(dtype), "B": b, "S": s, "Sk": sk or s,
+                  "Hq": hq, "Hkv": hkv,
                   "D": d, "window": window, "q_offset": q_offset,
                   "sk_valid": sk_valid, "max_abs_err": err,
                   "tol": tol_text(dtype), "ok": ok})
@@ -506,14 +598,18 @@ def phase_kernels():
 
 
 def bwd_cases():
-    """(heads, case, B, S, causal, window, q_offset, sk_valid) of the
+    """(heads, case, B, S, causal, window, q_offset, sk_valid, Sk) of the
     backward: qwen2-0.5b's training shape, the rewriter's, head_dim 16 at
     S = 1, 17 and either side of two 64-row tiles, with the window, and
     non-causal; the offset cases move the masks off the tile edges, and at
     q_offset -6 the first 6 rows see no key (zero gradient, no NaN); qwen2's
     group of 7 at S = 73 (511 packed rows, the last tile cut mid-tile), and
-    a window of 24 crossing key tiles at head_dim 32 and 64."""
-    return ([(FULL_HEADS, "train", TRAIN_BATCH, TRAIN_SEQ, True, 0, 0,
+    a window of 24 crossing key tiles at head_dim 32 and 64. Sk is None
+    (= S) but for seamless's cross-attention, at its group of 1: 129
+    queries against 200 keys and 200 against 129, non-causal; and its
+    training shape (B = 4, S = 512) causal (the decoder) and non-causal
+    (the encoder, and cross-attention, whose S_enc = S_dec)."""
+    cases = ([(FULL_HEADS, "train", TRAIN_BATCH, TRAIN_SEQ, True, 0, 0,
               TRAIN_SEQ),
              (REWRITER_HEADS, "rewriter", 16, 384, True, 0, 0, 384)]
             + [(REDUCED_HEADS, "causal", 2, s, True, 0, 0, s)
@@ -526,7 +622,15 @@ def bwd_cases():
                (REWRITER_HEADS, "offset_noncausal", 2, 48, False, 0, 3, 28),
                (FULL_HEADS, "group7_ragged", 2, 73, True, 0, 0, 73),
                (REWRITER_HEADS, "window_tiles", 2, 200, True, 24, 0, 200),
-               (FULL_HEADS, "window_tiles", 2, 200, True, 24, 0, 200)])
+               (FULL_HEADS, "window_tiles", 2, 200, True, 24, 0, 200),
+               (SEAMLESS_HEADS, "encdec_train", ENCDEC_BATCH, TRAIN_SEQ, True,
+                0, 0, TRAIN_SEQ),
+               (SEAMLESS_HEADS, "encdec_train_noncausal", ENCDEC_BATCH,
+                TRAIN_SEQ, False, 0, 0, TRAIN_SEQ)])
+    return ([c + (None,) for c in cases]
+            + [(SEAMLESS_HEADS, "group1_cross", 2, 129, False, 0, 0, 200, 200),
+               (SEAMLESS_HEADS, "group1_cross_rev", 2, 200, False, 0, 0, 129,
+                129)])
 
 
 def bwd_held(got, want, dtype):
@@ -550,8 +654,8 @@ def check_backward(gen, dtype, failures):
     the same inputs must give the same bits (no atomics)."""
     from repro_torch.kernels import flash_attention as fa
     for ((hq, hkv, d), case, b, s, causal, window, q_offset,
-         sk_valid) in bwd_cases():
-        q, k, v = attn_inputs(gen, b, s, hq, hkv, d, dtype)
+         sk_valid, sk) in bwd_cases():
+        q, k, v = attn_inputs(gen, b, s, hq, hkv, d, dtype, sk=sk)
         dout = (torch.randn(b, s, hq, d, generator=gen, device="cuda")
                 * 0.5).to(dtype)
         kw = dict(causal=causal, window=window, q_offset=q_offset,
@@ -573,7 +677,8 @@ def check_backward(gen, dtype, failures):
             bool(torch.isfinite(x).all()) for x in got)
         a, r = BWD_TOL[dtype]
         emit({"phase": "kernel", "kernel": "flash_attention_bwd",
-              "case": case, "dtype": str(dtype), "B": b, "S": s, "Hq": hq,
+              "case": case, "dtype": str(dtype), "B": b, "S": s,
+              "Sk": sk or s, "Hq": hq,
               "Hkv": hkv, "D": d, "causal": causal, "window": window,
               "q_offset": q_offset, "sk_valid": sk_valid,
               "max_abs_err": err, "lse_max_abs_err": lse_err,
@@ -749,37 +854,50 @@ KERNELS = {
 }
 
 
-def time_flash(gen, s, dtype, heads=FULL_HEADS, b=1):
-    """Causal prefill of b sequences of s tokens over ``heads``: kernel,
+def attended_pairs(b, s, sk, causal):
+    """(query, key) pairs a causal (sk = s) or non-causal attention of b
+    sequences computes, per query head."""
+    return b * (s * (s + 1) // 2 if causal else s * sk)
+
+
+def flash_shape(b, s, sk, heads, causal):
+    hq, hkv, d = heads
+    return (f"B={b} S={s}" + (f" Sk={sk}" if sk != s else "")
+            + f" Hq={hq} Hkv={hkv} D={d} "
+            + ("causal" if causal else "non-causal"))
+
+
+def time_flash(gen, s, dtype, heads=FULL_HEADS, b=1, causal=True, sk=None):
+    """Prefill of b sequences of s tokens over ``heads``, causal, or
+    non-causal against sk keys (sk = s by default; cross-attention): kernel,
     plain version and SDPA timed on the same inputs; the bound counts q, k,
-    v read once, o written once and 4 * D FLOPs per causal (query, key)
+    v read once, o written once and 4 * D FLOPs per attended (query, key)
     pair, at the dtype's peak (fp32: 3xTF32)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
     hq, hkv, d = heads
-    q, k, v = attn_inputs(gen, b, s, hq, hkv, d, dtype, layers=N_LAYERS)
-    kw = dict(causal=True, window=0, q_offset=0, sk_valid=s)
+    sk = sk or s
+    q, k, v = attn_inputs(gen, b, s, hq, hkv, d, dtype, layers=N_LAYERS,
+                          sk=sk)
+    kw = dict(causal=causal, window=0, q_offset=0, sk_valid=sk)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     return timing_row(
-        "flash_attention", f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} causal",
-        dtype,
+        "flash_attention", flash_shape(b, s, sk, heads, causal), dtype,
         lambda: fa.flash_attention(q, k, v, **kw), lambda: fa.plain(q, k, v, **kw),
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                                enable_gqa=True),
-        nbytes=b * (2 * s * hq * d + 2 * s * hkv * d) * q.element_size(),
-        flops=4 * d * hq * b * (s * (s + 1) // 2))
+        nbytes=b * (2 * s * hq * d + 2 * sk * hkv * d) * q.element_size(),
+        flops=4 * d * hq * attended_pairs(b, s, sk, causal))
 
 
-def steady_ms(fn):
-    """Device ms of one call of ``fn``, with host time kept out, and the
-    timer that read it: ``cuda_ms`` (20 calls captured in a CUDA graph)
-    where capture works, else the median of 5 windows of 100 calls between
-    CUDA events."""
-    try:
-        return cuda_ms(fn), "graph"
-    except RuntimeError:  # this call cannot be captured
-        torch.cuda.synchronize()
+def events_ms(fn):
+    """Device ms of one call of ``fn`` that a CUDA graph cannot capture
+    (SDPA's flash backward): the median of 5 windows of 100 calls between
+    CUDA events, and the timer's name. No capture is tried: a capture that
+    fails leaves its side stream current and the caching allocator routing
+    every later allocation into the capture's private pool, which
+    ``empty_cache`` never returns."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -795,8 +913,8 @@ def steady_ms(fn):
     return float(np.median(windows)), "events"
 
 
-def sdpa_backward(q, k, v, dout):
-    """``torch.autograd.grad`` through SDPA's causal GQA backward on the
+def sdpa_backward(q, k, v, dout, causal=True):
+    """``torch.autograd.grad`` through SDPA's GQA backward on the
     model-layout inputs, pinned to each backend that takes them
     (``torch.nn.attention.sdpa_kernel``): (call, backend name, ms, timer)
     of the fastest."""
@@ -812,13 +930,13 @@ def sdpa_backward(q, k, v, dout):
         try:
             with sdpa_kernel(backend):
                 ot = F.scaled_dot_product_attention(qt, kt, vt,
-                                                    is_causal=True,
+                                                    is_causal=causal,
                                                     enable_gqa=True)
 
             def call(ot=ot):
                 return torch.autograd.grad(ot, (qt, kt, vt), dot,
                                            retain_graph=True)
-            ms, timer = steady_ms(call)
+            ms, timer = events_ms(call)
         except RuntimeError:  # the backend refuses these inputs
             torch.cuda.synchronize()
             continue
@@ -827,33 +945,34 @@ def sdpa_backward(q, k, v, dout):
     return best
 
 
-def time_flash_bwd(gen, b, s, dtype, heads=FULL_HEADS):
-    """The causal backward of b sequences of s tokens: kernel (from the
+def time_flash_bwd(gen, b, s, dtype, heads=FULL_HEADS, causal=True):
+    """The backward of b sequences of s tokens, causal or not: kernel (from the
     forward kernel's output and log-sum-exp), ``plain_backward`` (autograd
     of the plain forward, forward included) and, as the library baseline,
     ``torch.autograd.grad`` through SDPA's backward alone (its forward run
     once before), pinned to the fastest backend that takes the inputs
-    (``sdpa_backward``); each timed by ``steady_ms``. The bound counts q, k,
+    (``sdpa_backward``); kernel and plain version graph-timed
+    (``cuda_ms``), the library call by ``events_ms``. The bound counts q, k,
     v, o, dO and the lse read once, dQ, dK and dV written once, and the
-    five products of the backward (S, dP, dV, dQ, dK: 10 D FLOPs per causal
-    (query, key) pair and query head) at the dtype's peak (fp32: 3xTF32);
-    the kernel computes S and dP twice (seven products)."""
+    five products of the backward (S, dP, dV, dQ, dK: 10 D FLOPs per
+    attended (query, key) pair and query head) at the dtype's peak (fp32:
+    3xTF32); the kernel computes S and dP twice (seven products)."""
     from repro_torch.kernels import flash_attention as fa
     hq, hkv, d = heads
     q, k, v = attn_inputs(gen, b, s, hq, hkv, d, dtype)
     dout = (torch.randn(b, s, hq, d, generator=gen, device="cuda")
             * 0.5).to(dtype)
-    kw = dict(causal=True, window=0, q_offset=0, sk_valid=s)
+    kw = dict(causal=causal, window=0, q_offset=0, sk_valid=s)
     out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
-    library, backend, _, _ = sdpa_backward(q, k, v, dout)
+    library, backend, _, _ = sdpa_backward(q, k, v, dout, causal)
     return timing_row(
-        "flash_attention_bwd", f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} causal",
-        dtype,
+        "flash_attention_bwd", flash_shape(b, s, s, heads, causal), dtype,
         lambda: fa.flash_attention_backward(q, k, v, out, dout, lse, **kw),
         lambda: fa.plain_backward(q, k, v, dout, **kw), library,
         nbytes=b * s * (4 * hq + 4 * hkv) * d * q.element_size() + 4 * b * hq * s,
-        flops=10 * d * hq * b * (s * (s + 1) // 2),
-        check=lambda got, want: bwd_held(got, want, dtype), timer=steady_ms,
+        flops=10 * d * hq * attended_pairs(b, s, s, causal),
+        check=lambda got, want: bwd_held(got, want, dtype),
+        library_timer=events_ms,
         library_name=f"autograd.grad through SDPA ({backend})")
 
 
@@ -987,11 +1106,13 @@ def time_matrix(gen, m, n):
 
 
 def timing_row(name, shape, dtype, kernel, plain, library, *, nbytes, flops,
-               check=None, timer=cuda_ms, library_name=None):
+               check=None, timer=cuda_ms, library_timer=None,
+               library_name=None):
     """Time kernel, plain version and library call (None: no single PyTorch
-    call computes the function) with ``timer`` after holding the kernel
-    against the plain version (``check(got, want) -> (max error, ok)``;
-    default: ``held``). A timer may return (ms, the timer's name)."""
+    call computes the function) with ``timer`` (the library call with
+    ``library_timer`` where given) after holding the kernel against the
+    plain version (``check(got, want) -> (max error, ok)``; default:
+    ``held``). A timer may return (ms, the timer's name)."""
     t_bytes = nbytes / PEAKS["bytes"] * 1e3
     t_ops = flops / PEAKS[str(dtype).split(".")[-1]] * 1e3
     check = check or (lambda got, want: held(got, want, dtype))
@@ -1001,14 +1122,16 @@ def timing_row(name, shape, dtype, kernel, plain, library, *, nbytes, flops,
                              f"beyond its tolerance")
     timers = {}
 
-    def timed(key, fn):
-        out = timer(fn)
+    def timed(key, fn, clock=timer):
+        out = clock(fn)
         ms, timers[key] = out if isinstance(out, tuple) else (out, "graph")
         return ms
     row = dict(name=name, **KERNELS[name], shape=f"{shape} {dtype}",
                max_abs_err=err, ms=timed("ms", kernel),
                plain_ms=timed("plain_ms", plain),
-               library_ms=timed("library_ms", library) if library else None,
+               library_ms=(timed("library_ms", library,
+                                 library_timer or timer)
+                           if library else None),
                bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations")
     extra = {"timers": timers}
@@ -1041,7 +1164,17 @@ def time_kernels(gen):
     the qwen2 rows' shapes over their heads. Training's rows too: the flash
     forward and backward at the launcher's B = 8, S = 512 over qwen2's heads
     in bf16 (its activations) and at the rewriter's B = 16, S = 384 over
-    its heads in fp32; then the backward at the other dtype of each."""
+    its heads in fp32; then the backward at the other dtype of each. The
+    new paths' rows: seamless-m4t-large-v2's serve (fp32) at its encoder's
+    non-causal self-attention over 4 x 4096 frames, its cross-attention
+    prefill (32 queries against 4096 keys) and its cross decode step over
+    4 slots of the whole 4096-frame cache (a group of 1); its training
+    (bf16, B = 4, S = 512) through the forward and the backward, causal
+    (the decoder) and non-causal (the encoder and cross-attention);
+    qwen2's decode over the dequantized int8 cache (int8_decode: 4 slots,
+    64 prompt tokens and 24 steps); internvl2-76b's prefill (256 prefix
+    embeddings + 32 tokens) and decode step (4 slots at ~556 of a
+    576-entry cache), 64 over 8 heads of 128, fp32."""
     lens, padded = served_prefill_lengths()
     plots = movie_rows()
     mid = [n + 12 for n in lens[:4]]
@@ -1061,11 +1194,34 @@ def time_kernels(gen):
              time_flash(gen, 384, torch.float32, heads=REWRITER_HEADS, b=16),
              time_flash_bwd(gen, 16, 384, torch.float32,
                             heads=REWRITER_HEADS)]
-    for row, path in zip(rows, ("serve", "serve", "semantic", "cosine_api",
-                                "serve_ssm", "serve_hybrid", "serve_hybrid",
-                                "serve_codeqwen", "serve_codeqwen",
-                                "serve_moe", "serve_moe", "train", "train",
-                                "train_rewriter", "train_rewriter")):
+    paths = ["serve", "serve", "semantic", "cosine_api", "serve_ssm",
+             "serve_hybrid", "serve_hybrid", "serve_codeqwen",
+             "serve_codeqwen", "serve_moe", "serve_moe", "train", "train",
+             "train_rewriter", "train_rewriter"]
+    vlm_len = VLM_PREFIX + VLM_TEXT
+    rows += [time_flash(gen, ENC_FRAMES, torch.float32, heads=SEAMLESS_HEADS,
+                        b=ENCDEC_BATCH, causal=False),
+             time_flash(gen, ENCDEC_PROMPT, torch.float32,
+                        heads=SEAMLESS_HEADS, b=ENCDEC_BATCH, causal=False,
+                        sk=ENC_FRAMES),
+             time_decode(gen, ENC_FRAMES, list(ENCODER_LENS), torch.float32,
+                         heads=SEAMLESS_HEADS),
+             time_flash(gen, TRAIN_SEQ, torch.bfloat16, heads=SEAMLESS_HEADS,
+                        b=ENCDEC_BATCH, causal=False),
+             time_flash_bwd(gen, ENCDEC_BATCH, TRAIN_SEQ, torch.bfloat16,
+                            heads=SEAMLESS_HEADS),
+             time_flash_bwd(gen, ENCDEC_BATCH, TRAIN_SEQ, torch.bfloat16,
+                            heads=SEAMLESS_HEADS, causal=False),
+             time_decode(gen, INT8_PROMPT + INT8_STEPS,
+                         [INT8_PROMPT + INT8_STEPS // 2] * 4, torch.float32),
+             time_flash(gen, vlm_len, torch.float32, heads=VLM_HEADS,
+                        b=VLM_BATCH),
+             time_decode(gen, VLM_MAX_LEN,
+                         [vlm_len + VLM_PREFIX + VLM_STEPS // 2] * VLM_BATCH,
+                         torch.float32, heads=VLM_HEADS)]
+    paths += ["serve_encdec"] * 3 + ["train_encdec"] * 3 + ["int8_decode"] \
+        + ["serve_vlm"] * 2
+    for row, path in zip(rows, paths):
         row["path"] = path
     time_flash(gen, max(padded), torch.bfloat16)
     for dtype in (torch.float32, torch.bfloat16):
@@ -1725,24 +1881,37 @@ def phase_train_restart(reference):
 
 def phase_cross_check_train():
     """One training step's loss and gradient in fp32 on the card (the
-    flash kernels, forward and backward) and on the CPU (plain versions),
-    from the same weights: qwen2-0.5b at full width cut to its first
-    TRAIN_CUT layers, seeded on the CPU and carried to the card through
-    ``convert.params_from_numpy``, on a (2, 256) batch of the launcher's
-    pipeline, with remat. Tolerances: the loss 1e-5 relative and the grad
-    norm 1e-4 relative; every gradient leaf within 1e-4 of its largest
-    |value| (fp32 sums in other orders through 4 layers and their
-    backward, as the CPU tests hold the port against JAX)."""
+    flash kernels, forward and backward) and on the CPU (plain versions):
+    qwen2-0.5b at full width cut to its first TRAIN_CUT layers, on a
+    (2, 256) batch of the launcher's pipeline, with remat
+    (``cross_check_step``)."""
     from dataclasses import replace
 
-    from repro_torch import convert
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import TokenPipeline
+    cfg = replace(get_config("qwen2-0.5b"), n_layers=TRAIN_CUT)
+    toks = TokenPipeline(vocab_size=cfg.vocab_size, global_batch=CROSS_BATCH,
+                         seq_len=CROSS_SEQ).batch_at(0)["tokens"]
+    cross_check_step("cross_check_train", cfg,
+                     {"tokens": torch.as_tensor(toks)},
+                     expect(flash_attention=2 * TRAIN_CUT,
+                            flash_attention_bwd=TRAIN_CUT))
+
+
+def cross_check_step(phase, cfg, batch, want):
+    """One training step's loss and gradient in fp32 on the card and on the
+    CPU from the same weights, seeded on the CPU and carried to the card
+    through ``convert.params_from_numpy``, on ``batch`` (CPU tensors), with
+    remat; the card's launches must be ``want``. Tolerances: the loss 1e-5
+    relative and the grad norm 1e-4 relative; every gradient leaf within
+    1e-4 of its largest |value| (fp32 sums in other orders through the
+    layers and their backward, as the CPU tests hold the port against
+    JAX)."""
+    from repro_torch import convert
     from repro_torch.kernels import ops
     from repro_torch.models import registry
     from repro_torch.training.optimizer import global_norm
     from repro_torch.training.train_loop import grad_tree
-    cfg = replace(get_config("qwen2-0.5b"), n_layers=TRAIN_CUT)
     bundle = registry.build(cfg)
     cpu = bundle.init(generator=torch.Generator().manual_seed(0),
                       device="cpu", requires_grad=True)
@@ -1753,24 +1922,22 @@ def phase_cross_check_train():
             if isinstance(v, dict):
                 collect(v, path + (k,))
             else:
-                axes = (("layer",) if path[:1] == ("layers",) else ()) + \
-                    (None,) * (v.dim() - (path[:1] == ("layers",)))
+                stacked = path[:1] and path[0] in convert.STACKED
+                axes = (("layer",) if stacked else ()) + \
+                    (None,) * (v.dim() - bool(stacked))
                 flat["/".join(path + (k,))] = (v.detach().numpy(), axes)
     collect(cpu, ())
     card = convert.params_from_numpy(flat, device="cuda", requires_grad=True)
-    toks = TokenPipeline(vocab_size=cfg.vocab_size, global_batch=CROSS_BATCH,
-                         seq_len=CROSS_SEQ).batch_at(0)["tokens"]
     out = {}
     for side, params in (("cuda", card), ("cpu", cpu)):
         ops.reset_launch_counts()
-        loss = bundle.loss_fn(params, {"tokens": torch.as_tensor(
-            toks, device=side)}, dtype=torch.float32, remat=True)
+        loss = bundle.loss_fn(params, {k: v.to(side) for k, v in
+                                       batch.items()},
+                              dtype=torch.float32, remat=True)
         grads = grad_tree(loss, params)
         out[side] = (float(loss.detach()), float(global_norm(grads)), grads,
                      ops.launch_counts())
     counts = out["cuda"][3]
-    want = expect(flash_attention=2 * TRAIN_CUT,
-                  flash_attention_bwd=TRAIN_CUT)
     worst, worst_leaf = 0.0, None
     for g, c, name in zip(leaves(out["cuda"][2]), leaves(out["cpu"][2]),
                           sorted(flat)):
@@ -1780,8 +1947,9 @@ def phase_cross_check_train():
             worst, worst_leaf = rel, name
     loss_rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
     norm_rel = abs(out["cuda"][1] - out["cpu"][1]) / out["cpu"][1]
-    emit({"phase": "cross_check_train", "layers": TRAIN_CUT,
-          "d_model": cfg.d_model, "tokens": list(toks.shape),
+    emit({"phase": phase, "arch": cfg.name, "layers": cfg.n_layers,
+          "encoder_layers": cfg.n_encoder_layers, "d_model": cfg.d_model,
+          "tokens": list(batch["tokens"].shape),
           "loss_card": out["cuda"][0], "loss_cpu": out["cpu"][0],
           "loss_rel_diff": loss_rel, "grad_norm_card": out["cuda"][1],
           "grad_norm_cpu": out["cpu"][1], "grad_norm_rel_diff": norm_rel,
@@ -1789,11 +1957,11 @@ def phase_cross_check_train():
           "tol": {"loss": 1e-5, "grad_norm": 1e-4, "leaf": 1e-4},
           "launches": counts})
     if counts != want:
-        raise AssertionError(f"cross_check_train: launch counts {counts}, "
-                             f"expected {want}")
+        raise AssertionError(f"{phase}: launch counts {counts}, expected "
+                             f"{want}")
     if not (loss_rel <= 1e-5 and norm_rel <= 1e-4 and worst <= 1e-4):
-        raise AssertionError("cross_check_train: the card's step and the "
-                             "CPU's disagree")
+        raise AssertionError(f"{phase}: the card's step and the CPU's "
+                             f"disagree")
 
 
 def phase_train_rewriter(rows):
@@ -1833,6 +2001,429 @@ def phase_train_rewriter(rows):
                              "rewrite was not scored by the model")
     set_launches(rows, counts, "train_rewriter", "flash_attention",
                  "flash_attention_bwd")
+
+
+def greedy_run(bundle, params, batch, steps, max_len, forced=None):
+    """Prefill ``batch`` and decode ``steps`` greedy tokens in fp32 on the
+    device of ``batch``'s tokens; with ``forced`` (another run's tokens, on
+    the CPU) feed those instead of this run's argmax. Returns (the last
+    position's logits (B, V) on the CPU after the prefill and after each
+    step, the tokens fed on the CPU, prefill seconds, decode seconds, the
+    cache)."""
+    dev = batch["tokens"].device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    logits, cache = bundle.prefill(params, batch, max_len=max_len,
+                                   dtype=torch.float32)
+    sync()
+    t1 = time.perf_counter()
+    out, fed = [logits[:, -1].cpu()], []
+    for i in range(steps):
+        tok = (forced[i].to(dev) if forced is not None
+               else logits[:, -1].argmax(dim=-1, keepdim=True))
+        fed.append(tok.cpu())
+        logits, cache = bundle.decode_step(params, cache, tok,
+                                           dtype=torch.float32)
+        out.append(logits[:, -1].cpu())
+    sync()
+    return out, fed, t1 - t0, time.perf_counter() - t1, cache
+
+
+def tree_bytes(tree):
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
+def check_against_cpu(phase, bundle, params, batch, steps, max_len, want,
+                      **extra):
+    """The card's greedy run (``greedy_run``) of ``bundle`` against the CPU's
+    from the same weights, the CPU fed the card's tokens: the prefill's and
+    every step's logits within LOGITS_ATOL, the same argmax at every step;
+    the card's launches must be ``want``."""
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    card, fed, *_ = greedy_run(bundle, params, batch, steps, max_len)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    cpu = greedy_run(bundle, to_cpu(params), to_cpu(batch), steps, max_len,
+                     forced=fed)[0]
+    errs = [max_err(a, b) for a, b in zip(card, cpu)]
+    same = all(torch.equal(a.argmax(-1), b.argmax(-1))
+               for a, b in zip(card, cpu))
+    finite = all(bool(torch.isfinite(a).all()) for a in card)
+    emit({"phase": phase, "layers": bundle.cfg.n_layers, **extra,
+          "steps": steps, "max_abs_err": max(errs),
+          "max_abs_err_prefill": errs[0], "atol": LOGITS_ATOL,
+          "max_abs_logit": max(a.abs().max().item() for a in card),
+          "argmax_equal": same, "finite": finite, "launches": counts})
+    if counts != want:
+        raise AssertionError(f"{phase}: launch counts {counts}, expected "
+                             f"{want}")
+    if not (finite and same and max(errs) <= LOGITS_ATOL):
+        raise AssertionError(f"{phase}: the card's run and the CPU's "
+                             f"disagree")
+
+
+def decode_profile(bundle, params, cache, logits, steps):
+    """torch.profiler over ``steps`` more greedy decode steps from
+    ``cache``: the card's activity (``profiled``)."""
+    def run():
+        nonlocal logits, cache
+        for _ in range(steps):
+            tok = logits[:, -1].argmax(dim=-1, keepdim=True)
+            logits, cache = bundle.decode_step(params, cache, tok,
+                                               dtype=torch.float32)
+    return profiled(run)
+
+
+def phase_serve_encdec(rows):
+    """Full-width seamless-m4t-large-v2 (24 encoder and 24 decoder layers,
+    d_model 1024, 16/16 heads of 64, d_ff 8192, vocab 256206; seeded random
+    fp32 weights) through its bundle: ``prefill`` of 4 prompts of
+    ENCDEC_PROMPT tokens over ENC_FRAMES seeded encoder frames, then
+    ENCDEC_STEPS greedy ``decode_step``s. Launches: the prefill's flash
+    attention once per encoder layer (non-causal self-attention) and twice
+    per decoder layer (causal self, non-causal cross against the 4096
+    frames); every step's decode attention twice per decoder layer (self,
+    and cross over the whole encoder cache). Then a profiled prefill and 8
+    profiled steps for the card's idle share. Returns what the cross-check
+    needs."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    cfg = get_config("seamless-m4t-large-v2")
+    bundle = registry.build(cfg)
+    params = bundle.init(generator=torch.Generator("cuda").manual_seed(0),
+                         device="cuda")
+    gen = torch.Generator("cuda").manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                     (ENCDEC_BATCH, ENCDEC_PROMPT),
+                                     generator=gen, device="cuda"),
+             "enc_embeds": torch.randn((ENCDEC_BATCH, ENC_FRAMES, cfg.d_model),
+                                       generator=gen, device="cuda")}
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    logits, fed, prefill_s, decode_s, cache = greedy_run(
+        bundle, params, batch, ENCDEC_STEPS, ENCDEC_MAX_LEN)
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    L, E = cfg.n_layers, cfg.n_encoder_layers
+    want = expect(flash_attention=E + 2 * L,
+                  decode_attention=2 * L * ENCDEC_STEPS)
+    finite = all(bool(torch.isfinite(x).all()) for x in logits)
+    pos = int(cache["pos"])
+    prefill_profile = profiled(lambda: bundle.prefill(
+        params, batch, max_len=ENCDEC_MAX_LEN, dtype=torch.float32))
+    last = logits[-1][:, None].to(batch["tokens"].device)
+    decode_activity = decode_profile(bundle, params, cache, last, 8)
+    new_tokens = ENCDEC_BATCH * ENCDEC_STEPS
+    emit({"phase": "serve_encdec", "arch": cfg.name, "n_layers": L,
+          "n_encoder_layers": E, "d_model": cfg.d_model,
+          "vocab": cfg.vocab_size,
+          "params": sum(p.numel() for p in leaves(params)),
+          "param_gb": tree_bytes(params) / 1e9, "batch": ENCDEC_BATCH,
+          "prompt": ENCDEC_PROMPT, "enc_frames": ENC_FRAMES,
+          "max_len": ENCDEC_MAX_LEN, "decode_steps": ENCDEC_STEPS,
+          "prefill_s": prefill_s, "decode_s": decode_s,
+          "decode_s_per_step": decode_s / ENCDEC_STEPS,
+          "new_tok_per_s": new_tokens / decode_s,
+          "tok_per_s_with_prefill": new_tokens / (prefill_s + decode_s),
+          "cache_gb": tree_bytes(cache) / 1e9, "peak_memory_gb": peak_gb,
+          "pos": pos, "finite": finite, "launches": counts,
+          "profile_prefill": prefill_profile,
+          "profile_8_steps": decode_activity})
+    if counts != want:
+        raise AssertionError(f"serve_encdec: launch counts {counts}, "
+                             f"expected {want}")
+    if not (finite and pos == ENCDEC_PROMPT + ENCDEC_STEPS
+            and tuple(logits[0].shape) == (ENCDEC_BATCH, cfg.vocab_size)):
+        raise AssertionError("serve_encdec: logits not finite or of the "
+                             "wrong shape, or the cache's position wrong")
+    set_launches(rows, counts, "serve_encdec", "flash_attention",
+                 "decode_attention")
+    return cfg, params, batch
+
+
+def phase_cross_check_encdec(served):
+    """The serve_encdec run, its model cut to its first ENCDEC_CUT encoder
+    and ENCDEC_CUT decoder layers at full width on the same inputs, on the
+    card and on the CPU (``check_against_cpu``: the prefill and
+    ENCDEC_STEPS steps)."""
+    from dataclasses import replace
+
+    from repro_torch.models import registry
+    cfg, params, batch = served
+    cut = dict(params)
+    for tree in ("enc_layers", "dec_layers"):
+        cut[tree] = layers_upto(params[tree], ENCDEC_CUT)
+    bundle = registry.build(replace(cfg, n_layers=ENCDEC_CUT,
+                                    n_encoder_layers=ENCDEC_CUT))
+    check_against_cpu(
+        "cross_check_encdec", bundle, cut, batch, ENCDEC_STEPS,
+        ENCDEC_MAX_LEN,
+        expect(flash_attention=3 * ENCDEC_CUT,
+               decode_attention=2 * ENCDEC_CUT * ENCDEC_STEPS),
+        encoder_layers=ENCDEC_CUT, enc_frames=ENC_FRAMES)
+
+
+def phase_train_encdec(rows):
+    """``launch.train --arch seamless-m4t-large-v2`` at full width (2.03B
+    parameters: fp32 weights and AdamW moments, bf16 activations, the
+    decoder's layers recomputed in the backward), ENCDEC_TRAIN_STEPS steps
+    of 4 x 512 movie-plot tokens over 4 x 512 random frames, no checkpoint:
+    every loss finite and the last below the first. Launches per step: the
+    flash forward once per encoder layer and twice per decoder layer, both
+    again in the decoder's recompute; the backward once for each of those
+    attentions. Then two more steps under torch.profiler for the card's
+    idle share."""
+    import shutil
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = train.run(train_args(os.path.join(CKPT_ROOT, "encdec"),
+                               TRAIN_ENCDEC))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cfg, log, state = out["cfg"], out["log"], out["state"]
+    L, E, steps = cfg.n_layers, cfg.n_encoder_layers, ENCDEC_TRAIN_STEPS
+    want = expect(flash_attention=(E + 4 * L) * steps,
+                  flash_attention_bwd=(E + 2 * L) * steps)
+    losses = [e["loss"] for e in log]
+    step_s = [e["seconds"] for e in log]
+    tokens = ENCDEC_BATCH * TRAIN_SEQ
+
+    def two_steps():  # from the final state; the new states are dropped
+        for i in range(2):
+            out["train_step"](state, out["batch_fn"](steps + i))
+    activity = profiled(two_steps)
+    busy_step_ms = activity["device_busy_ms"] / 2
+    emit({"phase": "train_encdec", "flags": TRAIN_ENCDEC, "arch": cfg.name,
+          "n_layers": L, "n_encoder_layers": E, "d_model": cfg.d_model,
+          "params": sum(p.numel() for p in leaves(state["params"])),
+          "steps": len(log), "seconds": out["seconds"],
+          "tok_per_s": steps * tokens / out["seconds"],
+          "step_s": step_s, "median_step_s": float(np.median(step_s)),
+          "tok_per_s_median_step": tokens / float(np.median(step_s)),
+          "loss_first": losses[0], "loss_last": losses[-1],
+          "losses": losses, "grad_norm_last": log[-1]["grad_norm"],
+          "peak_memory_gb": peak_gb, "launches": counts,
+          "profile_2_steps": activity,
+          "busy_ms_per_profiled_step": busy_step_ms,
+          "idle_share_of_median_step":
+              1.0 - busy_step_ms / (1e3 * float(np.median(step_s)))})
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    if counts != want:
+        raise AssertionError(f"train_encdec: launch counts {counts}, "
+                             f"expected {want}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"train_encdec: losses {losses} not finite "
+                             f"and falling")
+    set_launches(rows, counts, "train_encdec", "flash_attention",
+                 "flash_attention_bwd")
+
+
+def phase_cross_check_train_encdec():
+    """One fp32 training step of seamless-m4t-large-v2 at full width cut to
+    ENCDEC_CUT encoder and ENCDEC_CUT decoder layers, card against CPU
+    (``cross_check_step``), on a (2, 256) batch of the launcher's pipeline
+    and seeded frames as long."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    cfg = replace(get_config("seamless-m4t-large-v2"), n_layers=ENCDEC_CUT,
+                  n_encoder_layers=ENCDEC_CUT)
+    toks = TokenPipeline(vocab_size=cfg.vocab_size, global_batch=CROSS_BATCH,
+                         seq_len=CROSS_SEQ).batch_at(0)["tokens"]
+    frames = torch.randn((CROSS_BATCH, CROSS_SEQ, cfg.d_model),
+                         generator=torch.Generator().manual_seed(0))
+    cut = ENCDEC_CUT
+    cross_check_step("cross_check_train_encdec", cfg,
+                     {"tokens": torch.as_tensor(toks), "enc_embeds": frames},
+                     expect(flash_attention=cut + 4 * cut,
+                            flash_attention_bwd=cut + 2 * cut))
+
+
+def phase_int8_decode(rows):
+    """Full-width qwen2-0.5b decodes 4 sequences: INT8_PROMPT prompt tokens
+    fed one at a time through ``decode_step``, then INT8_STEPS greedy
+    steps, first with the fp32 cache, then with the int8 cache
+    (``init_cache(kv_dtype=torch.int8)``) fed the fp32 run's tokens. At
+    every step the int8 logits within INT8_BOUND of the fp32 logits'
+    largest |value| (the reference's bound). Launches: decode attention
+    once per layer and step for each cache (the int8 one over its
+    dequantized copy)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    cfg = get_config("qwen2-0.5b")
+    bundle = registry.build(cfg)
+    params = bundle.init(generator=torch.Generator("cuda").manual_seed(0),
+                         device="cuda")
+    prompt = torch.randint(0, cfg.vocab_size, (4, INT8_PROMPT),
+                           generator=torch.Generator("cuda").manual_seed(2),
+                           device="cuda")
+    total = INT8_PROMPT + INT8_STEPS
+    runs, fed = {}, []
+    for name, kv in (("fp32", None), ("int8", torch.int8)):
+        cache = bundle.init_cache(4, total, dtype=torch.float32,
+                                  kv_dtype=kv, device="cuda")
+        cache_bytes = tree_bytes({k: v for k, v in cache.items()
+                                  if k != "pos"})
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = []
+        for t in range(total):
+            if t < INT8_PROMPT:
+                tok = prompt[:, t:t + 1]
+            elif name == "int8":
+                tok = fed[t - INT8_PROMPT]
+            else:
+                tok = out[-1].argmax(dim=-1, keepdim=True)
+                fed.append(tok)
+            logits, cache = bundle.decode_step(params, cache, tok,
+                                               dtype=torch.float32)
+            out.append(logits[:, -1])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        runs[name] = (torch.stack(out), ops.launch_counts(), seconds,
+                      cache_bytes)
+    fp, q8 = runs["fp32"][0], runs["int8"][0]
+    rel = ((q8 - fp).abs().amax(dim=(1, 2))
+           / fp.abs().amax(dim=(1, 2))).tolist()
+    want = expect(decode_attention=cfg.n_layers * total)
+    emit({"phase": "int8_decode", "arch": cfg.name, "sequences": 4,
+          "prompt": INT8_PROMPT, "greedy_steps": INT8_STEPS,
+          "max_rel_diff": max(rel), "rel_diff_last": rel[-1],
+          "bound": INT8_BOUND,
+          "cache_bytes": {k: v[3] for k, v in runs.items()},
+          "ms_per_step": {k: 1e3 * v[2] / total for k, v in runs.items()},
+          "launches": {k: v[1] for k, v in runs.items()}})
+    if any(v[1] != want for v in runs.values()):
+        raise AssertionError(f"int8_decode: launch counts, expected {want}")
+    if not (bool(torch.isfinite(q8).all()) and max(rel) < INT8_BOUND):
+        raise AssertionError(f"int8_decode: the int8 cache's logits are "
+                             f"{max(rel)} of the fp32 ones' max apart")
+    set_launches(rows, runs["int8"][1], "int8_decode", "decode_attention")
+
+
+def phase_serve_vlm(rows):
+    """internvl2-76b at full width (d_model 8192, 64/8 heads of 128, d_ff
+    28672, vocab 128256) cut to VLM_LAYERS of its 80 layers, seeded random
+    fp32 weights, through its bundle: ``prefill`` of 4 sequences of
+    VLM_PREFIX seeded patch embeddings and VLM_TEXT tokens, then VLM_STEPS
+    greedy ``decode_step``s (flash attention once per layer, decode
+    attention once per layer and step); the prefill's pos is
+    min(288 + 256, 576), the reference's count. Then the engine serves 4
+    text-only requests (its prefill passes the tokens alone, as the
+    reference's): flash once per layer and prefill, decode once per layer
+    and tick. Returns what the cross-check needs."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.engine import ContinuousBatcher, GenerationEngine
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import DEMO_PROMPTS
+    from repro_torch.models import registry
+    cfg = replace(get_config("internvl2-76b"), n_layers=VLM_LAYERS)
+    bundle = registry.build(cfg)
+    params = bundle.init(generator=torch.Generator("cuda").manual_seed(0),
+                         device="cuda")
+    gen = torch.Generator("cuda").manual_seed(3)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (VLM_BATCH, VLM_TEXT),
+                                     generator=gen, device="cuda"),
+             "prefix_embeds": torch.randn((VLM_BATCH, VLM_PREFIX, cfg.d_model),
+                                          generator=gen, device="cuda")}
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    logits, fed, prefill_s, decode_s, cache = greedy_run(
+        bundle, params, batch, VLM_STEPS, VLM_MAX_LEN)
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = expect(flash_attention=VLM_LAYERS,
+                  decode_attention=VLM_LAYERS * VLM_STEPS)
+    finite = all(bool(torch.isfinite(x).all()) for x in logits)
+    pos = int(cache["pos"])
+    want_pos = min(VLM_PREFIX + VLM_TEXT + VLM_PREFIX, VLM_MAX_LEN) + VLM_STEPS
+    last = logits[-1][:, None].to(batch["tokens"].device)
+    activity = decode_profile(bundle, params, cache, last, 4)
+    engine = GenerationEngine(bundle, params, max_len=160, n_slots=4,
+                              device="cuda")
+    batcher = ContinuousBatcher(engine)
+    for p in DEMO_PROMPTS:
+        batcher.submit(p, max_new_tokens=8)
+    ops.reset_launch_counts()
+    finished = batcher.run()
+    torch.cuda.synchronize()
+    engine_counts = ops.launch_counts()
+    st = engine.stats
+    engine_want = expect(flash_attention=VLM_LAYERS * st["prefills"],
+                         decode_attention=VLM_LAYERS * st["decode_steps"])
+    new_tokens = VLM_BATCH * VLM_STEPS
+    emit({"phase": "serve_vlm", "arch": cfg.name, "n_layers": VLM_LAYERS,
+          "n_layers_published": get_config("internvl2-76b").n_layers,
+          "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+          "params": sum(p.numel() for p in leaves(params)),
+          "param_gb": tree_bytes(params) / 1e9, "batch": VLM_BATCH,
+          "prefix": VLM_PREFIX, "text": VLM_TEXT, "max_len": VLM_MAX_LEN,
+          "prefill_s": prefill_s, "decode_s": decode_s,
+          "decode_s_per_step": decode_s / VLM_STEPS,
+          "new_tok_per_s": new_tokens / decode_s,
+          "peak_memory_gb": peak_gb, "pos": pos, "want_pos": want_pos,
+          "finite": finite, "launches": counts, "profile_4_steps": activity,
+          "engine": {"requests": len(finished), "prefills": st["prefills"],
+                     "decode_steps": st["decode_steps"],
+                     "prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
+                     "launches": engine_counts}})
+    if counts != want or engine_counts != engine_want:
+        raise AssertionError(f"serve_vlm: launch counts {counts} / "
+                             f"{engine_counts}, expected {want} / "
+                             f"{engine_want}")
+    if not (finite and pos == want_pos and len(finished) == len(DEMO_PROMPTS)
+            and st["decode_steps"]
+            and all(r.output_ids for r in finished.values())):
+        raise AssertionError("serve_vlm: logits not finite, the position "
+                             "wrong, or a request unfinished")
+    set_launches(rows, counts, "serve_vlm", "flash_attention",
+                 "decode_attention")
+    return cfg, params, batch
+
+
+def phase_cross_check_vlm(served):
+    """The serve_vlm run cut to its first VLM_CUT layer at full width on
+    the same inputs, card against CPU (``check_against_cpu``: the prefill
+    and 4 steps)."""
+    from dataclasses import replace
+
+    from repro_torch.models import registry
+    cfg, params, batch = served
+    cut = dict(params)
+    cut["layers"] = layers_upto(params["layers"], VLM_CUT)
+    check_against_cpu(
+        "cross_check_vlm", registry.build(replace(cfg, n_layers=VLM_CUT)),
+        cut, batch, 4, VLM_MAX_LEN,
+        expect(flash_attention=VLM_CUT, decode_attention=VLM_CUT * 4),
+        prefix=VLM_PREFIX)
+
+
+def encdec_phases(rows):
+    served = phase_serve_encdec(rows)
+    phase_cross_check_encdec(served)
+    del served
+    release()
+    phase_train_encdec(rows)
+    release()
+    phase_cross_check_train_encdec()
+
+
+def vlm_phases(rows):
+    served = phase_serve_vlm(rows)
+    phase_cross_check_vlm(served)
 
 
 def training_phases(rows):
@@ -1888,7 +2479,8 @@ def main():
     phase_build()
     rows = phase_kernels()
     for phases in (qwen2_phases, ssm_phases, hybrid_phases, codeqwen_phases,
-                   moe_phases, mla_phases, training_phases):
+                   moe_phases, mla_phases, training_phases, encdec_phases,
+                   phase_int8_decode, vlm_phases):
         phases(rows)
         release()
     phase_window_decode()

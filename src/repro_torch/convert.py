@@ -15,6 +15,10 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+# the subtrees whose leaves stack their layers on a leading ``layer`` axis:
+# the decoder-only models' and the encoder-decoder's two stacks
+STACKED = ("layers", "enc_layers", "dec_layers")
+
 
 def params_from_numpy(flat: Dict[str, Tuple[np.ndarray, tuple]], *,
                       device="cuda", requires_grad=False):
@@ -26,7 +30,7 @@ def params_from_numpy(flat: Dict[str, Tuple[np.ndarray, tuple]], *,
         if arr.ndim != len(axes):
             raise ValueError(f"{path}: {arr.ndim} dims but axes {axes}")
         keys = path.split("/")
-        if keys[0] == "layers" and tuple(axes[:1]) != ("layer",):
+        if keys[0] in STACKED and tuple(axes[:1]) != ("layer",):
             raise ValueError(f"{path}: stacked layer weights must lead with "
                              f"the 'layer' axis, got {axes}")
         node = tree

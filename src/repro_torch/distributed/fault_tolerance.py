@@ -7,6 +7,13 @@ with injected failures restores from the last committed step and reaches
 the state of an uninterrupted run, bit for bit where every kernel of the
 step is deterministic (the port's flash backward uses no atomics).
 
+``init_state`` may also be a function that builds the state (a port-only
+addition): the optimizer builds each step's new state beside the old one,
+so a caller that held the initial state through the run would keep a
+third copy on the device (24.4 GB for seamless-m4t-large-v2's weights and
+moments). Built by the supervisor, the initial state is freed after the
+first step.
+
 Straggler mitigation: per-step wall times feed an online median tracker;
 steps exceeding ``deadline_factor`` x the running median are flagged. A
 step's time ends at a synchronize of its metrics' device, the counterpart
@@ -85,23 +92,28 @@ class TrainSupervisor:
 
     def run(self, init_state, n_steps: int,
             fail_at: Optional[set] = None,
-            delay_steps: Optional[dict] = None):
+            delay_steps: Optional[dict] = None, device=None):
         """Execute steps [resume..n_steps); returns (state, metrics_log).
 
-        Restarts resume from the last committed checkpoint; `fail_at` steps
-        raise InjectedFailure once each (the caller loops, as a cluster
-        controller would). NOTE: `fail_at` is mutated (fired steps are
-        discarded) so a controller re-invoking `run` shares the ledger."""
+        ``init_state``: the state, or a function that builds it (called
+        only when no checkpoint is committed). Restarts resume from the last
+        committed checkpoint, restored onto ``device`` (default: the
+        initial state's); `fail_at` steps raise InjectedFailure once each
+        (the caller loops, as a cluster controller would). NOTE: `fail_at`
+        is mutated (fired steps are discarded) so a controller re-invoking
+        `run` shares the ledger."""
         fail_at = fail_at if fail_at is not None else set()
         delay_steps = delay_steps or {}
+        build = init_state if callable(init_state) else lambda: init_state
         last = ckpt.latest_step(self.cfg.ckpt_dir)
         if last is not None:
-            _, state = ckpt.restore(self.cfg.ckpt_dir, last,
-                                    device=leaves(init_state)[0].device)
+            device = device or leaves(build())[0].device
+            _, state = ckpt.restore(self.cfg.ckpt_dir, last, device=device)
             start = last + 1
         else:
-            state = init_state
+            state = build()
             start = 0
+        del init_state, build
         log = []
         for step in range(start, n_steps):
             t0 = time.perf_counter()
@@ -125,14 +137,16 @@ class TrainSupervisor:
 
     def run_with_restarts(self, init_state, n_steps: int,
                           fail_at: Optional[set] = None,
-                          max_restarts: int = 8):
-        """Cluster-controller loop: rerun after every injected failure."""
+                          max_restarts: int = 8, device=None):
+        """Cluster-controller loop: rerun after every injected failure.
+        ``init_state`` and ``device`` as for ``run``."""
         fail_at = set(fail_at or ())
         logs = []
         restarts = 0
         while True:
             try:
-                state, log = self.run(init_state, n_steps, fail_at=fail_at)
+                state, log = self.run(init_state, n_steps, fail_at=fail_at,
+                                      device=device)
                 logs.extend(log)
                 return state, logs, restarts
             except InjectedFailure:

@@ -11,6 +11,12 @@ The slot runtime of ``repro.engine.engine``:
   * decode steps run over all slots every tick; idle slots are parked at
     position 0 and decode garbage that the next insert overwrites
 
+An encoder-decoder config is refused (``NotImplementedError``): the
+reference's engine cannot build its cache either (its enc-dec
+``init_cache`` takes no ``per_slot_pos`` and it fails with a TypeError).
+A VLM config serves text only, as in the reference, whose prefill passes
+``tokens`` alone.
+
 As in the reference, the first generated token is the argmax of the logits
 at the last *padded* prompt position, so greedy outputs match it token for
 token. In an SSM the pad tokens also run through the recurrence, so the
@@ -54,6 +60,12 @@ class GenerationEngine:
     def __init__(self, bundle, params, *, max_len: int = 256,
                  n_slots: int = 4, dtype=torch.float32, device="cuda",
                  tokenizer: Optional[ByteTokenizer] = None):
+        if bundle.cfg.is_encoder_decoder:
+            raise NotImplementedError(
+                f"{bundle.cfg.name}: the engine serves decoder-only models; "
+                f"an encoder-decoder's cache (the encoder's keys and values, "
+                f"one shared position) has no per-slot form, and the "
+                f"reference's engine cannot build it either")
         self.bundle = bundle
         self.params = params
         self.max_len = max_len

@@ -5,9 +5,11 @@ versions.
 
 **Token serving** (default; no ``--semantic``): continuous-batching
 generation over a zoo model (``--arch``: qwen2-0.5b, the default,
-mamba2-1.3b, hymba-1.5b, or the cost model's other LLM tiers
-codeqwen1.5-7b, granite-moe-1b-a400m and minicpm3-4b) — reports
-throughput, slot occupancy and per-request latency percentiles::
+mamba2-1.3b, hymba-1.5b, the cost model's other LLM tiers
+codeqwen1.5-7b, granite-moe-1b-a400m and minicpm3-4b, or internvl2-76b,
+served text only as in the reference; seamless-m4t-large-v2 is refused, as
+the engine cannot hold an encoder-decoder's cache) — reports throughput,
+slot occupancy and per-request latency percentiles::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --no-reduced \\
         --requests 8 --slots 4 --max-new 24

@@ -7,9 +7,13 @@
 trains full-width qwen2-0.5b on the card (494M parameters, fp32 weights
 and AdamW moments, bf16 activations, each layer recomputed in the
 backward); ``--reduced --device cpu`` trains the same-family tiny config on
-the CPU. The batches are the pipeline's synthetic ones, uniform random
-tokens, as the reference's are: nothing in them can be learnt, so the loss
-stays near ln(vocab). ``--corpus movie|estate|game`` feeds the pipeline's
+the CPU. ``--arch seamless-m4t-large-v2`` trains the encoder-decoder
+(2.03B parameters; each batch's encoder input is seeded random frame
+embeddings as long as its tokens, as in the reference), and a VLM config
+(``internvl2-76b``) trains with seeded random prefix embeddings. The
+batches are the pipeline's synthetic ones, uniform random tokens, as the
+reference's are: nothing in them can be learnt, so the loss stays near
+ln(vocab). ``--corpus movie|estate|game`` feeds the pipeline's
 text source instead (``TokenPipeline(documents=...)``: a dataset's longest
 text column packed by the byte tokenizer), on which the loss falls. The loop runs under the fault-tolerance supervisor: checkpoint
 every ``--ckpt-every`` steps, restart from the last committed one,
@@ -49,7 +53,8 @@ def synthetic_batch_fn(cfg, batch: int, seq: int, seed: int = 0,
     random, or sequences of ``documents`` packed by the byte tokenizer), a
     pure function of (seed, step), so a restart sees the batches it would
     have seen; the noise of prefix and encoder inputs from a generator
-    seeded by the step (those families' losses raise: not ported)."""
+    seeded by the step (an encoder-decoder's ``enc_embeds`` are
+    (batch, seq, d_model), as long as the decoder's tokens)."""
     from repro_torch.data.pipeline import TokenPipeline
     pipe = TokenPipeline(vocab_size=cfg.vocab_size, global_batch=batch,
                          seq_len=seq, seed=seed, documents=documents)
@@ -122,11 +127,16 @@ def run(args, fail_at=None):
                          ckpt_every=args.ckpt_every,
                          async_save=args.async_ckpt))
     t0 = time.time()
-    if fail_at:
+    if fail_at:  # a restart before any checkpoint starts from this state
         state, log, restarts = sup.run_with_restarts(state, args.steps,
                                                      fail_at=fail_at)
     else:
-        (state, log), restarts = sup.run(state, args.steps), 0
+        # the supervisor takes the initial state over, so that nothing
+        # holds it once the first step has built the next one beside it
+        handover = [state]
+        del state
+        (state, log), restarts = sup.run(handover.pop, args.steps,
+                                         device=args.device), 0
     return {"cfg": cfg, "state": state, "log": log,
             "seconds": time.time() - t0, "restarts": restarts,
             "straggler": sup.straggler, "train_step": step_fn,

@@ -2,7 +2,8 @@
 (multi-head latent attention, MiniCPM3).
 
 GQA prefill goes through ``kernels.ops.flash_attention`` and decode through
-``kernels.ops.decode_attention``: on the card these launch the Hopper
+``kernels.ops.decode_attention`` (with the int8 cache, over its dequantized
+copy): on the card these launch the Hopper
 kernels, on the CPU they run the kernels' plain versions. (The JAX model
 calls its XLA attention here; the Pallas kernels compute the same function,
 which ``tests/test_kernels.py`` holds.)
@@ -80,6 +81,53 @@ def gqa_decode(p, x, cache_k, cache_v, pos, cfg, *, cache_len, window=0):
     write_kv(cache_v, v, pos)
     o = ops.decode_attention(q, cache_k, cache_v, cache_len, window=window)
     return cm.apply_dense(p["o"], o, in_dims=2), cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# int8 KV cache: int8 values and one bf16 scale per (position, KV head)
+# ---------------------------------------------------------------------------
+
+def quant_kv(x):
+    """x: (B, 1, KV, D) -> (int8 values, bf16 scales (B, 1, KV)), the
+    reference's arithmetic: scale = max|x| / 127 in fp32, values
+    round(x / max(scale, 1e-8)) half to even, clipped to +-127; the scale
+    is stored rounded to bf16."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1) / 127.0
+    q = torch.round(xf / torch.clamp(scale[..., None], min=1e-8))
+    return q.clamp(-127, 127).to(torch.int8), scale.to(torch.bfloat16)
+
+
+def dequant_kv(cache, scale, dtype):
+    """(B, S, KV, D) int8 x (B, S, KV) bf16 -> ``dtype``: the values times
+    the stored bf16 scale, both cast to ``dtype`` first."""
+    return cache.to(dtype) * scale[..., None].to(dtype)
+
+
+def gqa_decode_q8(p, x, cache_k, cache_v, k_scale, v_scale, pos, cfg, *,
+                  cache_len, window=0):
+    """``gqa_decode`` against an int8 cache: the post-rope k and v are
+    quantized and written with their scales (in place), and the whole cache
+    is dequantized to x's dtype for ``ops.decode_attention``, as the
+    reference dequantizes before its attention. Returns (out, cache_k,
+    cache_v, k_scale, v_scale)."""
+    q = cm.apply_dense(p["q"], x)
+    k = cm.apply_dense(p["k"], x)
+    v = cm.apply_dense(p["v"], x)
+    positions = pos.reshape(-1, 1).expand(x.shape[0], 1)
+    q = cm.apply_rope(q, positions, cfg.rope_theta)
+    k = cm.apply_rope(k, positions, cfg.rope_theta)
+    kq, ks = quant_kv(k)
+    vq, vs = quant_kv(v)
+    write_kv(cache_k, kq, pos)
+    write_kv(cache_v, vq, pos)
+    write_kv(k_scale, ks, pos)
+    write_kv(v_scale, vs, pos)
+    o = ops.decode_attention(q, dequant_kv(cache_k, k_scale, x.dtype),
+                             dequant_kv(cache_v, v_scale, x.dtype), cache_len,
+                             window=window)
+    return (cm.apply_dense(p["o"], o, in_dims=2), cache_k, cache_v, k_scale,
+            v_scale)
 
 
 # ---------------------------------------------------------------------------

@@ -1,21 +1,25 @@
 """Decoder-only LM of the port: the dense GQA family (at head_dim 64 and
-128), the MoE family (GQA attention, the MoE's gather path), MLA
-(MiniCPM3's latent attention), the attention-free SSM family (Mamba2) and
-the hybrid family (Hymba: GQA attention and a Mamba2 mixer side by side in
-every layer).
+128), the VLM family (dense GQA after a projected prefix of precomputed
+patch embeddings), the MoE family (GQA attention, the MoE's gather path),
+MLA (MiniCPM3's latent attention), the attention-free SSM family (Mamba2)
+and the hybrid family (Hymba: GQA attention and a Mamba2 mixer side by side
+in every layer). A GQA cache may be int8 (``init_cache(kv_dtype=
+torch.int8)``); MLA and SSM caches ignore ``kv_dtype``, as the reference's
+do.
 
 A Python loop over layers replaces ``lax.scan``; weights keep the stacked
-``layer`` axis and each step takes its layer's views. Still refused
-(``NotImplementedError``): the int8 KV cache, encoder-decoder models,
-prefix embeddings (VLM), a hybrid without attention, and the MoE through
-``shard_map`` (the mesh slice).
+``layer`` axis and each step takes its layer's views. Encoder-decoder
+models are ``models.encdec``. Still refused (``NotImplementedError``): a
+hybrid without attention and the MoE through ``shard_map`` (the mesh
+slice).
 
 Public surface (used by registry / launch / engine):
   init(cfg, generator=, device=,
        requires_grad=)                    -> param tree
   forward(params, cfg, tokens, remat=)    -> logits (B, S, V) fp32
   loss_fn(params, cfg, batch, remat=)     -> next-token cross-entropy
-  init_cache(cfg, batch, max_len, dtype)  -> {"k", "v"} (GQA),
+  init_cache(cfg, batch, max_len, dtype)  -> {"k", "v"} (GQA; int8 adds
+                                             "k_scale", "v_scale"),
                                              {"ckv", "krope"} (MLA),
                                              {"ssm_state", "conv_buf"} (SSM),
                                              GQA's and SSM's (hybrid), and
@@ -32,7 +36,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import (ATTN_GQA, ATTN_MLA, ATTN_NONE,
                                  FAMILY_DENSE, FAMILY_HYBRID, FAMILY_MOE,
-                                 FAMILY_SSM, ModelConfig)
+                                 FAMILY_SSM, FAMILY_VLM, ModelConfig)
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
 from repro_torch.models import ffn as ffn_mod
@@ -41,21 +45,25 @@ from repro_torch.models import ssm as ssm_mod
 
 def check_supported(cfg: ModelConfig) -> None:
     attn = cfg.attn_type in (ATTN_GQA, ATTN_MLA) and cfg.ssm is None
-    dense = attn and cfg.family == FAMILY_DENSE and cfg.moe is None
+    # a VLM is a dense decoder after its projected prefix
+    dense = (attn and cfg.family in (FAMILY_DENSE, FAMILY_VLM)
+             and cfg.moe is None)
     moe = attn and cfg.family == FAMILY_MOE and cfg.moe is not None
     ssm = (cfg.family == FAMILY_SSM and cfg.attn_type == ATTN_NONE
            and cfg.ssm is not None and cfg.moe is None)
     hybrid = (cfg.family == FAMILY_HYBRID and cfg.attn_type == ATTN_GQA
               and cfg.ssm is not None and cfg.moe is None)
-    if (not (dense or moe or ssm or hybrid)
-            or (cfg.attn_type == ATTN_MLA) != (cfg.mla is not None)
-            or cfg.is_encoder_decoder or cfg.n_prefix_embeds):
+    if cfg.is_encoder_decoder:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves the dense and MoE (gather path) "
-            f"families with GQA or MLA attention, the SSM (Mamba2) family "
-            f"and the GQA + SSM hybrid (Hymba); encoder-decoder models, "
-            f"prefix embeddings (VLM), the int8 KV cache and the MoE "
-            f"through shard_map are not ported yet")
+            f"{cfg.name}: an encoder-decoder config is models.encdec's "
+            f"(registry.build routes it there)")
+    if (not (dense or moe or ssm or hybrid)
+            or (cfg.attn_type == ATTN_MLA) != (cfg.mla is not None)):
+        raise NotImplementedError(
+            f"{cfg.name}: the port serves the dense, VLM and MoE (gather "
+            f"path) families with GQA or MLA attention, the SSM (Mamba2) "
+            f"family and the GQA + SSM hybrid (Hymba); the MoE through "
+            f"shard_map is not ported yet")
 
 
 def init(cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
@@ -97,6 +105,9 @@ def init(cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
     }
     if not cfg.tie_embeddings:
         p["unembed"] = cm.dense(generator, cfg.d_model, cfg.vocab_size, **kw)
+    if cfg.n_prefix_embeds:
+        # projection of the precomputed modality embeddings (frontend stub)
+        p["prefix_proj"] = cm.dense(generator, cfg.d_model, cfg.d_model, **kw)
     return requires_grad_(p) if requires_grad else p
 
 
@@ -173,13 +184,18 @@ def _block_forward(lp, x, cfg, window, positions, cache=None):
 
 def embed_inputs(params, cfg, tokens, prefix_embeds=None,
                  dtype=torch.bfloat16):
-    """The tokens' embedding rows in ``dtype``. ``F.embedding`` gathers the
-    rows as indexing does; its gradient on the card sums repeated tokens'
-    rows in a fixed order (no atomics), which restart determinism needs."""
-    if prefix_embeds is not None:
-        raise NotImplementedError("prefix embeddings (VLM) are not ported yet")
-    return torch.nn.functional.embedding(
+    """The tokens' embedding rows in ``dtype``, after the projected
+    ``prefix_embeds`` (B, n_prefix, d_model) where the config has a prefix
+    (as in the reference, a config without one ignores them).
+    ``F.embedding`` gathers the rows as indexing does; its gradient on the
+    card sums repeated tokens' rows in a fixed order (no atomics), which
+    restart determinism needs."""
+    x = torch.nn.functional.embedding(
         tokens.long(), params["embed"]["embedding"]).to(dtype)
+    if cfg.n_prefix_embeds and prefix_embeds is not None:
+        pfx = cm.apply_dense(params["prefix_proj"], prefix_embeds.to(dtype))
+        x = torch.cat([pfx, x], dim=1)
+    return x
 
 
 def unembed(params, cfg, x):
@@ -191,7 +207,8 @@ def unembed(params, cfg, x):
 
 def forward(params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
             dtype=torch.bfloat16, remat=False, moe_ctx=None):
-    """tokens: (B, S) int. Returns logits (B, S, vocab) f32. ``remat``
+    """tokens: (B, S_text) int; prefix_embeds: optional (B, n_prefix,
+    d_model). Returns logits (B, S_total, vocab) f32. ``remat``
     recomputes each layer's activations in the backward instead of keeping
     them (the reference's ``jax.checkpoint`` with ``nothing_saveable``):
     autograd keeps each layer's input only, and the backward runs the
@@ -213,16 +230,18 @@ def forward(params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
 
 def loss_fn(params, cfg: ModelConfig, batch, *, dtype=torch.bfloat16,
             remat=True, moe_ctx=None):
-    """batch: {"tokens": (B, S)}. Next-token cross-entropy: the labels are
-    the tokens shifted left with a 0 in the last place, which the mask
-    leaves out. Encoder inputs (``enc_embeds``) and prefix embeddings
-    raise: those families are not ported."""
-    if "enc_embeds" in batch:
-        raise NotImplementedError("encoder-decoder models are not ported yet")
+    """batch: {"tokens": (B, S)} (+ "prefix_embeds"). Next-token
+    cross-entropy over the text: the prefix's logits are dropped, the labels
+    are the tokens shifted left with a 0 in the last place, which the mask
+    leaves out. Other keys (``enc_embeds``) are ignored, as the reference
+    ignores them."""
     tokens = batch["tokens"]
     logits = forward(params, cfg, tokens,
                      prefix_embeds=batch.get("prefix_embeds"), dtype=dtype,
                      remat=remat, moe_ctx=moe_ctx)
+    npfx = logits.shape[1] - tokens.shape[1]
+    if npfx:
+        logits = logits[:, npfx:]
     labels = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
                        dim=1)
     mask = torch.cat([torch.ones_like(tokens[:, 1:], dtype=torch.float32),
@@ -234,7 +253,10 @@ def loss_fn(params, cfg: ModelConfig, batch, *, dtype=torch.bfloat16,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, per_slot_pos: bool = False,
                kv_dtype=None, device="cuda"):
-    """Zeros. GQA: "k", "v" (L, batch, max_len, Hkv, D). MLA: "ckv"
+    """Zeros. GQA: "k", "v" (L, batch, max_len, Hkv, D); with ``kv_dtype=
+    torch.int8`` they are int8 and "k_scale", "v_scale" (L, batch, max_len,
+    Hkv) bf16 hold each row's scale (any other ``kv_dtype``, and any for
+    MLA and SSM caches, is ignored, as in the reference). MLA: "ckv"
     (L, batch, max_len, kv_lora_rank), "krope" (L, batch, max_len,
     qk_rope_head_dim). SSM: "ssm_state"
     (L, batch, H, N, P) fp32 and "conv_buf" (L, batch, W-1, conv_ch) in
@@ -243,14 +265,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     "pos": a (batch,) int32 vector with per_slot_pos (every slot at its own
     depth, for continuous batching), else a 0-dim one."""
     check_supported(cfg)
-    if kv_dtype is not None:
-        raise NotImplementedError("the int8 KV cache is not ported yet")
     L = cfg.n_layers
     c = {}
     if cfg.attn_type == ATTN_GQA:
         shape = (L, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-        c["k"] = torch.zeros(shape, dtype=dtype, device=device)
-        c["v"] = torch.zeros(shape, dtype=dtype, device=device)
+        kv = torch.int8 if kv_dtype == torch.int8 else dtype
+        c["k"] = torch.zeros(shape, dtype=kv, device=device)
+        c["v"] = torch.zeros(shape, dtype=kv, device=device)
+        if kv_dtype == torch.int8:
+            for name in ("k_scale", "v_scale"):
+                c[name] = torch.zeros(shape[:-1], dtype=torch.bfloat16,
+                                      device=device)
     elif cfg.attn_type == ATTN_MLA:
         m = cfg.mla
         for name, width in (("ckv", m.kv_lora_rank),
@@ -272,7 +297,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 def prefill(params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
             max_len: Optional[int] = None, dtype=torch.bfloat16):
     """Full-sequence forward that also builds the decode cache. Returns
-    (logits of the last position (B, 1, V) f32, cache with pos = seq)."""
+    (logits of the last position (B, 1, V) f32, cache). With a prefix,
+    ``pos`` is min(S_total + n_prefix, max_len), S_total counting the
+    prefix already: the reference adds the prefix twice, and the port
+    keeps that (decode then writes past zero rows, which it attends)."""
     x = embed_inputs(params, cfg, tokens, prefix_embeds, dtype)
     b, seq = x.shape[0], x.shape[1]
     max_len = max_len or seq
@@ -285,7 +313,8 @@ def prefill(params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
                            cache={k: v[i] for k, v in cache.items()
                                   if k != "pos"})
     x = cm.rmsnorm(params["final_norm"], x, cfg.rms_eps)
-    cache["pos"].fill_(min(seq, max_len))
+    total = seq + (cfg.n_prefix_embeds if prefix_embeds is not None else 0)
+    cache["pos"].fill_(min(total, max_len))
     return unembed(params, cfg, x[:, -1:]), cache
 
 
@@ -301,9 +330,10 @@ def _ssm_decode(p, h, cache, i, cfg):
 
 def decode_step(params, cfg: ModelConfig, cache, token, *,
                 dtype=torch.bfloat16):
-    """token: (B, 1) int. Writes each slot's new K/V (MLA: its latent and
-    rope key) and/or its new SSM state and conv tail into ``cache`` in place and advances ``cache["pos"]``
-    by one; a sliding layer attends to the last ``window`` entries only.
+    """token: (B, 1) int. Writes each slot's new K/V (int8 cache: quantized,
+    with its scales; MLA: its latent and rope key) and/or its new SSM state
+    and conv tail into ``cache`` in place and advances ``cache["pos"]`` by
+    one; a sliding layer attends to the last ``window`` entries only.
     Returns (logits (B,1,V) f32, cache)."""
     pos = cache["pos"]
     lens = pos + 1  # valid entries after this tick's write, for every layer
@@ -313,14 +343,19 @@ def decode_step(params, cfg: ModelConfig, cache, token, *,
         lp = cm.layer_params(params["layers"], i)
         if "attn" in lp:
             h = cm.rmsnorm(lp["attn_norm"], x, cfg.rms_eps)
+            window = windows[i] if windows else 0
             if cfg.attn_type == ATTN_MLA:
                 a = attn.mla_decode(lp["attn"], h, cache["ckv"][i],
                                     cache["krope"][i], pos, cfg)
+            elif "k_scale" in cache:        # int8-quantized cache
+                a = attn.gqa_decode_q8(
+                    lp["attn"], h, cache["k"][i], cache["v"][i],
+                    cache["k_scale"][i], cache["v_scale"][i], pos, cfg,
+                    window=window, cache_len=lens)[0]
             else:
                 a, _, _ = attn.gqa_decode(lp["attn"], h, cache["k"][i],
                                           cache["v"][i], pos, cfg,
-                                          window=windows[i] if windows else 0,
-                                          cache_len=lens)
+                                          window=window, cache_len=lens)
             if "ssm" in lp:
                 a = _mix(lp, a, _ssm_decode(lp["ssm"], h, cache, i, cfg), cfg)
             x = x + a

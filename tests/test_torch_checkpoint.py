@@ -191,6 +191,35 @@ def test_restart_determinism(tmp_path, tiny, async_save):
     assert_state_equal(s1, s2)
 
 
+def test_supervisor_takes_over_a_built_state(tmp_path, tiny):
+    """``run`` given a function that builds the state (the launcher hands
+    its state over with ``list.pop``): the same bits as ``run`` given the
+    state, that function called once, and once the run ends nothing holds
+    the initial state. With a checkpoint committed, the function is not
+    called and the run restores onto ``device``."""
+    import gc
+    import weakref
+    cfg, b, state = tiny
+    step = train_loop.make_train_step(
+        b, opt_mod.AdamWConfig(warmup_steps=1, total_steps=20))
+    bf = lambda s: batch_of(cfg, 200 + s)
+    want, _ = TrainSupervisor(step, bf, SupervisorConfig(
+        ckpt_dir=str(tmp_path / "a"), ckpt_every=100)).run(state, 3)
+    fresh = opt_mod.tree_map(lambda t: t.detach().clone(), state)
+    held = weakref.ref(opt_mod.leaves(fresh)[0])
+    handover = [fresh]
+    del fresh
+    sup = TrainSupervisor(step, bf, SupervisorConfig(
+        ckpt_dir=str(tmp_path / "b"), ckpt_every=2))
+    got, _ = sup.run(handover.pop, 3, device="cpu")
+    gc.collect()
+    assert handover == [] and held() is None
+    assert_state_equal(got, want)
+    calls = []
+    again, log = sup.run(lambda: calls.append(1), 4, device="cpu")
+    assert calls == [] and [e["step"] for e in log] == [2, 3]
+
+
 def test_failure_propagates_without_restarts(tmp_path, tiny):
     cfg, b, state = tiny
     step = train_loop.make_train_step(b, opt_mod.AdamWConfig())

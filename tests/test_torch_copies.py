@@ -25,7 +25,9 @@ COPIES = [
     "data/tokenizer.py", "data/pipeline.py", "launch/query_server.py", "analysis/qerror.py",
     "configs/qwen2_0_5b.py", "configs/mamba2_1_3b.py",
     "configs/hymba_1_5b.py", "configs/codeqwen1_5_7b.py",
-    "configs/granite_moe_1b_a400m.py", "configs/minicpm3_4b.py", "testing.py",
+    "configs/granite_moe_1b_a400m.py", "configs/minicpm3_4b.py",
+    "configs/internvl2_76b.py", "configs/seamless_m4t_large_v2.py",
+    "testing.py",
     "distributed/process_workers.py",
 ]
 # Ported, not copied, so not held to the copy rule:
@@ -40,9 +42,13 @@ COPIES = [
 # * distributed/morsel_shards.py: a chain task cancelled by a shard's
 #   death re-runs at once on a thread of its own, because the executor's
 #   morsel-ordered claims can block every chain thread of a survivor;
-# * engine/torch_backend.py, launch/serve.py: drive the port's engine.
+# * engine/torch_backend.py, launch/serve.py: drive the port's engine;
+# * models/encdec.py: a Python loop over the stacked layers replaces
+#   lax.scan, and every attention goes through the port's kernels (flash
+#   attention for the encoder, the decoder and cross-attention, decode
+#   attention over the self and the encoder cache).
 PORTED = ["core/semhash.py", "core/cascade.py", "core/executor.py",
-          "distributed/morsel_shards.py"]
+          "distributed/morsel_shards.py", "models/encdec.py"]
 
 
 def _rename(name):

@@ -201,9 +201,21 @@ def test_greedy_tokens_equal_jax_engine(pair):
 
 
 def test_int8_cache_still_raises(pair):
-    cfg = pair[3]
-    with pytest.raises(NotImplementedError):
-        transformer.init_cache(cfg, 1, 16, kv_dtype=torch.int8, device="cpu")
+    """``kv_dtype=torch.int8`` no longer raises: as in the reference, the
+    MLA cache ignores it (the latent and rope key stay in the cache's
+    dtype), and decode over it gives the fp cache's logits exactly."""
+    cfg, bundle, params = pair[3], pair[4], pair[5]
+    q8 = transformer.init_cache(cfg, 1, 16, dtype=torch.float32,
+                                kv_dtype=torch.int8, device="cpu")
+    fp = transformer.init_cache(cfg, 1, 16, dtype=torch.float32,
+                                device="cpu")
+    assert set(q8) == set(fp) == {"ckv", "krope", "pos"}
+    assert all(q8[k].dtype == fp[k].dtype for k in fp)
+    for t in (3, 7, 11):
+        tok = torch.tensor([[t]])
+        a, q8 = bundle.decode_step(params, q8, tok, dtype=torch.float32)
+        b, fp = bundle.decode_step(params, fp, tok, dtype=torch.float32)
+        assert torch.equal(a, b)
 
 
 def test_serve_main_runs_minicpm3_on_cpu(capsys):

@@ -125,12 +125,22 @@ def test_per_slot_decode_chain_matches(pair):
 
 
 def test_unported_families_raise():
+    """What the decoder still refuses: a dense config with an MoE config,
+    and an encoder-decoder config, which ``registry.build`` routes to
+    ``models.encdec`` instead; the int8 cache, once refused, gives int8
+    values and bf16 scales."""
     from repro_torch.configs import MoEConfig
     from dataclasses import replace
     cfg = reduced(get_config("qwen2-0.5b"))
     with pytest.raises(NotImplementedError):
         registry.build(replace(cfg, moe=MoEConfig(num_experts=4, top_k=2)))
-    with pytest.raises(NotImplementedError):
-        registry.build(replace(cfg, is_encoder_decoder=True))
-    with pytest.raises(NotImplementedError):
-        transformer.init_cache(cfg, 1, 16, kv_dtype=torch.int8, device="cpu")
+    encdec_cfg = replace(cfg, is_encoder_decoder=True, n_encoder_layers=1)
+    with pytest.raises(NotImplementedError, match="encdec"):
+        transformer.check_supported(encdec_cfg)
+    cache = registry.build(encdec_cfg).init_cache(1, 16, enc_len=8,
+                                                  device="cpu")
+    assert set(cache) == {"k", "v", "ek", "ev", "pos"}
+    cache = transformer.init_cache(cfg, 1, 16, kv_dtype=torch.int8,
+                                   device="cpu")
+    assert cache["k"].dtype == torch.int8
+    assert cache["k_scale"].dtype == torch.bfloat16

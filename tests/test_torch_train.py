@@ -386,10 +386,18 @@ def test_init_and_convert_give_trainable_leaves():
 
 
 def test_unported_training_inputs_raise(pair):
+    """The MoE through shard_map (``moe_ctx``) still raises. Encoder inputs
+    no longer do: a decoder-only model's loss ignores ``enc_embeds``, as
+    the reference's does (the encoder-decoder's loss is
+    ``tests/test_torch_encdec.py``'s)."""
     _, _, _, cfg, bundle, params = pair
-    toks = torch.zeros(1, 8, dtype=torch.int64)
-    with pytest.raises(NotImplementedError):
-        bundle.loss_fn(params, {"tokens": toks, "enc_embeds": toks})
+    toks = torch.as_tensor(random_tokens(1, 8, seed=11)).long()
+    with torch.no_grad():
+        with_enc = bundle.loss_fn(params, {"tokens": toks,
+                                           "enc_embeds": toks},
+                                  dtype=torch.float32)
+        alone = bundle.loss_fn(params, {"tokens": toks}, dtype=torch.float32)
+    assert torch.equal(with_enc, alone)
     with pytest.raises(NotImplementedError):
         bundle.loss_fn(params, {"tokens": toks}, moe_ctx="shardmap")
 
