@@ -51,10 +51,11 @@ non-zero):
    too. Timed: forward and backward at both training shapes (the library
    baseline of the backward: ``torch.autograd.grad`` through SDPA's
    backward, pinned to the fastest backend that takes the inputs; kernel
-   and plain version in a CUDA graph, the baseline as the median of 5
-   windows of 100 calls between CUDA events: SDPA's flash backward cannot
-   be captured, and a failed capture would leave the allocator routing
-   every later allocation into a private pool that is never freed).
+   and plain version in a CUDA graph, the baseline as the card's busy
+   time over 20 calls under torch.profiler, host time kept out: SDPA's
+   flash backward cannot be captured, and a failed capture would leave the
+   allocator routing every later allocation into a private pool that is
+   never freed).
 4. serve: full-width qwen2-0.5b (24 layers, d_model 896, vocab 151936, seeded
    random weights) serves 8 requests through ``GenerationEngine`` and
    ``ContinuousBatcher``; every prefill must launch ``flash_attention`` once
@@ -891,26 +892,18 @@ def time_flash(gen, s, dtype, heads=FULL_HEADS, b=1, causal=True, sk=None):
         flops=4 * d * hq * attended_pairs(b, s, sk, causal))
 
 
-def events_ms(fn):
+def profiler_ms(fn, reps=20):
     """Device ms of one call of ``fn`` that a CUDA graph cannot capture
-    (SDPA's flash backward): the median of 5 windows of 100 calls between
-    CUDA events, and the timer's name. No capture is tried: a capture that
-    fails leaves its side stream current and the caching allocator routing
-    every later allocation into the capture's private pool, which
-    ``empty_cache`` never returns."""
+    (SDPA's flash backward), with host time kept out: the card's busy time
+    over ``reps`` calls under torch.profiler (``profiled``: the union of
+    its kernel and copy intervals), per call, and the timer's name. No
+    capture is tried: a capture that fails leaves its side stream current
+    and the caching allocator routing every later allocation into the
+    capture's private pool, which ``empty_cache`` never returns."""
     for _ in range(3):
         fn()
-    torch.cuda.synchronize()
-    windows = []
-    for _ in range(5):
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        for _ in range(100):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        windows.append(start.elapsed_time(end) / 100)
-    return float(np.median(windows)), "events"
+    busy = profiled(lambda: [fn() for _ in range(reps)])["device_busy_ms"]
+    return busy / reps, "profiler"
 
 
 def sdpa_backward(q, k, v, dout, causal=True):
@@ -936,7 +929,7 @@ def sdpa_backward(q, k, v, dout, causal=True):
             def call(ot=ot):
                 return torch.autograd.grad(ot, (qt, kt, vt), dot,
                                            retain_graph=True)
-            ms, timer = events_ms(call)
+            ms, timer = profiler_ms(call)
         except RuntimeError:  # the backend refuses these inputs
             torch.cuda.synchronize()
             continue
@@ -952,8 +945,8 @@ def time_flash_bwd(gen, b, s, dtype, heads=FULL_HEADS, causal=True):
     ``torch.autograd.grad`` through SDPA's backward alone (its forward run
     once before), pinned to the fastest backend that takes the inputs
     (``sdpa_backward``); kernel and plain version graph-timed
-    (``cuda_ms``), the library call by ``events_ms``. The bound counts q, k,
-    v, o, dO and the lse read once, dQ, dK and dV written once, and the
+    (``cuda_ms``), the library call by ``profiler_ms``. The bound counts q,
+    k, v, o, dO and the lse read once, dQ, dK and dV written once, and the
     five products of the backward (S, dP, dV, dQ, dK: 10 D FLOPs per
     attended (query, key) pair and query head) at the dtype's peak (fp32:
     3xTF32); the kernel computes S and dP twice (seven products)."""
@@ -972,7 +965,7 @@ def time_flash_bwd(gen, b, s, dtype, heads=FULL_HEADS, causal=True):
         nbytes=b * s * (4 * hq + 4 * hkv) * d * q.element_size() + 4 * b * hq * s,
         flops=10 * d * hq * attended_pairs(b, s, s, causal),
         check=lambda got, want: bwd_held(got, want, dtype),
-        library_timer=events_ms,
+        library_timer=profiler_ms,
         library_name=f"autograd.grad through SDPA ({backend})")
 
 

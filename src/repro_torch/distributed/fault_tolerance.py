@@ -12,7 +12,7 @@ addition): the optimizer builds each step's new state beside the old one,
 so a caller that held the initial state through the run would keep a
 third copy on the device (24.4 GB for seamless-m4t-large-v2's weights and
 moments). Built by the supervisor, the initial state is freed after the
-first step.
+first step, and each restart builds it again.
 
 Straggler mitigation: per-step wall times feed an online median tracker;
 steps exceeding ``deadline_factor`` x the running median are flagged. A
@@ -92,28 +92,26 @@ class TrainSupervisor:
 
     def run(self, init_state, n_steps: int,
             fail_at: Optional[set] = None,
-            delay_steps: Optional[dict] = None, device=None):
+            delay_steps: Optional[dict] = None):
         """Execute steps [resume..n_steps); returns (state, metrics_log).
 
         ``init_state``: the state, or a function that builds it (called
-        only when no checkpoint is committed). Restarts resume from the last
-        committed checkpoint, restored onto ``device`` (default: the
-        initial state's); `fail_at` steps raise InjectedFailure once each
-        (the caller loops, as a cluster controller would). NOTE: `fail_at`
-        is mutated (fired steps are discarded) so a controller re-invoking
-        `run` shares the ledger."""
+        once per ``run``). Restarts resume from the last committed
+        checkpoint, restored onto the initial state's device; `fail_at`
+        steps raise InjectedFailure once each (the caller loops, as a
+        cluster controller would). NOTE: `fail_at` is mutated (fired steps
+        are discarded) so a controller re-invoking `run` shares the
+        ledger."""
         fail_at = fail_at if fail_at is not None else set()
         delay_steps = delay_steps or {}
-        build = init_state if callable(init_state) else lambda: init_state
+        state = init_state() if callable(init_state) else init_state
+        del init_state
         last = ckpt.latest_step(self.cfg.ckpt_dir)
+        start = 0
         if last is not None:
-            device = device or leaves(build())[0].device
-            _, state = ckpt.restore(self.cfg.ckpt_dir, last, device=device)
+            _, state = ckpt.restore(self.cfg.ckpt_dir, last,
+                                    device=leaves(state)[0].device)
             start = last + 1
-        else:
-            state = build()
-            start = 0
-        del init_state, build
         log = []
         for step in range(start, n_steps):
             t0 = time.perf_counter()
@@ -137,16 +135,15 @@ class TrainSupervisor:
 
     def run_with_restarts(self, init_state, n_steps: int,
                           fail_at: Optional[set] = None,
-                          max_restarts: int = 8, device=None):
+                          max_restarts: int = 8):
         """Cluster-controller loop: rerun after every injected failure.
-        ``init_state`` and ``device`` as for ``run``."""
+        ``init_state`` as for ``run``."""
         fail_at = set(fail_at or ())
         logs = []
         restarts = 0
         while True:
             try:
-                state, log = self.run(init_state, n_steps, fail_at=fail_at,
-                                      device=device)
+                state, log = self.run(init_state, n_steps, fail_at=fail_at)
                 logs.extend(log)
                 return state, logs, restarts
             except InjectedFailure:

@@ -101,9 +101,10 @@ def build_parser():
 def run(args, fail_at=None):
     """Build the model, optimizer and supervisor from ``args`` and train.
     With ``fail_at`` (steps), failures are injected after those steps and
-    the supervisor restarts from the last checkpoint until the run ends.
-    Returns {"cfg", "state", "log", "seconds", "restarts", "straggler",
-    "train_step", "batch_fn"}."""
+    the supervisor restarts from the last checkpoint (before any, from the
+    initial state built anew) until the run ends. Returns {"cfg", "state", "log", "seconds", "restarts", "straggler",
+    "train_step", "batch_fn"}; "seconds" is the run's wall, the supervisor's
+    build of the initial state included."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_cfg(cfg)
@@ -111,8 +112,10 @@ def run(args, fail_at=None):
     print(f"[train] arch={cfg.name} params={cfg.param_count()/1e6:.1f}M "
           f"steps={args.steps} batch={args.batch}x{args.seq} "
           f"device={args.device} data={args.corpus or 'synthetic'}")
-    gen = torch.Generator(args.device).manual_seed(args.seed)
-    state = train_loop.init_train_state(bundle, gen, device=args.device)
+
+    def init_state():  # a restart before any checkpoint builds it anew
+        gen = torch.Generator(args.device).manual_seed(args.seed)
+        return train_loop.init_train_state(bundle, gen, device=args.device)
     opt_cfg = opt_mod.AdamWConfig(lr=args.lr, warmup_steps=10,
                                   total_steps=args.steps)
     step_fn = train_loop.make_train_step(
@@ -127,16 +130,10 @@ def run(args, fail_at=None):
                          ckpt_every=args.ckpt_every,
                          async_save=args.async_ckpt))
     t0 = time.time()
-    if fail_at:  # a restart before any checkpoint starts from this state
-        state, log, restarts = sup.run_with_restarts(state, args.steps,
-                                                     fail_at=fail_at)
-    else:
-        # the supervisor takes the initial state over, so that nothing
-        # holds it once the first step has built the next one beside it
-        handover = [state]
-        del state
-        (state, log), restarts = sup.run(handover.pop, args.steps,
-                                         device=args.device), 0
+    # the supervisor builds the initial state, so that nothing here holds
+    # it once the first step has built the next one beside it
+    state, log, restarts = sup.run_with_restarts(init_state, args.steps,
+                                                 fail_at=fail_at)
     return {"cfg": cfg, "state": state, "log": log,
             "seconds": time.time() - t0, "restarts": restarts,
             "straggler": sup.straggler, "train_step": step_fn,

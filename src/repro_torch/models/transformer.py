@@ -300,7 +300,9 @@ def prefill(params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
     (logits of the last position (B, 1, V) f32, cache). With a prefix,
     ``pos`` is min(S_total + n_prefix, max_len), S_total counting the
     prefix already: the reference adds the prefix twice, and the port
-    keeps that (decode then writes past zero rows, which it attends)."""
+    keeps that (decode then writes past zero rows, which it attends). Where
+    that reaches max_len, the next ``decode_step`` fails on its write, which
+    the reference drops: give max_len >= S_total + n_prefix + new tokens."""
     x = embed_inputs(params, cfg, tokens, prefix_embeds, dtype)
     b, seq = x.shape[0], x.shape[1]
     max_len = max_len or seq

@@ -192,11 +192,11 @@ def test_restart_determinism(tmp_path, tiny, async_save):
 
 
 def test_supervisor_takes_over_a_built_state(tmp_path, tiny):
-    """``run`` given a function that builds the state (the launcher hands
-    its state over with ``list.pop``): the same bits as ``run`` given the
-    state, that function called once, and once the run ends nothing holds
-    the initial state. With a checkpoint committed, the function is not
-    called and the run restores onto ``device``."""
+    """``run`` given a function that builds the state (as the launcher
+    gives it): the same bits as ``run`` given the state, the function
+    called once a run, and once the run ends nothing holds the state it
+    built. With a checkpoint committed, the run restores onto the built
+    state's device and resumes after it."""
     import gc
     import weakref
     cfg, b, state = tiny
@@ -205,19 +205,21 @@ def test_supervisor_takes_over_a_built_state(tmp_path, tiny):
     bf = lambda s: batch_of(cfg, 200 + s)
     want, _ = TrainSupervisor(step, bf, SupervisorConfig(
         ckpt_dir=str(tmp_path / "a"), ckpt_every=100)).run(state, 3)
-    fresh = opt_mod.tree_map(lambda t: t.detach().clone(), state)
-    held = weakref.ref(opt_mod.leaves(fresh)[0])
-    handover = [fresh]
-    del fresh
+    built = []
+
+    def build():
+        fresh = opt_mod.tree_map(lambda t: t.detach().clone(), state)
+        built.append(weakref.ref(opt_mod.leaves(fresh)[0]))
+        return fresh
     sup = TrainSupervisor(step, bf, SupervisorConfig(
         ckpt_dir=str(tmp_path / "b"), ckpt_every=2))
-    got, _ = sup.run(handover.pop, 3, device="cpu")
+    got, _ = sup.run(build, 3)
     gc.collect()
-    assert handover == [] and held() is None
+    assert len(built) == 1 and built[0]() is None
     assert_state_equal(got, want)
-    calls = []
-    again, log = sup.run(lambda: calls.append(1), 4, device="cpu")
-    assert calls == [] and [e["step"] for e in log] == [2, 3]
+    again, log = sup.run(build, 4)
+    assert len(built) == 2 and [e["step"] for e in log] == [2, 3]
+    assert opt_mod.leaves(again)[0].device == torch.device("cpu")
 
 
 def test_failure_propagates_without_restarts(tmp_path, tiny):

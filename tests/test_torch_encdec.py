@@ -221,8 +221,9 @@ def test_remat_recomputes_the_decoder_only(pair, monkeypatch):
 def test_launch_train_two_steps_and_bit_identical_restart(tmp_path, capsys):
     """``launch.train`` on the reduced model on the CPU: 2 steps with a
     checkpoint after each; then a run with a failure injected after step 0
-    restarts from that checkpoint and ends with the same bits as the
-    uninterrupted run."""
+    restarts from that checkpoint, and one with a failure before any
+    checkpoint builds its initial state again; both end with the same bits
+    as the uninterrupted run."""
     from repro_torch.launch import train
     flags = ["--arch", ARCH, "--reduced", "--device", "cpu", "--steps", "2",
              "--batch", "2", "--seq", "16", "--ckpt-every", "1"]
@@ -236,10 +237,14 @@ def test_launch_train_two_steps_and_bit_identical_restart(tmp_path, capsys):
     whole = train.run(args)
     args.ckpt_dir = str(tmp_path / "c")
     restarted = train.run(args, fail_at={0})
-    assert restarted["restarts"] == 1
+    args.ckpt_dir, args.ckpt_every = str(tmp_path / "d"), 100
+    rebuilt = train.run(args, fail_at={0})
+    assert ck.committed_steps(str(tmp_path / "d")) == []
     a = flat_torch(whole["state"]["params"])
-    b = flat_torch(restarted["state"]["params"])
-    assert set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
+    for run in (restarted, rebuilt):
+        assert run["restarts"] == 1
+        b = flat_torch(run["state"]["params"])
+        assert set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
     assert [e["loss"] for e in whole["log"] if "loss" in e] == losses
 
 

@@ -200,7 +200,7 @@ def test_greedy_tokens_equal_jax_engine(pair):
         assert got[rid].output_ids == want[rid].output_ids, rid
 
 
-def test_int8_cache_still_raises(pair):
+def test_int8_kv_dtype_ignored_by_mla(pair):
     """``kv_dtype=torch.int8`` no longer raises: as in the reference, the
     MLA cache ignores it (the latent and rope key stay in the cache's
     dtype), and decode over it gives the fp cache's logits exactly."""

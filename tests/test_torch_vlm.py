@@ -14,7 +14,9 @@ numpy seeds; both sides in fp32. Tolerances, each with its reason:
 
 The prefill's ``pos`` is min(S_total + n_prefix, max_len), S_total
 counting the prefix already: the reference adds the prefix twice, and the
-port keeps it (pinned below). Every test runs under
+port keeps it (pinned below). Where that reaches max_len, the port refuses
+the next decode step, which the reference runs with its write dropped
+(pinned below, and listed in ROADMAP.md). Every test runs under
 ``torch_parity.time_limit``.
 """
 import numpy as np
@@ -123,6 +125,22 @@ def test_prefill_with_prefix_matches(pair, max_len):
         np.testing.assert_allclose(cache[leaf].numpy(),
                                    np.asarray(jcache[leaf].value), atol=ATOL)
     assert int(cache["pos"]) == int(jcache["pos"].value) == min(28, max_len)
+
+
+def test_decode_from_a_full_cache_raises(pair):
+    """A deliberate divergence: at max_len 24 the prefill's ``pos`` is 24,
+    the cache's end, though the 20 rows fit. The reference's next decode
+    step drops its K/V row (its one-hot write matches no row) and runs; the
+    port's in-place write refuses the index (on the card: a device-side
+    assert)."""
+    jcfg, jbundle, jparams, cfg, bundle, params = pair
+    (_, jcache), (_, cache) = _prefill(pair, 24)
+    step = random_tokens(1, 2, seed=6).reshape(2, 1)
+    want, _ = jbundle.decode_step(jparams, jcache, jnp.asarray(step),
+                                  dtype=jnp.float32)
+    assert np.isfinite(np.asarray(want)).all()
+    with pytest.raises(IndexError):
+        bundle.decode_step(params, cache, to_torch(step), dtype=torch.float32)
 
 
 def test_decode_after_prefix_prefill_matches(pair):
