@@ -51,8 +51,8 @@ non-zero):
    too. Timed: forward and backward at both training shapes (the library
    baseline of the backward: ``torch.autograd.grad`` through SDPA's
    backward, pinned to the fastest backend that takes the inputs; kernel
-   and plain version in a CUDA graph, the baseline as the card's busy
-   time over 20 calls under torch.profiler, host time kept out: SDPA's
+   and plain version in a CUDA graph, the baseline between CUDA events
+   around 20 calls queued behind a spin kernel, host time kept out: SDPA's
    flash backward cannot be captured, and a failed capture would leave the
    allocator routing every later allocation into a private pool that is
    never freed).
@@ -168,6 +168,7 @@ from __future__ import annotations
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -892,18 +893,38 @@ def time_flash(gen, s, dtype, heads=FULL_HEADS, b=1, causal=True, sk=None):
         flops=4 * d * hq * attended_pairs(b, s, sk, causal))
 
 
-def profiler_ms(fn, reps=20):
+def queued_ms(fn, reps=20, windows=5):
     """Device ms of one call of ``fn`` that a CUDA graph cannot capture
-    (SDPA's flash backward), with host time kept out: the card's busy time
-    over ``reps`` calls under torch.profiler (``profiled``: the union of
-    its kernel and copy intervals), per call, and the timer's name. No
-    capture is tried: a capture that fails leaves its side stream current
-    and the caching allocator routing every later allocation into the
-    capture's private pool, which ``empty_cache`` never returns."""
+    (SDPA's flash backward), with host time kept out, and the timer's name:
+    a spin kernel (``torch.cuda._sleep``) holds the stream while the host
+    queues ``reps`` calls behind it between two CUDA events, so the events
+    time the card alone. The start event still pending once the last call
+    is queued proves the queue never ran dry; otherwise the spin is made
+    four times longer. Median of ``windows`` windows; None if even a spin
+    of half a second is outrun (``fn`` waits on the card). No capture is
+    tried: a capture that fails leaves its side stream current and the
+    caching allocator routing every later allocation into the capture's
+    private pool, which ``empty_cache`` never returns."""
     for _ in range(3):
         fn()
-    busy = profiled(lambda: [fn() for _ in range(reps)])["device_busy_ms"]
-    return busy / reps, "profiler"
+    torch.cuda.synchronize()
+    spin, per_call = 1 << 24, []
+    while len(per_call) < windows:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(spin)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        ran_dry = start.query()
+        end.synchronize()
+        if not ran_dry:
+            per_call.append(start.elapsed_time(end) / reps)
+        elif spin >= 1 << 30:
+            return None
+        else:
+            spin <<= 2
+    return statistics.median(per_call), "queued events"
 
 
 def sdpa_backward(q, k, v, dout, causal=True):
@@ -929,12 +950,17 @@ def sdpa_backward(q, k, v, dout, causal=True):
             def call(ot=ot):
                 return torch.autograd.grad(ot, (qt, kt, vt), dot,
                                            retain_graph=True)
-            ms, timer = profiler_ms(call)
+            timed = queued_ms(call)
         except RuntimeError:  # the backend refuses these inputs
             torch.cuda.synchronize()
             continue
+        if timed is None:  # its calls wait on the card: no host-free time
+            continue
+        ms, timer = timed
         if best is None or ms < best[2]:
             best = (call, backend.name, ms, timer)
+    if best is None:
+        raise AssertionError("no SDPA backend's backward could be timed")
     return best
 
 
@@ -945,7 +971,7 @@ def time_flash_bwd(gen, b, s, dtype, heads=FULL_HEADS, causal=True):
     ``torch.autograd.grad`` through SDPA's backward alone (its forward run
     once before), pinned to the fastest backend that takes the inputs
     (``sdpa_backward``); kernel and plain version graph-timed
-    (``cuda_ms``), the library call by ``profiler_ms``. The bound counts q,
+    (``cuda_ms``), the library call by ``queued_ms``. The bound counts q,
     k, v, o, dO and the lse read once, dQ, dK and dV written once, and the
     five products of the backward (S, dP, dV, dQ, dK: 10 D FLOPs per
     attended (query, key) pair and query head) at the dtype's peak (fp32:
@@ -965,7 +991,7 @@ def time_flash_bwd(gen, b, s, dtype, heads=FULL_HEADS, causal=True):
         nbytes=b * s * (4 * hq + 4 * hkv) * d * q.element_size() + 4 * b * hq * s,
         flops=10 * d * hq * attended_pairs(b, s, s, causal),
         check=lambda got, want: bwd_held(got, want, dtype),
-        library_timer=profiler_ms,
+        library_timer=queued_ms,
         library_name=f"autograd.grad through SDPA ({backend})")
 
 
