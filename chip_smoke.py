@@ -159,6 +159,32 @@ non-zero):
    through the bundle (flash 4 per prefill, decode 4 a step), then 4
    text-only requests through the engine. cross_check_vlm: the model cut
    to 1 layer, card against CPU, the prefill and 4 steps.
+19. train_ssm: ``launch.train --arch mamba2-1.3b --steps 8 --batch 8 --seq
+   512 --corpus movie`` at full width (48 layers, d_model 2048; fp32
+   weights and AdamW moments, bf16 activations, remat), no checkpoint:
+   losses finite and falling, tok/s, step time, peak memory, the idle
+   share of two profiled steps, one gradient computed twice from the final
+   state bit-equal; launches exactly ``ssd_scan`` 2 x 48 x 8 (remat runs
+   each forward twice) and ``ssd_scan_bwd`` 48 x 8. cross_check_train_ssm:
+   one fp32 step cut to 4 layers, card against CPU (loss 1e-5, grad norm
+   1e-4, every leaf 1e-4 of its max). train_hybrid and
+   cross_check_train_hybrid: the same for hymba-1.5b at B = 2, S = 2048
+   (its window of 1024 bites; flash 2 x 32 x 8 and its backward 32 x 8
+   beside the scan's), the cross-check at (1, 1280). The kernels phase
+   holds the scan's backward (``ssd_scan_bwd``) against ``plain_backward``
+   at both training shapes, a ragged S = 272 with and without an initial
+   state and a final-state gradient (there also against autograd of the
+   fp64 recurrence), the reduced heads and two groups, fp32 and bf16
+   (``SSD_BWD_TOL``), twice for the same bits; and times it.
+20. serve_deepseek, serve_llama4: deepseek-67b (64/8 heads of 128, d_ff
+   22016, vocab 102400) cut to 4 of its 95 layers, and
+   llama4-scout-17b-a16e (40/8 heads of 128, 16 experts of d_ff 8192 at
+   top-1 and a shared expert, vocab 202048) cut to 2 of its 48, at full
+   width with seeded random fp32 weights: 4 prompts of 32 tokens and 24
+   greedy steps through the bundle (flash once per layer, decode once per
+   layer and step), then the engine; cross_check_deepseek /
+   cross_check_llama4 at 1 layer, card against CPU (logits 1e-3, argmax
+   equal).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the rest
@@ -290,6 +316,35 @@ INT8_PROMPT, INT8_STEPS, INT8_BOUND = 64, 24, 0.05
 # prefix twice) and the steps; the card-vs-CPU check at VLM_CUT layer
 VLM_LAYERS, VLM_CUT, VLM_BATCH, VLM_PREFIX, VLM_TEXT = 4, 1, 4, 256, 32
 VLM_STEPS, VLM_MAX_LEN = 24, 576
+# train_ssm / train_hybrid: launch.train at full width, SSM_TRAIN_STEPS
+# steps on the movie plots, no checkpoint (one of mamba2-1.3b is ~16 GB of
+# fp32 weights and moments): mamba2-1.3b at B = 8, S = 512; hymba-1.5b at
+# B = 2, S = 2048, since hymba's is the only training attention with a
+# window and at S <= 1024 its window of 1024 masks nothing. Their card-vs-
+# CPU steps cut to TRAIN_CUT layers, hymba's at (1, 1280), past the window
+# (its layer 0 keeps full attention).
+SSM_TRAIN_STEPS = 8
+SSM_TRAIN_SHAPE, HYBRID_TRAIN_SHAPE = (8, 512), (2, 2048)
+HYBRID_CROSS = (1, 1280)
+
+
+def train_flags(arch, shape):
+    return ["--arch", arch, "--steps", str(SSM_TRAIN_STEPS), "--batch",
+            str(shape[0]), "--seq", str(shape[1]), "--corpus", "movie",
+            "--ckpt-every", "1000"]
+
+# serve_deepseek / serve_llama4: at full width, cut in depth to what one
+# card holds with room for the run (BIG_LAYERS: deepseek-67b ~2.8 GB fp32 a
+# layer, llama4-scout's 16 experts and shared expert ~8.8 GB a layer, each
+# beside 6.7 / 8.3 GB of embeddings); BIG_BATCH prompts of BIG_PROMPT
+# seeded tokens, BIG_STEPS greedy steps through the bundle, then the
+# engine; the card-vs-CPU check at BIG_CUT layer. Their heads: 64 over 8
+# and 40 over 8 (a group of 5), head_dim 128.
+BIG_LAYERS = {"deepseek-67b": 4, "llama4-scout-17b-a16e": 2}
+BIG_PHASE = {"deepseek-67b": "serve_deepseek",
+             "llama4-scout-17b-a16e": "serve_llama4"}
+BIG_BATCH, BIG_PROMPT, BIG_STEPS, BIG_MAX_LEN, BIG_CUT = 4, 32, 24, 160, 1
+DEEPSEEK_HEADS, LLAMA4_HEADS = (64, 8, 128), (40, 8, 128)
 # cosine_matrix: the shapes of tests/test_kernels.py, the cosine_api path's
 # all-pairs product of the 250 movie plots, a small one, ragged M, N and D
 # (D 250 and 33 are read element by element), and products in each of the
@@ -449,8 +504,9 @@ def flash_cases():
     (a group of 1) with 1, 17, 96 and 160 queries against 77 and 4096 keys,
     non-causal; its encoder's self-attention at 4096 frames and its
     training shape (S = 512, causal and not). internvl2-76b's heads (64
-    over 8 of 128) causal at its served prefill (256 prefix + 32 text) and
-    at 96."""
+    over 8 of 128, deepseek-67b's too) causal at its served prefill (256
+    prefix + 32 text) and at 96. llama4-scout's heads (40 over 8 of 128, a
+    group of 5) at every prefill length and the offset cases."""
     full = [("causal", 1, s, True, 0) for s in range(16, 161, 16)]
     full += [("causal", 1, 2048, True, 0),
              ("padded", 2, 40, True, 0), ("window", 1, 160, True, 24),
@@ -464,8 +520,8 @@ def flash_cases():
                ("offset_noncausal", 2, 48, False, 0, 3, 28)]
     hymba = [("hymba_window", 1, s, True, HYMBA_WINDOW)
              for s in list(range(16, 161, 16)) + [2048]]
-    codeqwen = [("causal", 1, s, True, 0)
-                for s in list(range(16, 161, 16)) + [2048]]
+    prefills = [("causal", 1, s, True, 0) for s in range(16, 161, 16)]
+    codeqwen = prefills + [("causal", 1, 2048, True, 0)]
     rewriter = small + [("train", 16, 384, True, 0)]
     seamless = [("encoder", 1, 4096, False, 0), ("train", 2, 512, True, 0),
                 ("train_noncausal", 2, 512, False, 0)]
@@ -474,12 +530,13 @@ def flash_cases():
              + [(REDUCED_HEADS, *c, 0, c[2]) for c in small]
              + [(REWRITER_HEADS, *c, 0, c[2]) for c in rewriter]
              + [(h, *c) for h in (FULL_HEADS, REDUCED_HEADS, CODEQWEN_HEADS,
-                                  REWRITER_HEADS)
+                                  REWRITER_HEADS, LLAMA4_HEADS)
                 for c in offsets]
              + [(HYMBA_HEADS, *c, 0, c[2]) for c in hymba]
              + [(CODEQWEN_HEADS, *c, 0, c[2]) for c in codeqwen]
              + [(SEAMLESS_HEADS, *c, 0, c[2]) for c in seamless]
-             + [(VLM_HEADS, *c, 0, c[2]) for c in vlm])
+             + [(VLM_HEADS, *c, 0, c[2]) for c in vlm]
+             + [(LLAMA4_HEADS, *c, 0, c[2]) for c in prefills])
     return ([c + (None,) for c in cases]
             + [(SEAMLESS_HEADS, "cross", 2, sq, False, 0, 0, sk, sk)
                for sq in (1, 17, 96, 160) for sk in (77, 4096)])
@@ -488,17 +545,20 @@ def flash_cases():
 DECODE_CASES = [(FULL_HEADS, b, s) for b in (4, 32) for s in (160, 4096)] \
     + [(REDUCED_HEADS, 4, 160), (CODEQWEN_HEADS, 4, 160),
        (CODEQWEN_HEADS, 32, 4096), (SEAMLESS_HEADS, 4, 160),
-       (SEAMLESS_HEADS, 4, 4096), (VLM_HEADS, 4, 576), (VLM_HEADS, 4, 4096)]
+       (SEAMLESS_HEADS, 4, 4096), (VLM_HEADS, 4, 576), (VLM_HEADS, 4, 4096),
+       (LLAMA4_HEADS, 4, BIG_MAX_LEN), (LLAMA4_HEADS, 32, 4096)]
 # seamless's cross decode reads the whole encoder cache: every slot's
 # cache_len is its 4096 frames
 ENCODER_LENS = (4096,) * 4
 # cache lengths at the kernel's edges: none, one key, either side of its
 # 32-key tiles and of two of them, the whole cache; over groups of 1, 7
 # (qwen2-0.5b) and 16 (the largest) at head_dim 64, the reduced heads, and
-# at head_dim 128 codeqwen1.5-7b's heads (a group of 1) and a group of 16
+# at head_dim 128 codeqwen1.5-7b's heads (a group of 1), a group of 16,
+# internvl2-76b's and deepseek-67b's (8) and llama4-scout's (5)
 DECODE_EDGE_LENS = (0, 1, 31, 32, 33, 63, 64, 65, 160)
 DECODE_EDGE_HEADS = [(2, 2, 64), (14, 2, 64), (32, 2, 64), REDUCED_HEADS,
-                     CODEQWEN_HEADS, (32, 2, 128), SEAMLESS_HEADS, VLM_HEADS]
+                     CODEQWEN_HEADS, (32, 2, 128), SEAMLESS_HEADS, VLM_HEADS,
+                     LLAMA4_HEADS]
 # hymba's sliding window: lengths on either side of it and of twice it, of
 # a 4096-entry cache
 WINDOW_LENS = (0, 1, 1023, 1024, 1025, 2048, 4096)
@@ -591,6 +651,7 @@ def phase_kernels():
         check_decode(gen, dtype, failures)
         check_rowwise(gen, dtype, failures)
         check_ssd(gen, dtype, failures)
+        check_ssd_bwd(gen, dtype, failures)
         check_matrix(gen, dtype, failures)
     torch.cuda.synchronize()
     if failures:
@@ -803,6 +864,106 @@ def check_ssd(gen, dtype, failures):
             failures.append(("ssd_scan", case, str(dtype), s, row))
 
 
+# The SSD backward against its plain version (``plain_backward``, the same
+# formulas in plain PyTorch), each leaf elementwise: |kernel - plain| <=
+# a M + r |plain|, M that leaf's largest |value| (each has its own scale:
+# ddA sums a chunk's steps, dB a group's heads). Both sum in fp32 in other
+# orders (a CPU emulation of the kernel read ~1e-6 of M against fp64):
+# a = 1e-5. bf16: ddx, dB and dC round once to bf16 on both sides,
+# r = 2^-7 (one step, as TOL); ddA and the state's gradient stay fp32. At
+# S = 272 also against autograd of ``ref.ssd_ref`` in fp64, the same limit.
+SSD_BWD_TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: (1e-5, 2.0 ** -7)}
+SSD_GRADS = ("ddx", "ddA", "dB", "dC", "dinit")
+
+
+def bwd_ssd_cases():
+    """(heads, case, B, S, initial state, final-state gradient) of the
+    backward: mamba2-1.3b's training shape (B = 8, S = 512) and hymba-1.5b's
+    (B = 2, S = 2048), as training gives them (no initial state, the final
+    state unused); a ragged S = 272 = 4 x 64 + 16 at mamba2's heads without
+    and with both; the reduced heads and two groups."""
+    return [(SSM_FULL, "train", *SSM_TRAIN_SHAPE, False, False),
+            (SSM_HYMBA, "hymba_train", *HYBRID_TRAIN_SHAPE, False, False),
+            (SSM_FULL, "ragged", 1, 272, False, False),
+            (SSM_FULL, "ragged_init_dstate", 1, 272, True, True),
+            (SSM_REDUCED, "reduced", 2, 96, True, False),
+            (SSM_GROUPED, "grouped", 2, 128, False, True)]
+
+
+def ssd_bwd_inputs(gen, b, s, heads, dtype, init, dstate):
+    """``ssd_inputs`` and y's gradient N(0, 1) in dtype, and optionally the
+    final state's, N(0, 1) fp32: the backward's arguments."""
+    h, p, n, _ = heads
+    dx, dA, B, C, st = ssd_inputs(gen, b, s, heads, dtype, init)
+    dy = torch.randn(b, s, h, p, generator=gen, device="cuda").to(dtype)
+    ds = (torch.randn(b, h, n, p, generator=gen, device="cuda") if dstate
+          else None)
+    return dx, dA, B, C, st, dy, ds
+
+
+def ssd_bwd_held(got, want, dtype):
+    """({leaf: max |got - want|}, every leaf within SSD_BWD_TOL[dtype])."""
+    a, r = SSD_BWD_TOL[dtype]
+    errs, ok = {}, True
+    for name, x, w in zip(SSD_GRADS, got, want):
+        x, w = x.double(), w.double()
+        err = (x - w).abs()
+        errs[name] = err.max().item()
+        rel = r if name in ("ddx", "dB", "dC") else 0.0
+        ok = ok and bool((err <= a * w.abs().max() + rel * w.abs()).all())
+    return errs, ok
+
+
+def ssd_grads_f64(dx, dA, B, C, init, dy, dstate):
+    """The five gradients by autograd of the sequential recurrence
+    ``ref.ssd_ref`` in fp64 (a zero initial state where there is none)."""
+    from repro_torch.kernels import ref
+    b, _, h, p = dx.shape
+    if init is None:
+        init = torch.zeros(b, h, B.shape[3], p, device=dx.device)
+    leaves = [t.detach().double().requires_grad_()
+              for t in (dx, dA, B, C, init)]
+    with torch.enable_grad():
+        y, fin = ref.ssd_ref(*leaves)
+        loss = (y * dy.double()).sum()
+        if dstate is not None:
+            loss = loss + (fin * dstate.double()).sum()
+        return torch.autograd.grad(loss, leaves)
+
+
+def check_ssd_bwd(gen, dtype, failures):
+    """ssd_scan_backward against ``plain_backward`` at ``bwd_ssd_cases``
+    (``ssd_bwd_held``), at S = 272 also against the fp64 recurrence's
+    autograd; a second launch on the same inputs must give the same bits
+    (no atomics: a group's dB and dC are summed over its heads in order)."""
+    from repro_torch.kernels import ssd_scan as ssd
+    for heads, case, b, s, init, dstate in bwd_ssd_cases():
+        args = ssd_bwd_inputs(gen, b, s, heads, dtype, init, dstate)
+        got = ssd.ssd_scan_backward(*args)
+        again = ssd.ssd_scan_backward(*args)
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        errs, ok = ssd_bwd_held(got, ssd.plain_backward(*args), dtype)
+        row = {"phase": "kernel", "kernel": "ssd_scan_bwd", "case": case,
+               "dtype": str(dtype), "B": b, "S": s, "H": heads[0],
+               "P": heads[1], "N": heads[2], "G": heads[3],
+               "initial_state": init, "dstate": dstate,
+               "max_abs_err": errs,
+               "max_abs_grad": {k: x.float().abs().max().item()
+                                for k, x in zip(SSD_GRADS, got)},
+               "tol": "1e-5 max|plain leaf|" + (
+                   " + 2^-7 |plain| (ddx, dB, dC)"
+                   if dtype != torch.float32 else ""),
+               "deterministic": same}
+        if s == 272:
+            errs64, ok64 = ssd_bwd_held(got, ssd_grads_f64(*args), dtype)
+            row["max_abs_err_vs_f64"] = errs64
+            ok = ok and ok64
+        ok = ok and same and all(bool(torch.isfinite(x).all()) for x in got)
+        emit({**row, "ok": ok})
+        if not ok:
+            failures.append(("ssd_scan_bwd", case, str(dtype), s, errs))
+
+
 def check_matrix(gen, dtype, failures):
     """cosine_matrix against its plain version over unit rows; both sum in
     fp32 into fp32 (atol 1e-5, as tests/test_kernels.py holds the Pallas
@@ -852,6 +1013,9 @@ KERNELS = {
         replaces="src/repro/kernels/similarity.py:45"),
     "ssd_scan": dict(
         route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan.py:69"),
+    "ssd_scan_bwd": dict(
+        route="cuda", source="src/repro_torch/csrc/ssd_scan_bwd.cu",
         replaces="src/repro/kernels/ssd_scan.py:69"),
 }
 
@@ -1088,26 +1252,73 @@ def ssd_flops(s, heads):
     return min(chunked(step) for step in range(1, min(s, 256) + 1))
 
 
-def time_ssd(gen, s, heads=SSM_FULL):
-    """One layer's scan of one sequence of s steps at ``heads`` (mamba2-1.3b's
-    or hymba-1.5b's), fp32 (the engine's dtype): kernel and plain version
-    on the same inputs.
+def time_ssd(gen, s, heads=SSM_FULL, b=1, dtype=torch.float32):
+    """One layer's scan of b sequences of s steps at ``heads`` (mamba2-1.3b's
+    or hymba-1.5b's), fp32 (the engine's dtype) or bf16 (training's
+    activations): kernel and plain version on the same inputs.
     No single PyTorch call computes the scan, so there is no library time.
     The bound counts dx, dA, B, C read once, y and the final state written
     once, and ``ssd_flops``: the least work of the chunked form."""
     from repro_torch.kernels import ssd_scan as ssd
     h, p, n, g = heads
-    args = ssd_inputs(gen, 1, s, heads, torch.float32)
+    args = ssd_inputs(gen, b, s, heads, dtype)
     chunk = ssd.model_chunk(s)
+    es = torch.finfo(dtype).bits // 8
 
     def check(got, want):
-        err_y, err_state, ok = ssd_compare(got, want, torch.float32)
+        err_y, err_state, ok = ssd_compare(got, want, dtype)
         return max(err_y, err_state), ok
     return timing_row(
-        "ssd_scan", f"B=1 S={s} H={h} P={p} N={n} G={g}", torch.float32,
+        "ssd_scan", f"B={b} S={s} H={h} P={p} N={n} G={g}", dtype,
         lambda: ssd.ssd_scan(*args), lambda: ssd.plain(*args, chunk=chunk),
-        None, nbytes=(2 * s * h * p + s * h + 2 * s * g * n + h * n * p) * 4,
-        flops=ssd_flops(s, heads), check=check)
+        None, nbytes=b * ((2 * s * h * p + 2 * s * g * n) * es
+                          + (s * h + h * n * p) * 4),
+        flops=b * ssd_flops(s, heads), check=check)
+
+
+def ssd_bwd_flops(s, heads):
+    """The fewest FLOPs of one sequence's scan backward in the chunked form
+    of ``plain_backward``, at the chunk length that needs least. Per chunk
+    of l steps and head: the states entering the chunks (B^T (w o dx),
+    2 l N P), the chain of dS ((C o exp(cs))^T dy, 2 l N P), B dS1, dy S0^T
+    and dx dS1^T (2 l N P each; y_off o dy and W reuse the last two), M^T dy
+    and G = dy dx^T over the causal pairs (l (l + 1) P each), (G o E) B and
+    (G o E)^T C (l (l + 1) N each), and the two state decays (N P each);
+    per chunk and group, the scores C B^T (l (l + 1) N). Exps and masks are
+    not counted."""
+    h, p, n, g = heads
+
+    def chunked(step):
+        total = 0
+        for start in range(0, s, step):
+            l = min(step, s - start)
+            total += (h * (10 * l * n * p + 2 * l * (l + 1) * (p + n)
+                           + 2 * n * p) + g * l * (l + 1) * n)
+        return total
+    return min(chunked(step) for step in range(1, min(s, 256) + 1))
+
+
+def time_ssd_bwd(gen, b, s, heads, dtype):
+    """The scan's backward as training calls it (no initial state, the
+    final state unused) over b sequences of s steps: kernel and
+    ``plain_backward`` on the same inputs, both in a CUDA graph. No single
+    PyTorch call computes it, so there is no library time. The bound counts
+    dx, dA, B, C and dy read once and ddx, ddA, dB and dC written once, and
+    ``ssd_bwd_flops``."""
+    from repro_torch.kernels import ssd_scan as ssd
+    h, p, n, g = heads
+    args = ssd_bwd_inputs(gen, b, s, heads, dtype, False, False)
+    es = torch.finfo(dtype).bits // 8
+
+    def check(got, want):
+        errs, ok = ssd_bwd_held(got, want, dtype)
+        return max(errs.values()), ok
+    return timing_row(
+        "ssd_scan_bwd", f"B={b} S={s} H={h} P={p} N={n} G={g}", dtype,
+        lambda: ssd.ssd_scan_backward(*args),
+        lambda: ssd.plain_backward(*args), None,
+        nbytes=b * s * ((3 * h * p + 4 * g * n) * es + 2 * h * 4),
+        flops=b * ssd_bwd_flops(s, heads), check=check)
 
 
 def time_matrix(gen, m, n):
@@ -1240,6 +1451,22 @@ def time_kernels(gen):
                          torch.float32, heads=VLM_HEADS)]
     paths += ["serve_encdec"] * 3 + ["train_encdec"] * 3 + ["int8_decode"] \
         + ["serve_vlm"] * 2
+    bf16 = torch.bfloat16
+    rows += [time_ssd(gen, SSM_TRAIN_SHAPE[1], b=SSM_TRAIN_SHAPE[0],
+                      dtype=bf16),
+             time_ssd_bwd(gen, *SSM_TRAIN_SHAPE, SSM_FULL, bf16),
+             time_ssd(gen, HYBRID_TRAIN_SHAPE[1], heads=SSM_HYMBA,
+                      b=HYBRID_TRAIN_SHAPE[0], dtype=bf16),
+             time_ssd_bwd(gen, *HYBRID_TRAIN_SHAPE, SSM_HYMBA, bf16)]
+    paths += ["train_ssm"] * 2 + ["train_hybrid"] * 2
+    for heads, path in ((DEEPSEEK_HEADS, "serve_deepseek"),
+                        (LLAMA4_HEADS, "serve_llama4")):
+        rows += [time_flash(gen, BIG_PROMPT, torch.float32, heads=heads,
+                            b=BIG_BATCH),
+                 time_decode(gen, BIG_MAX_LEN,
+                             [BIG_PROMPT + BIG_STEPS // 2] * BIG_BATCH,
+                             torch.float32, heads=heads)]
+        paths += [path] * 2
     for row, path in zip(rows, paths):
         row["path"] = path
     time_flash(gen, max(padded), torch.bfloat16)
@@ -1252,6 +1479,7 @@ def time_kernels(gen):
     time_ssd(gen, 2048)
     time_flash_bwd(gen, TRAIN_BATCH, TRAIN_SEQ, torch.float32)
     time_flash_bwd(gen, 16, 384, torch.bfloat16, heads=REWRITER_HEADS)
+    time_ssd_bwd(gen, *SSM_TRAIN_SHAPE, SSM_FULL, torch.float32)
     return rows
 
 
@@ -1499,7 +1727,7 @@ def profiled(run):
         raise AssertionError("the profiler recorded no device activity")
     busy, end = 0.0, float("-inf")
     by_kind = {"attention kernels": 0.0, "flash backward": 0.0,
-               "ssd_scan": 0.0,
+               "ssd_scan": 0.0, "ssd_scan backward": 0.0,
                "rowwise_cosine": 0.0, "cosine_matrix": 0.0, "matmul": 0.0,
                "other": 0.0}
     decode_kernels = 0
@@ -1513,6 +1741,9 @@ def profiled(run):
                 else "flash backward" if any(
                     k in name for k in ("bwd_delta", "bwd_dq_wgmma", "bwd_dkdv_wgmma"))
                 else "ssd_scan" if "ssd_scan_kernel" in name
+                else "ssd_scan backward" if any(
+                    k in name for k in ("bwd_states", "bwd_chunk",
+                                        "bwd_group_sum"))
                 else "rowwise_cosine" if "rowwise_" in name
                 else "cosine_matrix" if "matrix_kernel" in name
                 else "matmul" if any(k in name.lower() for k in (
@@ -1788,64 +2019,100 @@ def phase_train_synthetic():
                              f"(expected {want}) or a loss not finite")
 
 
-def phase_train(rows):
-    """``launch.train`` at full-width qwen2-0.5b (24 layers, fp32 weights
-    and AdamW moments, bf16 activations, each layer recomputed in the
-    backward), 12 steps of 8 x 512 tokens with a checkpoint every 4 steps:
-    every loss finite and the last below the first; the flash forward
-    launches twice per layer and step (the forward and remat's recompute),
-    the backward once, nothing else launches. Then two more steps from the
-    final state under torch.profiler for the card's idle share. Returns
-    the final state, for train_restart."""
+def train_launches(cfg, steps):
+    """The launches of ``steps`` training steps under remat: per layer and
+    step, each kernel's forward twice (the forward and remat's recompute)
+    and its backward once; flash for GQA attention, the scan for an SSM
+    mixer (a hybrid's layer has both); nothing else."""
+    per = {}
+    if cfg.attn_type == "gqa":
+        per.update(flash_attention=2, flash_attention_bwd=1)
+    if cfg.ssm is not None:
+        per.update(ssd_scan=2, ssd_scan_bwd=1)
+    return expect(**{k: v * cfg.n_layers * steps for k, v in per.items()})
+
+
+def phase_train(rows, phase="train", flags=TRAIN, ckpt=True):
+    """``launch.train`` at full width with ``flags``: fp32 weights and
+    AdamW moments, bf16 activations, each layer recomputed in the
+    backward. train: qwen2-0.5b (24 layers), 12 steps of 8 x 512 tokens
+    with a checkpoint every 4 steps (``ckpt``). train_ssm / train_hybrid:
+    mamba2-1.3b (48 layers, d_model 2048, 64 SSM heads of 64, d_state 128)
+    and hymba-1.5b at ``train_flags``, no checkpoint. Every loss finite and
+    the last below the first; the launches exactly ``train_launches``.
+    Then two more steps from the final state under torch.profiler for the
+    card's idle share. Without a checkpoint, and so no restart to show the
+    step deterministic, one gradient from the final state and the next
+    batch computed twice: the same bits. Returns the final state, for
+    train_restart."""
     import shutil
 
     from repro_torch.kernels import ops
     from repro_torch.launch import train
+    from repro_torch.models import registry
+    from repro_torch.training.train_loop import grad_tree
     shutil.rmtree(CKPT_ROOT, ignore_errors=True)
-    ckpt = os.path.join(CKPT_ROOT, "train")
+    ckpt_dir = os.path.join(CKPT_ROOT, phase)
+    args = train_args(ckpt_dir, flags)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    out = train.run(train_args(ckpt))
+    out = train.run(args)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    cfg, log = out["cfg"], out["log"]
+    cfg, log, state = out["cfg"], out["log"], out["state"]
     losses = [e["loss"] for e in log]
     step_s = [e["seconds"] for e in log]
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    want = expect(flash_attention=2 * cfg.n_layers * TRAIN_STEPS,
-                  flash_attention_bwd=cfg.n_layers * TRAIN_STEPS)
-    disk_free_gb = shutil.disk_usage(CKPT_ROOT).free / 1e9
-    state = out["state"]
+    tokens = args.batch * args.seq
+    want = train_launches(cfg, args.steps)
 
     def two_steps():  # from the final state; the new states are dropped
         for i in range(2):
-            out["train_step"](state, out["batch_fn"](TRAIN_STEPS + i))
+            out["train_step"](state, out["batch_fn"](args.steps + i))
     activity = profiled(two_steps)
     busy_step_ms = activity["device_busy_ms"] / 2
-    emit({"phase": "train", "flags": TRAIN, "arch": cfg.name,
+    extra, same = {}, True
+    if ckpt:
+        extra = {"stragglers": out["straggler"].flagged,
+                 "checkpoints": sorted(os.listdir(ckpt_dir)),
+                 "disk_free_gb": shutil.disk_usage(CKPT_ROOT).free / 1e9}
+    else:
+        bundle, batch = registry.build(cfg), out["batch_fn"](args.steps)
+        params = state["params"]
+        for p in leaves(params):
+            p.requires_grad_(True)
+
+        def gradient():
+            loss = bundle.loss_fn(params, batch, dtype=torch.bfloat16,
+                                  remat=True)
+            return leaves(grad_tree(loss, params))
+        first = gradient()
+        same = all(torch.equal(x, y) for x, y in zip(first, gradient()))
+        extra = {"gradient_bit_equal_twice": same}
+        del first
+    emit({"phase": phase, "flags": flags, "arch": cfg.name,
           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
           "params": sum(p.numel() for p in leaves(state["params"])),
           "steps": len(log), "seconds": out["seconds"],
-          "tok_per_s": TRAIN_STEPS * tokens / out["seconds"],
+          "tok_per_s": args.steps * tokens / out["seconds"],
           "step_s": step_s, "median_step_s": float(np.median(step_s)),
           "tok_per_s_median_step": tokens / float(np.median(step_s)),
           "loss_first": losses[0], "loss_last": losses[-1],
           "losses": losses, "grad_norm_last": log[-1]["grad_norm"],
-          "stragglers": out["straggler"].flagged,
-          "checkpoints": sorted(os.listdir(ckpt)),
-          "disk_free_gb": disk_free_gb, "peak_memory_gb": peak_gb,
-          "launches": counts, "profile_2_steps": activity,
+          "peak_memory_gb": peak_gb, "launches": counts,
+          "profile_2_steps": activity,
           "busy_ms_per_profiled_step": busy_step_ms,
           "idle_share_of_median_step":
-              1.0 - busy_step_ms / (1e3 * float(np.median(step_s)))})
-    shutil.rmtree(ckpt, ignore_errors=True)
+              1.0 - busy_step_ms / (1e3 * float(np.median(step_s))),
+          **extra})
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
     if counts != want:
-        raise AssertionError(f"train: launch counts {counts}, expected {want}")
-    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
-        raise AssertionError(f"train: losses {losses} not finite and falling")
-    set_launches(rows, counts, "train", "flash_attention",
-                 "flash_attention_bwd")
+        raise AssertionError(f"{phase}: launch counts {counts}, expected "
+                             f"{want}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0] and same):
+        raise AssertionError(f"{phase}: losses {losses} not finite and "
+                             f"falling, or a repeated gradient differs")
+    set_launches(rows, counts, phase, *(k for k, v in want.items() if v))
     return state
 
 
@@ -1898,23 +2165,24 @@ def phase_train_restart(reference):
                              "differs from the uninterrupted run's")
 
 
-def phase_cross_check_train():
+def phase_cross_check_train(phase="cross_check_train", arch="qwen2-0.5b",
+                            shape=(CROSS_BATCH, CROSS_SEQ)):
     """One training step's loss and gradient in fp32 on the card (the
-    flash kernels, forward and backward) and on the CPU (plain versions):
-    qwen2-0.5b at full width cut to its first TRAIN_CUT layers, on a
-    (2, 256) batch of the launcher's pipeline, with remat
-    (``cross_check_step``)."""
+    flash and scan kernels, forward and backward) and on the CPU (plain
+    versions): ``arch`` at full width cut to its first TRAIN_CUT layers,
+    on a batch of the launcher's pipeline, with remat
+    (``cross_check_step``). qwen2-0.5b and mamba2-1.3b at (2, 256);
+    hymba-1.5b at HYBRID_CROSS, past its window of 1024, with full
+    attention on its layer 0 and the window on the other three."""
     from dataclasses import replace
 
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import TokenPipeline
-    cfg = replace(get_config("qwen2-0.5b"), n_layers=TRAIN_CUT)
-    toks = TokenPipeline(vocab_size=cfg.vocab_size, global_batch=CROSS_BATCH,
-                         seq_len=CROSS_SEQ).batch_at(0)["tokens"]
-    cross_check_step("cross_check_train", cfg,
-                     {"tokens": torch.as_tensor(toks)},
-                     expect(flash_attention=2 * TRAIN_CUT,
-                            flash_attention_bwd=TRAIN_CUT))
+    cfg = replace(get_config(arch), n_layers=TRAIN_CUT)
+    toks = TokenPipeline(vocab_size=cfg.vocab_size, global_batch=shape[0],
+                         seq_len=shape[1]).batch_at(0)["tokens"]
+    cross_check_step(phase, cfg, {"tokens": torch.as_tensor(toks)},
+                     train_launches(cfg, 1))
 
 
 def cross_check_step(phase, cfg, batch, want):
@@ -2430,6 +2698,122 @@ def phase_cross_check_vlm(served):
         prefix=VLM_PREFIX)
 
 
+def phase_serve_big(rows, arch):
+    """``arch`` (deepseek-67b or llama4-scout-17b-a16e) at full width cut
+    to BIG_LAYERS[arch] layers, seeded random fp32 weights, through its
+    bundle: ``prefill`` of BIG_BATCH prompts of BIG_PROMPT seeded tokens,
+    then BIG_STEPS greedy ``decode_step``s (flash attention once per layer,
+    decode attention once per layer and step; llama4's MoE in plain
+    PyTorch); then the engine serves the demo prompts (flash once per
+    layer and prefill, decode once per layer and tick). Returns what the
+    cross-check needs."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.engine import ContinuousBatcher, GenerationEngine
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import DEMO_PROMPTS
+    from repro_torch.models import registry
+    phase, layers = BIG_PHASE[arch], BIG_LAYERS[arch]
+    cfg = replace(get_config(arch), n_layers=layers)
+    bundle = registry.build(cfg)
+    params = bundle.init(generator=torch.Generator("cuda").manual_seed(0),
+                         device="cuda")
+    gen = torch.Generator("cuda").manual_seed(3)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                     (BIG_BATCH, BIG_PROMPT), generator=gen,
+                                     device="cuda")}
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    logits, _, prefill_s, decode_s, cache = greedy_run(
+        bundle, params, batch, BIG_STEPS, BIG_MAX_LEN)
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = expect(flash_attention=layers, decode_attention=layers * BIG_STEPS)
+    finite = all(bool(torch.isfinite(x).all()) for x in logits)
+    pos = int(cache["pos"])
+    last = logits[-1][:, None].to(batch["tokens"].device)
+    activity = decode_profile(bundle, params, cache, last, 4)
+    engine = GenerationEngine(bundle, params, max_len=BIG_MAX_LEN, n_slots=4,
+                              device="cuda")
+    batcher = ContinuousBatcher(engine)
+    for p in DEMO_PROMPTS:
+        batcher.submit(p, max_new_tokens=8)
+    ops.reset_launch_counts()
+    finished = batcher.run()
+    torch.cuda.synchronize()
+    engine_counts = ops.launch_counts()
+    st = engine.stats
+    engine_want = expect(flash_attention=layers * st["prefills"],
+                         decode_attention=layers * st["decode_steps"])
+    emit({"phase": phase, "arch": cfg.name, "n_layers": layers,
+          "n_layers_published": get_config(arch).n_layers,
+          "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads,
+                                            cfg.head_dim],
+          "vocab": cfg.vocab_size,
+          "params": sum(p.numel() for p in leaves(params)),
+          "param_gb": tree_bytes(params) / 1e9, "batch": BIG_BATCH,
+          "prompt": BIG_PROMPT, "max_len": BIG_MAX_LEN,
+          "prefill_s": prefill_s, "decode_s": decode_s,
+          "decode_s_per_step": decode_s / BIG_STEPS,
+          "new_tok_per_s": BIG_BATCH * BIG_STEPS / decode_s,
+          "peak_memory_gb": peak_gb, "pos": pos, "finite": finite,
+          "launches": counts, "profile_4_steps": activity,
+          "engine": {"requests": len(finished), "prefills": st["prefills"],
+                     "decode_steps": st["decode_steps"],
+                     "prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
+                     "launches": engine_counts}})
+    if counts != want or engine_counts != engine_want:
+        raise AssertionError(f"{phase}: launch counts {counts} / "
+                             f"{engine_counts}, expected {want} / "
+                             f"{engine_want}")
+    if not (finite and pos == BIG_PROMPT + BIG_STEPS
+            and len(finished) == len(DEMO_PROMPTS) and st["decode_steps"]
+            and all(r.output_ids for r in finished.values())):
+        raise AssertionError(f"{phase}: logits not finite, the position "
+                             f"wrong, or a request unfinished")
+    set_launches(rows, counts, phase, "flash_attention", "decode_attention")
+    return cfg, params, batch
+
+
+def phase_cross_check_big(arch, served):
+    """The serve_deepseek / serve_llama4 run cut to its first BIG_CUT layer
+    at full width on the same prompts, card against CPU
+    (``check_against_cpu``: the prefill and 4 steps)."""
+    from dataclasses import replace
+
+    from repro_torch.models import registry
+    cfg, params, batch = served
+    cut = dict(params)
+    cut["layers"] = layers_upto(params["layers"], BIG_CUT)
+    check_against_cpu(
+        "cross_check_" + BIG_PHASE[arch].split("_")[1],
+        registry.build(replace(cfg, n_layers=BIG_CUT)), cut, batch, 4,
+        BIG_MAX_LEN,
+        expect(flash_attention=BIG_CUT, decode_attention=BIG_CUT * 4))
+
+
+def ssm_training_phases(rows):
+    phase_train(rows, "train_ssm", train_flags("mamba2-1.3b", SSM_TRAIN_SHAPE),
+                ckpt=False)
+    release()
+    phase_cross_check_train("cross_check_train_ssm", "mamba2-1.3b")
+    release()
+    phase_train(rows, "train_hybrid",
+                train_flags("hymba-1.5b", HYBRID_TRAIN_SHAPE), ckpt=False)
+    release()
+    phase_cross_check_train("cross_check_train_hybrid", "hymba-1.5b",
+                            HYBRID_CROSS)
+
+
+def big_phases(rows):
+    for arch in BIG_LAYERS:
+        served = phase_serve_big(rows, arch)
+        phase_cross_check_big(arch, served)
+        del served
+        release()
+
+
 def encdec_phases(rows):
     served = phase_serve_encdec(rows)
     phase_cross_check_encdec(served)
@@ -2499,7 +2883,8 @@ def main():
     rows = phase_kernels()
     for phases in (qwen2_phases, ssm_phases, hybrid_phases, codeqwen_phases,
                    moe_phases, mla_phases, training_phases, encdec_phases,
-                   phase_int8_decode, vlm_phases):
+                   phase_int8_decode, vlm_phases, ssm_training_phases,
+                   big_phases):
         phases(rows)
         release()
     phase_window_decode()

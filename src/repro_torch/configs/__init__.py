@@ -146,7 +146,7 @@ class ModelConfig:
 
 ARCH_IDS = ("qwen2-0.5b", "mamba2-1.3b", "hymba-1.5b", "codeqwen1.5-7b",
             "granite-moe-1b-a400m", "minicpm3-4b", "internvl2-76b",
-            "seamless-m4t-large-v2")
+            "seamless-m4t-large-v2", "deepseek-67b", "llama4-scout-17b-a16e")
 
 
 def _mod_name(arch_id: str) -> str:

@@ -26,7 +26,8 @@ _KERNELS = {"flash_attention": fa_mod.stats,
             "flash_attention_bwd": fa_mod.bwd_stats,
             "decode_attention": dec_mod.stats,
             "rowwise_cosine": sim_mod.stats,
-            "cosine_matrix": sim_mod.matrix_stats, "ssd_scan": ssd_mod.stats}
+            "cosine_matrix": sim_mod.matrix_stats, "ssd_scan": ssd_mod.stats,
+            "ssd_scan_bwd": ssd_mod.bwd_stats}
 
 
 def launch_counts() -> dict:
@@ -76,9 +77,11 @@ def ssd_scan(dx, dA, B, C, initial_state=None, *, chunk: int = 0):
     """dx (B, S, H, P); dA (B, S, H); B/C (B, S, G, N). Returns (y,
     final_state (B, H, N, P) fp32). The plain version takes the JAX chunk
     rule (``chunk`` or min(256, S), halved until it divides S); the kernel
-    takes any S with its own chunk, and ignores ``chunk``."""
+    takes any S with its own chunk, and ignores ``chunk``. Differentiable
+    on both devices: on the card through the backward kernel
+    (``ssd_scan.scan``), on the CPU by autograd of the plain version."""
     if dx.is_cuda:
-        return ssd_mod.ssd_scan(dx, dA, B, C, initial_state)
+        return ssd_mod.scan(dx, dA, B, C, initial_state)
     return ssd_mod.plain(dx, dA, B, C, initial_state,
                          chunk=ssd_mod.model_chunk(dx.shape[1], chunk))
 

@@ -10,7 +10,15 @@ backward); ``--reduced --device cpu`` trains the same-family tiny config on
 the CPU. ``--arch seamless-m4t-large-v2`` trains the encoder-decoder
 (2.03B parameters; each batch's encoder input is seeded random frame
 embeddings as long as its tokens, as in the reference), and a VLM config
-(``internvl2-76b``) trains with seeded random prefix embeddings. The
+(``internvl2-76b``) trains with seeded random prefix embeddings.
+``--arch mamba2-1.3b`` and ``--arch hymba-1.5b`` train the SSM and the
+hybrid at full width on one card (the scan's backward kernel, and for
+hymba the flash backward with its window of 1024). What one card's 80 GB
+hold at full width: qwen2-0.5b, mamba2-1.3b, hymba-1.5b,
+granite-moe-1b-a400m and seamless-m4t-large-v2; the larger configs
+(codeqwen1.5-7b, minicpm3-4b, deepseek-67b, internvl2-76b,
+llama4-scout-17b-a16e) train only ``--reduced`` until the port has a
+mesh. The
 batches are the pipeline's synthetic ones, uniform random tokens, as the
 reference's are: nothing in them can be learnt, so the loss stays near
 ln(vocab). ``--corpus movie|estate|game`` feeds the pipeline's
@@ -78,7 +86,10 @@ def synthetic_batch_fn(cfg, batch: int, seq: int, seed: int = 0,
 
 def build_parser():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen2-0.5b")
+    ap.add_argument("--arch", default="qwen2-0.5b",
+                    help="a config of configs.ARCH_IDS; at full width one "
+                         "card trains qwen2-0.5b, mamba2-1.3b, hymba-1.5b, "
+                         "granite-moe-1b-a400m and seamless-m4t-large-v2")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=4)

@@ -275,6 +275,32 @@ def test_train_launcher_on_cpu(tmp_path, capsys):
     assert [e["step"] for e in again["log"]] == [4, 5]
 
 
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "hymba-1.5b"])
+def test_train_launcher_trains_ssm_and_hybrid_on_cpu(tmp_path, capsys,
+                                                     arch):
+    """The SSM and hybrid families through ``launch.train`` reduced on the
+    CPU (the scan's gradient by autograd of its plain version): 2 steps
+    with a checkpoint after each; a run with a failure after step 0
+    restarts from that checkpoint and ends with the same bits."""
+    from repro_torch.launch import train
+    flags = ["--arch", arch, "--reduced", "--device", "cpu", "--steps", "2",
+             "--batch", "2", "--seq", "40", "--ckpt-every", "1"]
+    losses = train.main(flags + ["--ckpt-dir", str(tmp_path / "a")])
+    assert f"[train] arch={arch}-smoke" in capsys.readouterr().out
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    assert ck.committed_steps(str(tmp_path / "a")) == [0, 1]
+    args = train.build_parser().parse_args(
+        flags + ["--ckpt-dir", str(tmp_path / "b")])
+    restarted = train.run(args, fail_at={0})
+    assert restarted["restarts"] == 1
+    assert [e["loss"] for e in restarted["log"] if "loss" in e][-1] \
+        == losses[-1]
+    _, whole = ck.restore(str(tmp_path / "a"), 1, device="cpu")
+    for x, y in zip(opt_mod.leaves(restarted["state"]),
+                    opt_mod.leaves(whole)):
+        assert torch.equal(x.detach(), y.detach())
+
+
 def test_training_entry_points_default_to_cuda():
     import inspect
     from repro_torch.examples import train_rewriter

@@ -27,6 +27,7 @@ COPIES = [
     "configs/hymba_1_5b.py", "configs/codeqwen1_5_7b.py",
     "configs/granite_moe_1b_a400m.py", "configs/minicpm3_4b.py",
     "configs/internvl2_76b.py", "configs/seamless_m4t_large_v2.py",
+    "configs/deepseek_67b.py", "configs/llama4_scout_17b_a16e.py",
     "testing.py",
     "distributed/process_workers.py",
 ]

@@ -177,7 +177,7 @@ def test_cpu_path_launches_no_kernel():
                                    "flash_attention_bwd": 0,
                                    "decode_attention": 0,
                                    "rowwise_cosine": 0, "cosine_matrix": 0,
-                                   "ssd_scan": 0}
+                                   "ssd_scan": 0, "ssd_scan_bwd": 0}
 
 
 def test_launch_counts_are_exact_across_threads():
@@ -309,8 +309,13 @@ def test_library_name_follows_included_headers(tmp_path, monkeypatch):
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
-    # every kernel includes hopper.cuh; ssd_scan.cu also includes a header
-    # of its own in this copy, and only ssd_scan's name follows that one
+    # every forward kernel and the flash backward include hopper.cuh (the
+    # SSD backward, on the CUDA cores, includes none); ssd_scan.cu also
+    # includes a header of its own in this copy, and only ssd_scan's name
+    # follows that one
+    users = {n for n in _build.SOURCES
+             if csrc / "hopper.cuh" in _build._sources(csrc / f"{n}.cu")}
+    assert users == set(_build.SOURCES) - {"ssd_scan_bwd"}
     src = csrc / "ssd_scan.cu"
     src.write_text('#include "extra.cuh"\n' + src.read_text())
     (csrc / "extra.cuh").write_text("// extra\n")
@@ -321,7 +326,7 @@ def test_library_name_follows_included_headers(tmp_path, monkeypatch):
     header = csrc / "hopper.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     again = {n: _build._library_path(n) for n in _build.SOURCES}
-    assert {n for n in after if after[n] != again[n]} == set(_build.SOURCES)
+    assert {n for n in after if after[n] != again[n]} == users
 
 
 def test_flash_rows_must_be_16_byte_aligned():

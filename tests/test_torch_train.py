@@ -57,7 +57,8 @@ from torch_parity import (flatten_params, model_pair, random_tokens,  # noqa: E4
 LIMIT_S = 60
 LOSS_RTOL = 1e-5
 GRAD_TOL = 1e-4
-ARCHS = ["qwen2-0.5b", "granite-moe-1b-a400m"]
+ARCHS = ["qwen2-0.5b", "granite-moe-1b-a400m", "mamba2-1.3b", "hymba-1.5b",
+         "minicpm3-4b", "llama4-scout-17b-a16e"]
 
 
 @pytest.fixture(autouse=True)
@@ -93,12 +94,27 @@ def flat_torch(tree, prefix=()):
     return out
 
 
-def assert_leaves_close(got, want, tol):
-    """Every leaf within ``tol`` of the JAX leaf's largest |value|."""
+# Gradient leaves that are zero in exact arithmetic: a top-1 MoE
+# renormalises its one routing weight to exactly 1, so its router gets no
+# gradient, and both sides hold rounding noise there (~3e-9 against
+# leaves of ~1). Each is held to be zero on both sides instead: within
+# 1e-7 of the largest |value| of any leaf.
+ZERO_LEAVES = {"llama4-scout-17b-a16e-smoke": {"layers/ffn/router/w"}}
+
+
+def assert_leaves_close(got, want, tol, zero=()):
+    """Every leaf within ``tol`` of the JAX leaf's largest |value|; the
+    leaves named in ``zero`` within 1e-7 of the largest leaf's on both
+    sides."""
     want = {k: a for k, (a, _) in want.items()}
     assert set(got) == set(want)
+    top = max(float(np.abs(w).max()) for w in want.values())
     for name, g in got.items():
         w = want[name]
+        if name in zero:
+            assert float(np.abs(w).max()) <= 1e-7 * top, name
+            assert float(g.detach().abs().max()) <= 1e-7 * top, name
+            continue
         scale = max(float(np.abs(w).max()), 1e-30)
         err = float(np.abs(g.detach().numpy() - w).max())
         assert err <= tol * scale, (name, err, scale)
@@ -141,7 +157,7 @@ def test_loss_and_gradients_match_jax(pair, remat):
     grads = torch.autograd.grad(loss, [flat_torch(params)[n] for n in names])
     assert float(loss.detach()) == pytest.approx(float(jloss), rel=LOSS_RTOL)
     assert_leaves_close(dict(zip(names, grads)), flatten_params(jgrads),
-                        GRAD_TOL)
+                        GRAD_TOL, ZERO_LEAVES.get(cfg.name, ()))
 
 
 @pytest.mark.parametrize("heads", [(4, 2, 32), (14, 2, 64)])
@@ -191,20 +207,24 @@ def test_plain_backward_is_autograd_of_plain():
 
 
 def test_wrappers_without_backward_refuse_grad():
-    """The four kernels with no backward raise under grad rather than
+    """The three kernels with no backward raise under grad rather than
     return a tensor that cuts the graph; no grad (serving) passes the
-    check and reaches the device check."""
+    check and reaches the device check. ``ssd_scan`` has a backward
+    kernel: under grad its wrapper and its differentiable entry point
+    ``scan`` reach the device check too."""
     x = torch.randn(2, 8, 4, 16, requires_grad=True)
     lens = torch.tensor([3, 8], dtype=torch.int32)
     calls = [lambda: dec.decode_attention(x[:, :1], x, x, lens),
              lambda: sim.rowwise_cosine(x[0, :, 0], x[0, :, 1]),
-             lambda: sim.cosine_matrix(x[0, :, 0], x[0, :, 1]),
-             lambda: ssd.ssd_scan(x, x[..., 0], x[:, :, :1], x[:, :, :1])]
+             lambda: sim.cosine_matrix(x[0, :, 0], x[0, :, 1])]
     for call in calls:
         with pytest.raises(NotImplementedError, match="no backward"):
             call()
         with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
             call()
+    for fn in (ssd.ssd_scan, ssd.scan):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(x, x[..., 0], x[:, :, :1], x[:, :, :1])
     _build.refuse_grad("x", torch.ones(2), None)   # needs none: passes
 
 
@@ -343,17 +363,29 @@ def test_train_step_microbatches_match_jax_and_one_batch(pair):
     # rounding-sized difference in g moves it by up to 2 lr. So the params
     # are compared within 1e-3 lr where JAX's |g| > 100 eps, and within
     # 2.2 lr (the most a first step moves them, decay included) elsewhere.
+    # AdamW sees the gradient after clipping (x min(1, clip_norm / norm)):
+    # an entry that clipping leaves at 20 eps or less is held to 2.2 lr
+    # alone (a large norm, as the reduced SSM, hybrid and MLA models have,
+    # puts entries there). An entry with no gradient at all (an untied
+    # embedding's rows of tokens the batch does not hold) moves by the decay
+    # alone, the same on both sides, so it is held within 1e-3 lr too.
     jg = flatten_params(jax.grad(lambda p: jbundle.loss_fn(
         p, {"tokens": jnp.asarray(toks)}, dtype=jnp.float32,
         remat=False))(jparams))
+    clip = min(1.0, ocfg.clip_norm / float(jm["grad_norm"]))
     want = flatten_params(jnew["params"])
     for name, p in flat_torch(new[2]["params"]).items():
-        big = np.abs(jg[name][0]) > 100 * ocfg.eps
-        assert big.mean() > 0.5, name
+        g = np.abs(jg[name][0])
+        strict = ((g > 100 * ocfg.eps) & (g * clip > 20 * ocfg.eps)) \
+            | (g == 0)
+        # (a leaf of ZERO_LEAVES holds rounding noise: it moves by up to
+        # 2 lr on either side, as the bound below allows)
+        assert strict.mean() > 0.5 or name in ZERO_LEAVES.get(cfg.name, ()), \
+            name
         for other in (want[name][0], flat_torch(new[1]["params"])[name]
                       .detach().numpy()):
             err = np.abs(p.detach().numpy() - other)
-            assert err[big].max(initial=0) <= 1e-3 * ocfg.lr, name
+            assert err[strict].max(initial=0) <= 1e-3 * ocfg.lr, name
             assert err.max() <= 2.2 * ocfg.lr, name
 
 
@@ -504,15 +536,17 @@ def test_backward_kernel_is_deterministic_on_card(cuda, case):
 
 @pytest.mark.gpu
 def test_wrappers_refuse_grad_on_card(cuda):
+    """The three kernels with no backward raise under grad on the card;
+    the SSD scan's differentiable entry point records a graph."""
     x = torch.randn(2, 8, 4, 16, device=cuda, requires_grad=True)
     lens = torch.tensor([3, 8], dtype=torch.int32, device=cuda)
     for call in (lambda: dec.decode_attention(x[:, :1], x, x, lens),
                  lambda: sim.rowwise_cosine(x[0, :, 0], x[0, :, 1]),
-                 lambda: sim.cosine_matrix(x[0, :, 0], x[0, :, 1]),
-                 lambda: ssd.ssd_scan(x, x[..., 0].float(), x[:, :, :1],
-                                      x[:, :, :1])):
+                 lambda: sim.cosine_matrix(x[0, :, 0], x[0, :, 1])):
         with pytest.raises(NotImplementedError, match="no backward"):
             call()
+    y, state = ssd.scan(x, x[..., 0].float(), x[:, :, :1], x[:, :, :1])
+    assert y.grad_fn is not None and state.grad_fn is not None
 
 
 @pytest.mark.gpu
