@@ -193,6 +193,7 @@ of the repository beside it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -333,6 +334,16 @@ def train_flags(arch, shape):
     return ["--arch", arch, "--steps", str(SSM_TRAIN_STEPS), "--batch",
             str(shape[0]), "--seq", str(shape[1]), "--corpus", "movie",
             "--ckpt-every", "1000"]
+
+# train_mesh: granite-moe-1b-a400m at full width through the shard_map MoE
+# on a (1, 1) mesh over a one-rank NCCL group, MESH_STEPS steps of
+# TRAIN_BATCH x TRAIN_SEQ, a checkpoint (16 GB: fp32 params and moments)
+# after MESH_CKPT_AT steps restored onto the mesh; the card-vs-CPU step cut
+# to MESH_CUT layers at (CROSS_BATCH, CROSS_SEQ). The process group's
+# FileStore lives under the git-ignored build/.
+MESH_ARCH, MESH_STEPS, MESH_CKPT_AT, MESH_CUT = ("granite-moe-1b-a400m", 8,
+                                                 4, 2)
+MESH_STORE = os.path.join(ROOT, "build", "mesh_store")
 
 # serve_deepseek / serve_llama4: at full width, cut in depth to what one
 # card holds with room for the run (BIG_LAYERS: deepseek-67b ~2.8 GB fp32 a
@@ -1040,12 +1051,16 @@ def flash_shape(b, s, sk, heads, causal):
             + ("causal" if causal else "non-causal"))
 
 
-def time_flash(gen, s, dtype, heads=FULL_HEADS, b=1, causal=True, sk=None):
+def time_flash(gen, s, dtype, heads=FULL_HEADS, b=1, causal=True, sk=None,
+               lse=False):
     """Prefill of b sequences of s tokens over ``heads``, causal, or
     non-causal against sk keys (sk = s by default; cross-attention): kernel,
     plain version and SDPA timed on the same inputs; the bound counts q, k,
     v read once, o written once and 4 * D FLOPs per attended (query, key)
-    pair, at the dtype's peak (fp32: 3xTF32)."""
+    pair, at the dtype's peak (fp32: 3xTF32). With ``lse`` the kernel also
+    writes the log-sum-exp, as the training forward calls it (the bound
+    counts its fp32 rows written, the plain version computes it too, and it
+    is held within LSE_ATOL)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -1055,13 +1070,27 @@ def time_flash(gen, s, dtype, heads=FULL_HEADS, b=1, causal=True, sk=None):
                           sk=sk)
     kw = dict(causal=causal, window=0, q_offset=0, sk_valid=sk)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    kernel = lambda: fa.flash_attention(q, k, v, **kw)  # noqa: E731
+    plain = lambda: fa.plain(q, k, v, **kw)  # noqa: E731
+    check, shape = None, flash_shape(b, s, sk, heads, causal)
+    if lse:
+        kernel = lambda: fa.flash_attention(q, k, v,  # noqa: E731
+                                            return_lse=True, **kw)
+        plain = lambda: (fa.plain(q, k, v, **kw),  # noqa: E731
+                         fa.plain_lse(q, k, **kw))
+
+        def check(got, want):
+            err, ok = held(got[0], want[0], dtype)
+            lse_err = max_err(got[1], want[1])
+            return max(err, lse_err), ok and lse_err <= LSE_ATOL
+        shape += " +lse"
     return timing_row(
-        "flash_attention", flash_shape(b, s, sk, heads, causal), dtype,
-        lambda: fa.flash_attention(q, k, v, **kw), lambda: fa.plain(q, k, v, **kw),
+        "flash_attention", shape, dtype, kernel, plain,
         lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                                enable_gqa=True),
-        nbytes=b * (2 * s * hq * d + 2 * sk * hkv * d) * q.element_size(),
-        flops=4 * d * hq * attended_pairs(b, s, sk, causal))
+        nbytes=b * (2 * s * hq * d + 2 * sk * hkv * d) * q.element_size()
+        + (4 * b * s * hq if lse else 0),
+        flops=4 * d * hq * attended_pairs(b, s, sk, causal), check=check)
 
 
 def queued_ms(fn, reps=20, windows=5):
@@ -1411,7 +1440,9 @@ def time_kernels(gen):
     qwen2's decode over the dequantized int8 cache (int8_decode: 4 slots,
     64 prompt tokens and 24 steps); internvl2-76b's prefill (256 prefix
     embeddings + 32 tokens) and decode step (4 slots at ~556 of a
-    576-entry cache), 64 over 8 heads of 128, fp32."""
+    576-entry cache), 64 over 8 heads of 128, fp32. train_mesh's rows:
+    granite-moe-1b-a400m's flash forward with its log-sum-exp and its
+    backward at B = 8, S = 512 over 16/8 heads of 64 in bf16."""
     lens, padded = served_prefill_lengths()
     plots = movie_rows()
     mid = [n + 12 for n in lens[:4]]
@@ -1466,6 +1497,11 @@ def time_kernels(gen):
                       b=HYBRID_TRAIN_SHAPE[0], dtype=bf16),
              time_ssd_bwd(gen, *HYBRID_TRAIN_SHAPE, SSM_HYMBA, bf16)]
     paths += ["train_ssm"] * 2 + ["train_hybrid"] * 2
+    rows += [time_flash(gen, TRAIN_SEQ, bf16, heads=GRANITE_HEADS,
+                        b=TRAIN_BATCH, lse=True),
+             time_flash_bwd(gen, TRAIN_BATCH, TRAIN_SEQ, bf16,
+                            heads=GRANITE_HEADS)]
+    paths += ["train_mesh"] * 2
     for heads, path in ((DEEPSEEK_HEADS, "serve_deepseek"),
                         (LLAMA4_HEADS, "serve_llama4")):
         rows += [time_flash(gen, BIG_PROMPT, torch.float32, heads=heads,
@@ -1736,7 +1772,7 @@ def profiled(run):
     by_kind = {"attention kernels": 0.0, "flash backward": 0.0,
                "ssd_scan": 0.0, "ssd_scan backward": 0.0,
                "rowwise_cosine": 0.0, "cosine_matrix": 0.0, "matmul": 0.0,
-               "other": 0.0}
+               "collectives": 0.0, "other": 0.0}
     decode_kernels = 0
     by_name = {}
     for start, stop, name in spans:
@@ -1755,6 +1791,7 @@ def profiled(run):
                 else "cosine_matrix" if "matrix_kernel" in name
                 else "matmul" if any(k in name.lower() for k in (
                     "gemm", "gemv", "nvjet"))
+                else "collectives" if "nccl" in name.lower()
                 else "other")
         by_kind[kind] += stop - start
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
@@ -2192,7 +2229,7 @@ def phase_cross_check_train(phase="cross_check_train", arch="qwen2-0.5b",
                      train_launches(cfg, 1))
 
 
-def cross_check_step(phase, cfg, batch, want):
+def cross_check_step(phase, cfg, batch, want, moe_ctx=None):
     """One training step's loss and gradient in fp32 on the card and on the
     CPU from the same weights, seeded on the CPU and carried to the card
     through ``convert.params_from_numpy``, on ``batch`` (CPU tensors), with
@@ -2200,7 +2237,7 @@ def cross_check_step(phase, cfg, batch, want):
     relative and the grad norm 1e-4 relative; every gradient leaf within
     1e-4 of its largest |value| (fp32 sums in other orders through the
     layers and their backward, as the CPU tests hold the port against
-    JAX)."""
+    JAX). ``moe_ctx``: each side's (by device) for the loss."""
     from repro_torch import convert
     from repro_torch.kernels import ops
     from repro_torch.models import registry
@@ -2227,7 +2264,8 @@ def cross_check_step(phase, cfg, batch, want):
         ops.reset_launch_counts()
         loss = bundle.loss_fn(params, {k: v.to(side) for k, v in
                                        batch.items()},
-                              dtype=torch.float32, remat=True)
+                              dtype=torch.float32, remat=True,
+                              moe_ctx=(moe_ctx or {}).get(side))
         grads = grad_tree(loss, params)
         out[side] = (float(loss.detach()), float(global_norm(grads)), grads,
                      ops.launch_counts())
@@ -2800,6 +2838,235 @@ def phase_cross_check_big(arch, served):
         expect(flash_attention=BIG_CUT, decode_attention=BIG_CUT * 4))
 
 
+@contextlib.contextmanager
+def one_rank_group(backend):
+    """A one-rank process group (``backend``: "nccl", or "cpu:gloo,cuda:nccl"
+    for CPU and CUDA tensors side by side) through a FileStore under the
+    git-ignored build/, bound to the card; destroyed on exit, so that the
+    later phases run as before. A failed collective raises through it."""
+    import torch.distributed as dist
+    os.makedirs(os.path.dirname(MESH_STORE), exist_ok=True)
+    if os.path.exists(MESH_STORE):
+        os.remove(MESH_STORE)
+    dist.init_process_group(backend, store=dist.FileStore(MESH_STORE, 1),
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(MESH_STORE):
+            os.remove(MESH_STORE)
+
+
+def mesh_collectives(cfg, steps):
+    """The all-reduces of ``steps`` training steps through the shard_map
+    MoE under remat, by mesh axis. Per MoE layer and step: over model, the
+    output's sum in the forward (remat's recompute stops at the layer's
+    last saved tensor, before the sum) and the partial gradients of x and
+    of the router in the backward; over data, the gradients of the router
+    and of the three expert stacks (and of a shared expert's three)."""
+    n = cfg.n_layers * steps
+    return {"model": 3 * n,
+            "data": (4 + (3 if cfg.moe.shared_expert_ff else 0)) * n}
+
+
+def local_tree(tree, device=None):
+    """Each leaf's local tensor (a DTensor's shard, here the whole leaf),
+    detached, on ``device`` (where it is by default)."""
+    from torch.distributed.tensor import DTensor
+    return {k: local_tree(v, device) if isinstance(v, dict) else
+            (v.to_local() if isinstance(v, DTensor) else v).detach().to(
+                device or v.device.type)
+            for k, v in tree.items()}
+
+
+def phase_train_mesh(rows):
+    """Full-width granite-moe-1b-a400m trained through the shard_map MoE on
+    a (data 1, model 1) mesh over a one-rank NCCL group: the train state
+    placed by the train-mode rules, MESH_STEPS steps of TRAIN_BATCH x
+    TRAIN_SEQ movie-plot tokens (fp32 weights and AdamW moments, bf16
+    activations, remat), a checkpoint with the state's logical axes after
+    MESH_CKPT_AT steps. Launches exactly ``train_launches``, all-reduces
+    exactly ``mesh_collectives``; losses finite and falling. Then the
+    checkpoint restored onto the mesh runs the remaining steps again: its
+    losses and every leaf of its final state must be bit-equal to the
+    uninterrupted run's. ``remesh`` of that state to the serve-mode rules
+    must leave every value bit-equal, and ``compressed_psum`` over the data
+    axis of two gradient leaves (the router's and the embedding's) must
+    equal ``compress_decompress`` bit for bit. Two more steps under
+    torch.profiler for the idle share and device time by kind."""
+    import shutil
+
+    from repro_torch.checkpoint import checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import elastic
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import registry
+    from repro_torch.training import compression
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training import train_loop
+    cfg = get_config(MESH_ARCH)
+    bundle = registry.build(cfg)
+    axes = train_loop.state_axes(bundle.param_axes())
+    ckpt_dir = os.path.join(CKPT_ROOT, "train_mesh")
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    with one_rank_group("nccl"):
+        mesh = make_host_mesh()
+        rules = shd.make_rules(cfg, mesh, "train")
+        ctx = {"impl": "shardmap", "mesh": mesh,
+               "dp_axes": shd.dp_axes(mesh)}
+        step_fn = train_loop.make_train_step(
+            bundle, opt_mod.AdamWConfig(lr=3e-4, warmup_steps=10,
+                                        total_steps=MESH_STEPS),
+            remat=True, moe_ctx=ctx)
+        batch_fn = train.synthetic_batch_fn(
+            cfg, TRAIN_BATCH, TRAIN_SEQ,
+            documents=train.corpus_documents("movie"))
+
+        def run(state, first, save):
+            losses, secs = [], []
+            for i in range(first, MESH_STEPS):
+                t0 = time.perf_counter()
+                state, metrics = step_fn(state, batch_fn(i))
+                losses.append(float(metrics["loss"]))
+                secs.append(time.perf_counter() - t0)
+                if save and i + 1 == MESH_CKPT_AT:
+                    checkpoint.save(ckpt_dir, i + 1, state, axes=axes)
+            return state, losses, secs
+
+        torch.cuda.reset_peak_memory_stats()
+        state = train_loop.init_train_state(
+            bundle, torch.Generator("cuda").manual_seed(0))
+        state = shd.place(state, shd.sharding_for_tree(state, axes, rules,
+                                                        mesh))
+        placements = {n: str(x.placements) for n, x in (
+            ("embed", state["params"]["embed"]["embedding"]),
+            ("expert_gate", state["params"]["layers"]["ffn"]["gate"]["w"]))}
+        ops.reset_launch_counts()
+        shd.reset_collective_counts()
+        t0 = time.perf_counter()
+        state, losses, secs = run(state, 0, save=True)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts, colls = ops.launch_counts(), shd.collective_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+        def two_steps():  # from the final state; the new states are dropped
+            for i in range(2):
+                step_fn(state, batch_fn(MESH_STEPS + i))
+        activity = profiled(two_steps)
+        busy_step_ms = activity["device_busy_ms"] / 2
+        ckpt_gb = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in
+                      os.walk(ckpt_dir) for f in fs) / 1e9
+        want_host = local_tree(state, "cpu")
+        del state
+        release()
+
+        step, restored = checkpoint.restore(ckpt_dir, mesh=mesh, rules=rules)
+        ops.reset_launch_counts()
+        restored, losses_b, _ = run(restored, step, save=False)
+        torch.cuda.synchronize()
+        counts_b = ops.launch_counts()
+        same = [torch.equal(x.cpu(), y) for x, y in zip(
+            leaves(local_tree(restored)), leaves(want_host))]
+        del want_host
+
+        serve = elastic.remesh(restored, mesh, mesh,
+                               shd.make_rules(cfg, mesh, "serve"), axes=axes)
+        remesh_same = all(torch.equal(x, y) for x, y in zip(
+            leaves(local_tree(serve)), leaves(local_tree(restored))))
+        del serve
+
+        local = local_tree(restored["params"])
+        for p in leaves(local):
+            p.requires_grad_(True)
+        loss = bundle.loss_fn(local, batch_fn(MESH_STEPS), moe_ctx=ctx)
+        grads = train_loop.grad_tree(loss, local)
+        psum_same = {}
+        for name, g in (("layers/ffn/router/w",
+                         grads["layers"]["ffn"]["router"]["w"]),
+                        ("embed/embedding",
+                         grads["embed"]["embedding"])):
+            psum_same[name] = torch.equal(
+                compression.compressed_psum(g, mesh.get_group("data")),
+                compression.compress_decompress(g))
+        del local, grads, loss, restored
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    want = train_launches(cfg, MESH_STEPS)
+    want_b = train_launches(cfg, MESH_STEPS - step)
+    want_colls = mesh_collectives(cfg, MESH_STEPS)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    median = float(np.median(secs))
+    emit({"phase": "train_mesh", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "params": cfg.param_count(),
+          "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+          "backend": "nccl", "placements": placements,
+          "batch": [TRAIN_BATCH, TRAIN_SEQ], "steps": MESH_STEPS,
+          "seconds": seconds, "step_s": secs, "median_step_s": median,
+          "tok_per_s_median_step": tokens / median,
+          "loss_first": losses[0], "loss_last": losses[-1],
+          "losses": losses, "peak_memory_gb": peak_gb,
+          "checkpoint_gb": ckpt_gb, "launches": counts,
+          "collectives": colls, "collectives_expected": want_colls,
+          "profile_2_steps": activity,
+          "busy_ms_per_profiled_step": busy_step_ms,
+          "idle_share_of_median_step": 1.0 - busy_step_ms / (1e3 * median),
+          "restored_at_step": step, "losses_restored": losses_b,
+          "launches_restored": counts_b,
+          "restored_losses_bit_equal": losses_b == losses[step:],
+          "restored_leaves_bit_equal": sum(same), "leaves": len(same),
+          "remesh_serve_bit_equal": remesh_same,
+          "compressed_psum_bit_equal": psum_same})
+    if counts != want or counts_b != want_b or colls != want_colls:
+        raise AssertionError(f"train_mesh: launches {counts} / {counts_b} "
+                             f"(expected {want} / {want_b}) or all-reduces "
+                             f"{colls} (expected {want_colls})")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"train_mesh: losses {losses} not finite and "
+                             f"falling")
+    if not (step == MESH_CKPT_AT and losses_b == losses[step:] and all(same)
+            and remesh_same and all(psum_same.values())):
+        raise AssertionError("train_mesh: the run restored onto the mesh, "
+                             "the remeshed state or compressed_psum differs")
+    set_launches(rows, counts, "train_mesh", "flash_attention",
+                 "flash_attention_bwd")
+
+
+def phase_cross_check_train_mesh():
+    """One fp32 training step of granite-moe-1b-a400m at full width cut to
+    MESH_CUT layers through the shard_map MoE at a (1, 1) mesh, on the card
+    (a CUDA mesh: NCCL) and on the CPU (a CPU mesh: gloo) of one group
+    (``cross_check_step``'s tolerances)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    cfg = replace(get_config(MESH_ARCH), n_layers=MESH_CUT)
+    toks = TokenPipeline(vocab_size=cfg.vocab_size, global_batch=CROSS_BATCH,
+                         seq_len=CROSS_SEQ).batch_at(0)["tokens"]
+    with one_rank_group("cpu:gloo,cuda:nccl"):
+        ctx = {}
+        for side in ("cuda", "cpu"):
+            mesh = make_host_mesh(device=side)
+            ctx[side] = {"impl": "shardmap", "mesh": mesh,
+                         "dp_axes": shd.dp_axes(mesh)}
+        cross_check_step("cross_check_train_mesh", cfg,
+                         {"tokens": torch.as_tensor(toks)},
+                         train_launches(cfg, 1), moe_ctx=ctx)
+
+
+def mesh_phases(rows):
+    phase_train_mesh(rows)
+    release()
+    phase_cross_check_train_mesh()
+
+
 def ssm_training_phases(rows):
     phase_train(rows, "train_ssm", train_flags("mamba2-1.3b", SSM_TRAIN_SHAPE),
                 ckpt=False)
@@ -2891,7 +3158,7 @@ def main():
     for phases in (qwen2_phases, ssm_phases, hybrid_phases, codeqwen_phases,
                    moe_phases, mla_phases, training_phases, encdec_phases,
                    phase_int8_decode, vlm_phases, ssm_training_phases,
-                   big_phases):
+                   mesh_phases, big_phases):
         phases(rows)
         release()
     phase_window_decode()

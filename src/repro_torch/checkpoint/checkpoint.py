@@ -14,10 +14,14 @@ skips and the next commit's garbage collection removes; the last
 
 Leaves are tensors (or numpy arrays) of float32 or int32, which is all the
 training state holds: numpy has no bfloat16, so any other dtype is refused
-rather than guessed. ``restore`` places the leaves on the device the caller
-names, the card by default. The port's params carry no logical axes, so the
-manifest's ``axes`` are null, and restoring onto a mesh (``mesh``/
-``rules``) waits for the mesh slice.
+rather than guessed; a DTensor is gathered whole. The port's tensors carry
+no logical axes, so ``save`` takes them as a tree beside the state
+(``train_loop.state_axes(bundle.param_axes())``) and writes them into the
+manifest as the reference does; a leaf without axes gets null. ``restore``
+places the leaves on the device the caller names, the card by default;
+with ``mesh`` and ``rules`` each leaf that has axes is placed on the mesh
+by ``sharding.spec_for`` (a DTensor; the elastic path), and the rest on the
+mesh's device.
 """
 from __future__ import annotations
 
@@ -32,6 +36,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor
 
 DTYPES = ("float32", "int32")
 
@@ -67,6 +73,8 @@ def _leaf_file(name: str) -> str:
 
 def _host(name: str, leaf) -> np.ndarray:
     """A leaf as a numpy array on the host; float32 and int32 only."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         if str(leaf.dtype).split(".")[-1] not in DTYPES:
             raise TypeError(f"{name}: {leaf.dtype} cannot be checkpointed "
@@ -83,10 +91,13 @@ def _host(name: str, leaf) -> np.ndarray:
 
 
 def save(ckpt_dir: str, step: int, state, *, keep_last: int = 3,
-         extra_meta: Optional[dict] = None) -> str:
-    """Synchronous atomic save. Returns the committed directory."""
+         extra_meta: Optional[dict] = None, axes=None) -> str:
+    """Synchronous atomic save; ``axes``: the state's logical axes (a tree
+    of the state's keys, or part of it). Returns the committed
+    directory."""
     os.makedirs(ckpt_dir, exist_ok=True)
     flat = {name: _host(name, leaf) for name, leaf in _flatten(state).items()}
+    flat_axes = _flatten(axes) if axes is not None else {}
     tmp = os.path.join(ckpt_dir, f"step_{step:08d}.tmp-{uuid.uuid4().hex[:8]}")
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     os.makedirs(tmp)
@@ -99,7 +110,9 @@ def save(ckpt_dir: str, step: int, state, *, keep_last: int = 3,
             digest = hashlib.sha256(f.read()).hexdigest()
         manifest["leaves"][name] = {
             "file": fn, "shape": list(arr.shape), "dtype": str(arr.dtype),
-            "axes": None, "sha256": digest,
+            "axes": (list(flat_axes[name]) if flat_axes.get(name) is not None
+                     else None),
+            "sha256": digest,
         }
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=1)
@@ -141,10 +154,15 @@ def restore(ckpt_dir: str, step: Optional[int] = None, *, device="cuda",
             mesh=None, rules: Optional[dict] = None,
             verify: bool = True) -> Tuple[int, Any]:
     """Load a checkpoint (the latest committed step by default) as a tree
-    of tensors on ``device``."""
-    if mesh is not None or rules is not None:
-        raise NotImplementedError("restoring onto a mesh waits for the "
-                                  "port's mesh slice")
+    of tensors on ``device``; with ``mesh`` and ``rules``, each leaf with
+    axes as a DTensor placed by the rules (every rank of the mesh calls it)
+    and the others on the mesh's device."""
+    placed = mesh is not None and rules is not None
+    if placed:
+        from repro_torch.distributed import sharding as shd
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh: a torch DeviceMesh, not {type(mesh)}")
+        device = mesh.device_type
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no committed checkpoint in {ckpt_dir}")
@@ -160,7 +178,12 @@ def restore(ckpt_dir: str, step: Optional[int] = None, *, device="cuda",
             digest = hashlib.sha256(raw).hexdigest()
             if digest != info["sha256"]:
                 raise IOError(f"checksum mismatch for {name} in {d}")
-        flat[name] = torch.from_numpy(np.load(path)).to(device)
+        arr = torch.from_numpy(np.load(path))
+        if placed and info["axes"] is not None:
+            flat[name] = shd.Sharding(mesh, shd.spec_for(
+                arr.shape, tuple(info["axes"]), rules, mesh)).place(arr)
+        else:
+            flat[name] = arr.to(device)
     return step, _unflatten(flat)
 
 

@@ -6,7 +6,8 @@ logical axis names), becomes the port's nested dict of tensors with the same
 keys and layouts: the stacked ``layer`` axis stays first and dense weights
 stay ``(d_in..., d_out...)``, the layout ``models.common.apply_dense``
 contracts. Arrays must have a numpy dtype that torch knows (float32 for the
-JAX init).
+JAX init). ``axes_from_numpy`` keeps the Params' axes as the tree of
+axis-name tuples that ``bundle.param_axes()`` builds.
 """
 from __future__ import annotations
 
@@ -38,4 +39,16 @@ def params_from_numpy(flat: Dict[str, Tuple[np.ndarray, tuple]], *,
             node = node.setdefault(k, {})
         node[keys[-1]] = torch.tensor(arr, device=device,
                                       requires_grad=requires_grad)
+    return tree
+
+
+def axes_from_numpy(flat: Dict[str, Tuple[np.ndarray, tuple]]):
+    """The nested dict of the Params' logical axes, tuples at the leaves."""
+    tree: dict = {}
+    for path, (_, axes) in flat.items():
+        keys = path.split("/")
+        node = tree
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = tuple(axes)
     return tree

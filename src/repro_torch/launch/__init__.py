@@ -1,1 +1,2 @@
-"""Launchers of the port (token serving so far)."""
+"""Launchers of the port: token and semantic serving, training, the
+query server, and the mesh builders (``mesh``)."""

@@ -17,8 +17,11 @@ hymba the flash backward with its window of 1024). What one card's 80 GB
 hold at full width: qwen2-0.5b, mamba2-1.3b, hymba-1.5b,
 granite-moe-1b-a400m and seamless-m4t-large-v2; the larger configs
 (codeqwen1.5-7b, minicpm3-4b, deepseek-67b, internvl2-76b,
-llama4-scout-17b-a16e) train only ``--reduced`` until the port has a
-mesh. The
+llama4-scout-17b-a16e) train only ``--reduced``: at full width they wait
+for more than one card and for the dense layers executed sharded across
+cards, which the reference only compiles (its dry-run); the port's mesh
+(``launch.mesh``, ``distributed.sharding``) places a state and runs the
+MoE's shard_map path, but its train step refuses a split leaf. The
 batches are the pipeline's synthetic ones, uniform random tokens, as the
 reference's are: nothing in them can be learnt, so the loss stays near
 ln(vocab). ``--corpus movie|estate|game`` feeds the pipeline's

@@ -33,6 +33,17 @@ def gqa_init(generator, cfg, *, lead=(), device="cuda", dtype=torch.float32):
     }
 
 
+def gqa_axes(cfg):
+    """``gqa_init``'s logical axes."""
+    kw = dict(bias=cfg.qkv_bias)
+    return {
+        "q": cm.dense_axes(("embed", "heads", "head_dim"), **kw),
+        "k": cm.dense_axes(("embed", "kv_heads", "head_dim"), **kw),
+        "v": cm.dense_axes(("embed", "kv_heads", "head_dim"), **kw),
+        "o": cm.dense_axes(("heads", "head_dim", "embed")),
+    }
+
+
 def gqa_project_qkv(p, x, positions, theta):
     q = cm.apply_dense(p["q"], x)            # (B,S,H,hd)
     k = cm.apply_dense(p["k"], x)            # (B,S,KV,hd)
@@ -148,6 +159,20 @@ def mla_init(generator, cfg, *, lead=(), device="cuda", dtype=torch.float32):
                          **kw),
         "v_up": cm.dense(generator, m.kv_lora_rank, (h, m.v_head_dim), **kw),
         "o": cm.dense(generator, (h, m.v_head_dim), d, **kw),
+    }
+
+
+def mla_axes(cfg):
+    """``mla_init``'s logical axes."""
+    heads = ("heads", "head_dim")
+    return {
+        "q_down": cm.dense_axes(("embed", "q_lora")),
+        "q_up": cm.dense_axes(("q_lora",) + heads),
+        "kv_down": cm.dense_axes(("embed", "kv_lora")),
+        "k_rope": cm.dense_axes(("embed", "kv_heads", "head_dim")),
+        "k_up": cm.dense_axes(("kv_lora",) + heads),
+        "v_up": cm.dense_axes(("kv_lora",) + heads),
+        "o": cm.dense_axes(heads + ("embed",)),
     }
 
 

@@ -6,7 +6,10 @@ Parameters are nested dicts of tensors with the same keys and layouts as
 ``apply_dense`` contracts the last ``in_dims`` dims of ``x`` with the first
 ``in_dims`` of ``w``. Weights of the decoder's layers carry a leading
 ``layer`` axis (``lead=(n_layers,)`` at init); ``layer_params`` takes one
-layer's slice as views.
+layer's slice as views. The tensors carry no logical axes: each init has a
+companion that builds the tree of axis-name tuples the reference's
+``Param.axes`` hold (``dense_axes``, ``stack_axes``, ...), which the
+sharding rules read.
 """
 from __future__ import annotations
 
@@ -36,6 +39,22 @@ def dense(generator: Optional[torch.Generator], d_in, d_out, *, bias=False,
     return p
 
 
+def dense_axes(axes, *, bias=False, in_dims=1):
+    """The logical axes of ``dense``'s leaves: ``axes`` name the weight's
+    dims, and the bias takes the output dims' names."""
+    p = {"w": tuple(axes)}
+    if bias:
+        p["b"] = tuple(axes[in_dims:])
+    return p
+
+
+def stack_axes(tree):
+    """Axes of a layer stack: ``layer`` before each leaf's axes."""
+    if isinstance(tree, dict):
+        return {k: stack_axes(v) for k, v in tree.items()}
+    return ("layer",) + tree
+
+
 def apply_dense(p, x, *, in_dims=1):
     """y = x @ w (+ b), contracting the last ``in_dims`` dims of x with the
     first ``in_dims`` dims of w."""
@@ -52,8 +71,16 @@ def embedding(generator, vocab, d_model, *, device="cuda",
     return {"embedding": w.to(dtype)}
 
 
+def embedding_axes():
+    return {"embedding": ("vocab", "embed")}
+
+
 def rmsnorm_init(d, *, lead=(), device="cuda", dtype=torch.float32):
     return {"scale": torch.ones(tuple(lead) + (d,), device=device, dtype=dtype)}
+
+
+def rmsnorm_axes(name="embed"):
+    return {"scale": (name,)}
 
 
 def rmsnorm(p, x, eps=1e-5):

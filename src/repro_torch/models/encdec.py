@@ -15,6 +15,7 @@ and not the encoder's.
 
 Public surface (used by registry / launch):
   init(cfg, generator=, device=, requires_grad=)     -> param tree
+  param_axes(cfg), cache_axes(cfg)                   -> their logical axes
   encode(params, cfg, enc_embeds)                    -> (B, S_enc, d)
   forward(params, cfg, tokens, enc_embeds, remat=)   -> logits (B, S, V) f32
   loss_fn(params, cfg, batch, remat=)                -> cross-entropy
@@ -78,6 +79,26 @@ def init(cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
     p["final_norm"] = cm.rmsnorm_init(d, **kw)
     p["unembed"] = cm.dense(generator, d, cfg.vocab_size, **kw)
     return requires_grad_(p) if requires_grad else p
+
+
+def param_axes(cfg: ModelConfig):
+    """``init``'s tree of logical axes (the reference's ``Param.axes``)."""
+    check_supported(cfg)
+    norm = cm.rmsnorm_axes()
+    return {
+        "embed": cm.embedding_axes(),
+        "enc_in_proj": cm.dense_axes(("embed", "embed2")),
+        "enc_layers": cm.stack_axes({
+            "attn_norm": norm, "attn": attn.gqa_axes(cfg), "ffn_norm": norm,
+            "ffn": ffn_mod.swiglu_axes()}),
+        "enc_norm": norm,
+        "dec_layers": cm.stack_axes({
+            "self_norm": norm, "self_attn": attn.gqa_axes(cfg),
+            "cross_norm": norm, "cross_attn": attn.gqa_axes(cfg),
+            "ffn_norm": norm, "ffn": ffn_mod.swiglu_axes()}),
+        "final_norm": norm,
+        "unembed": cm.dense_axes(("embed", "vocab")),
+    }
 
 
 def encode(params, cfg, enc_embeds, *, dtype=torch.bfloat16):
@@ -174,6 +195,15 @@ def init_cache(cfg, batch: int, max_len: int, enc_len: int,
                               device=device)
     c["pos"] = torch.zeros((), dtype=torch.int32, device=device)
     return c
+
+
+def cache_axes(cfg):
+    """``init_cache``'s tree of logical axes (the reference's)."""
+    check_supported(cfg)
+    self_axes = ("layer", "batch", "kv_seq", "kv_heads", "head_dim")
+    cross_axes = ("layer", "batch", "enc_seq", "kv_heads", "head_dim")
+    return {"k": self_axes, "v": self_axes, "ek": cross_axes,
+            "ev": cross_axes, "pos": ()}
 
 
 def prefill(params, cfg, tokens, enc_embeds, *, max_len=None,

@@ -1,20 +1,31 @@
-"""Feed-forward mixers: SwiGLU and the MoE's gather path.
+"""Feed-forward mixers: SwiGLU and the MoE, its gather path and its
+shard_map path.
 
-The MoE is ``repro.models.ffn.moe_forward_gather``: sort-based dispatch of
-each token's top-k experts into an (E, C, d) buffer, the experts' SwiGLU as
-batched products, and a weighted combine; an optional shared expert adds a
-dense SwiGLU. The reference computes it in jnp outside any Pallas kernel,
-so the port keeps it in plain PyTorch. Every detail that decides which
-assignment is dropped follows the reference: softmax in fp32, top-k,
-renormalised weights; a stable sort of the flat expert ids; the capacity
-rule; assignments past it go to a dropped column; a zero pad row ``t``. ``moe_forward_shardmap`` (experts sharded over a mesh, one psum) is
-not ported: it comes with the mesh.
+The gather path is ``repro.models.ffn.moe_forward_gather``: sort-based
+dispatch of each token's top-k experts into an (E, C, d) buffer, the
+experts' SwiGLU as batched products, and a weighted combine; an optional
+shared expert adds a dense SwiGLU. The reference computes it in jnp outside
+any Pallas kernel, so the port keeps it in plain PyTorch. Every detail that
+decides which assignment is dropped follows the reference: softmax in fp32,
+top-k, renormalised weights; a stable sort of the flat expert ids; the
+capacity rule; assignments past it go to a dropped column; a zero pad row
+``t``. Tokens move into the slots and back by gathers alone, both ways
+(``_Rows``), so the backward has no atomic adds and a step's gradient is
+the same bits every time; a token's rows sum in order of expert id, the
+order of the reference's scatter-add.
+
+``moe_forward_shardmap`` is the reference's shard_map MoE on a
+``DeviceMesh``: the experts sharded over the model axis, the tokens over
+the data axes, each model rank dispatching its token block to its own
+experts (the others' choices go to a phantom expert that is not computed)
+and one all-reduce over the model axis combining them.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import common as cm
 
 
@@ -26,6 +37,12 @@ def swiglu_init(generator, d_model, d_ff, *, lead=(), device="cuda",
         "up": cm.dense(generator, d_model, d_ff, **kw),
         "down": cm.dense(generator, d_ff, d_model, **kw),
     }
+
+
+def swiglu_axes():
+    return {"gate": cm.dense_axes(("embed", "mlp")),
+            "up": cm.dense_axes(("embed", "mlp")),
+            "down": cm.dense_axes(("mlp", "embed"))}
 
 
 def swiglu(p, x):
@@ -54,6 +71,17 @@ def moe_init(generator, cfg, *, lead=(), device="cuda", dtype=torch.float32):
     return p
 
 
+def moe_axes(cfg):
+    """``moe_init``'s logical axes."""
+    p = {"router": cm.dense_axes(("embed", "expert")),
+         "gate": {"w": ("expert", "embed", "mlp")},
+         "up": {"w": ("expert", "embed", "mlp")},
+         "down": {"w": ("expert", "mlp", "embed")}}
+    if cfg.moe.shared_expert_ff:
+        p["shared"] = swiglu_axes()
+    return p
+
+
 def route(router_p, x2d, moe):
     """x2d (T, d) -> (weights (T, k) fp32, experts (T, k))."""
     logits = cm.apply_dense(router_p, x2d).float()                 # (T, E)
@@ -71,12 +99,14 @@ def capacity(n_tokens, moe):
 
 
 def dispatch(experts, cap, num_experts, n_tokens):
-    """The slots of a dispatch: (slot_tok (E, cap), sorted_e, dest, order).
-    Flat assignment ``order[i]`` (token ``order[i] // k``) goes to slot
-    ``dest[i]`` of expert ``sorted_e[i]``: its place in its expert's block
-    in a stable sort by expert id, so within an expert the lower token
-    comes first, and ``cap`` (a column cut off, so dropped) for those past
-    the capacity. Empty slots hold the pad row ``n_tokens``."""
+    """The slots of a dispatch: (slot_tok (E, cap), slot_src (E, cap),
+    assign (T * k,)). In a stable sort of the flat assignments by expert
+    id, an assignment's place in its expert's block is its slot, so within
+    an expert the lower token comes first; those past ``cap`` are dropped.
+    ``slot_src`` holds each slot's flat assignment ``t * k + j`` (``T * k``
+    where the slot is empty) and ``slot_tok`` its token (the pad row ``T``
+    where empty); ``assign`` holds each flat assignment's slot
+    ``e * cap + c``, ``E * cap`` where it was dropped."""
     k = experts.shape[1]
     n = n_tokens * k
     flat_e = experts.reshape(n)
@@ -90,32 +120,79 @@ def dispatch(experts, cap, num_experts, n_tokens):
     keep = pos < cap
     # overflow goes to column ``cap``, which is cut off below
     dest = torch.where(keep, pos, torch.full_like(pos, cap))
-    slot_tok = torch.full((num_experts, cap + 1), n_tokens, dtype=torch.long,
+    slot_src = torch.full((num_experts, cap + 1), n, dtype=torch.long,
                           device=experts.device)
-    slot_tok[sorted_e, dest] = order // k
-    return slot_tok[:, :cap], sorted_e, dest, order
+    slot_src[sorted_e, dest] = order
+    slot_src = slot_src[:, :cap]
+    assign = torch.empty_like(order)
+    assign[order] = torch.where(keep, sorted_e * cap + pos,
+                                torch.full_like(pos, num_experts * cap))
+    return slot_src // k, slot_src, assign
+
+
+def _pad(x):
+    return torch.cat([x, x.new_zeros((1, x.shape[1]))])
+
+
+def _to_slots(x, slot_tok):
+    """(T, d) -> (slots, d): each slot's token row, zero where empty."""
+    return _pad(x)[slot_tok]
+
+
+def _to_tokens(x, assign):
+    """(slots, d) -> (T, d): the sum of each token's slot rows, in the
+    order of ``assign`` (a dropped assignment adds the zero pad row)."""
+    xp = _pad(x)
+    y = xp[assign[:, 0]]
+    for j in range(1, assign.shape[1]):
+        y = y + xp[assign[:, j]]
+    return y
+
+
+class _Rows(torch.autograd.Function):
+    """Rows moved between the token layout (T, d) and the slot layout
+    (slots, d), each way the other's transpose, by gathers only: the
+    gradient of a move into the slots sums each token's slot rows in a
+    fixed order, and that of a move back gathers each slot's token row.
+    (An index's own backward would scatter-add, which on the card sums
+    repeated rows in no fixed order, and runs the empty slots' repeats of
+    the pad row one after another.)"""
+
+    @staticmethod
+    def forward(ctx, x, slot_tok, assign, to_slots):
+        ctx.save_for_backward(slot_tok, assign)
+        ctx.to_slots = to_slots
+        return _to_slots(x, slot_tok) if to_slots else _to_tokens(x, assign)
+
+    @staticmethod
+    def backward(ctx, g):
+        slot_tok, assign = ctx.saved_tensors
+        g = _to_tokens(g, assign) if ctx.to_slots else _to_slots(g, slot_tok)
+        return g, None, None, None
 
 
 def dispatch_compute_combine(p, x2d, weights, experts, cap, moe):
     """Sort-based dispatch -> the experts' SwiGLU -> weighted combine.
-    x2d (T, d); weights / experts (T, k). Returns (T, d)."""
+    x2d (T, d); weights / experts (T, k). Returns (T, d). Where the weights
+    hold fewer experts than ``moe.num_experts`` (the shard_map path), the
+    last expert id is the phantom one: its slots are dropped, not
+    computed."""
     t, d = x2d.shape
-    e = moe.num_experts
-    slot_tok, sorted_e, dest, order = dispatch(experts, cap, e, t)
-    slot_w = torch.zeros((e, cap + 1), dtype=weights.dtype,
-                         device=weights.device)
-    slot_w[sorted_e, dest] = weights.reshape(-1)[order]
-    slot_w = slot_w[:, :cap]
-
-    x_pad = torch.cat([x2d, x2d.new_zeros((1, d))], dim=0)
-    xs = x_pad[slot_tok]                                           # (E, C, d)
-    wg, wu, wd = (p[n]["w"].to(xs.dtype) for n in ("gate", "up", "down"))
+    wg, wu, wd = (p[n]["w"] for n in ("gate", "up", "down"))
+    e = wg.shape[0]
+    slot_tok, slot_src, assign = dispatch(experts, cap, moe.num_experts, t)
+    slot_tok, slot_src = slot_tok[:e].reshape(-1), slot_src[:e].reshape(-1)
+    assign = assign.clamp(max=e * cap)          # phantom slots: dropped
+    # each token's slots in order of expert id (a dropped one last)
+    by_token = assign.view(t, -1).sort(dim=1)[0]
+    xs = _Rows.apply(x2d, slot_tok, by_token, True).view(e, cap, d)
+    # each slot's weight: a move of the (T * k, 1) weights into the slots
+    slot_w = _Rows.apply(weights.reshape(-1, 1), slot_src, assign[:, None],
+                         True)
+    wg, wu, wd = (w.to(xs.dtype) for w in (wg, wu, wd))
     h = F.silu(torch.bmm(xs, wg)) * torch.bmm(xs, wu)              # (E, C, ff)
-    out = torch.bmm(h, wd) * slot_w[..., None].to(xs.dtype)       # (E, C, d)
-    # the pad row t takes the empty slots' (zero) outputs and is dropped
-    y = x2d.new_zeros((t + 1, d)).index_add_(0, slot_tok.reshape(-1),
-                                             out.reshape(-1, d))
-    return y[:t]
+    out = torch.bmm(h, wd) * slot_w.view(e, cap, 1).to(xs.dtype)  # (E, C, d)
+    return _Rows.apply(out.reshape(-1, d), slot_tok, by_token, False)
 
 
 def moe_forward_gather(p, x, cfg):
@@ -130,4 +207,72 @@ def moe_forward_gather(p, x, cfg):
                                  capacity(b * s, moe), moe)
     if "shared" in p:
         y = y + swiglu(p["shared"], x2d)
+    return y.reshape(b, s, d)
+
+
+class _LocalMoE:
+    """The MoE config inside the shard_map path's local block: one phantom
+    expert id (``e_local``) absorbs the choices of other ranks' experts."""
+
+    def __init__(self, e_local, top_k):
+        self.num_experts = e_local + 1
+        self.top_k = top_k
+
+
+def moe_forward_shardmap(p, x, cfg, mesh, *, dp_axes=("data",),
+                         ep_axis="model"):
+    """The reference's shard_map MoE. ``x``: this rank's (B, S, d) block of
+    the tokens (split over ``dp_axes``, the same on every rank of
+    ``ep_axis``). The experts' weights are the whole (E, ...) stacks, of
+    which this rank takes its block (shard_map's in_spec). Each model rank
+    routes its token block
+    against the full router and keeps the (token, k) choices that fall in
+    its E / ep experts; the rest go to the phantom id. Its local capacity is
+    ``max(8, capacity(T) // ep * 2)``, not rounded to 8. One all-reduce
+    over ``ep_axis`` sums the ranks' outputs; the shared expert is added
+    after it.
+
+    Gradients are the whole function's, as ``jax.grad`` through the
+    reference gives them: the summed output takes an identity backward; the
+    routed branch's gradients of x and of the router, partial on each model
+    rank, are summed over ``ep_axis``; the router's, the shared expert's
+    and the experts' are summed over ``dp_axes`` (the weights are
+    replicated there); an expert stack's gradient, one block a model rank,
+    is gathered whole on every rank. dx stays this rank's block."""
+    moe = cfg.moe
+    ep = shd.axis_sizes(mesh)[ep_axis]
+    e_local = moe.num_experts // ep
+    if e_local * ep != moe.num_experts:
+        raise ValueError(f"{moe.num_experts} experts do not divide over "
+                         f"{ep_axis}={ep}")
+    dp_axes = tuple(dp_axes)
+
+    def experts_w(name):
+        w = p[name]["w"]
+        if w.shape[0] != moe.num_experts:
+            raise ValueError(f"{name}: {w.shape[0]} experts, not the stack "
+                             f"of {moe.num_experts}")
+        if ep > 1:
+            w = shd.shard_of(w, mesh, ep_axis, 0)
+        return {"w": shd.copy_to(w, mesh, dp_axes)}
+
+    b, s, d = x.shape
+    x2d = x.reshape(b * s, d)
+    xr = shd.copy_to(x2d, mesh, ep_axis)
+    router = {"w": shd.copy_to(p["router"]["w"], mesh, dp_axes + (ep_axis,))}
+    weights, experts = route(router, xr, moe)
+    lo = mesh.get_local_rank(ep_axis) * e_local
+    mine = (experts >= lo) & (experts < lo + e_local)
+    local_experts = torch.where(mine, experts - lo,
+                                torch.full_like(experts, e_local))
+    local_weights = torch.where(mine, weights, torch.zeros_like(weights))
+    cap = max(8, capacity(b * s, moe) // ep * 2)
+    local = {n: experts_w(n) for n in ("gate", "up", "down")}
+    y = dispatch_compute_combine(local, xr, local_weights, local_experts,
+                                 cap, _LocalMoE(e_local, moe.top_k))
+    y = shd.reduce_from(y, mesh, ep_axis)
+    if "shared" in p:
+        shared = shd.map_tree(lambda w: shd.copy_to(w, mesh, dp_axes),
+                              p["shared"])
+        y = y + swiglu(shared, x2d)
     return y.reshape(b, s, d)

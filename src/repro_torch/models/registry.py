@@ -5,7 +5,9 @@ prefill / decode_step / init_cache. Decoder-only configs go to
 ``models.transformer`` (GQA or MLA attention, dense or MoE feed-forward,
 the VLM's prefix, the SSM and hybrid families, the int8 KV cache;
 ``transformer.check_supported``), encoder-decoder configs to
-``models.encdec``. The MoE through shard_map raises.
+``models.encdec``. ``param_axes()`` and ``cache_axes(...)`` give the
+logical axis names of the params' and the cache's leaves, which the
+sharding rules (``distributed.sharding``) read.
 """
 from __future__ import annotations
 
@@ -25,10 +27,13 @@ class ModelBundle:
     cfg: ModelConfig
     init: Callable             # (generator=None, device="cuda", dtype,
                                #  requires_grad=False) -> params
-    loss_fn: Callable          # (params, batch, *, dtype, remat) -> scalar
+    loss_fn: Callable          # (params, batch, *, dtype, remat,
+                               #  moe_ctx) -> scalar
     prefill: Callable          # (params, batch, max_len, **kw) -> (logits, cache)
     decode_step: Callable      # (params, cache, token, **kw) -> (logits, cache)
     init_cache: Callable       # (batch, max_len, dtype, ...) -> cache
+    param_axes: Callable       # () -> the params' tree of axis names
+    cache_axes: Callable       # (batch, max_len, ...) -> the cache's
 
 
 def build(cfg: ModelConfig) -> ModelBundle:
@@ -64,8 +69,13 @@ def _build_decoder(cfg: ModelConfig) -> ModelBundle:
                                       per_slot_pos=per_slot_pos,
                                       kv_dtype=kv_dtype, device=device)
 
+    def cache_axes(batch, max_len, kv_dtype=None, per_slot_pos=False):
+        return transformer.cache_axes(cfg, per_slot_pos=per_slot_pos,
+                                      kv_dtype=kv_dtype)
+
     return ModelBundle(cfg, init_fn, loss_fn, prefill_fn, decode_fn,
-                       init_cache)
+                       init_cache, lambda: transformer.param_axes(cfg),
+                       cache_axes)
 
 
 def _build_encdec(cfg: ModelConfig) -> ModelBundle:
@@ -93,5 +103,9 @@ def _build_encdec(cfg: ModelConfig) -> ModelBundle:
         return encdec.init_cache(cfg, batch, max_len, enc_len, dtype,
                                  device=device)
 
+    def cache_axes(batch, max_len, enc_len=ENC_CTX_SERVE):
+        return encdec.cache_axes(cfg)
+
     return ModelBundle(cfg, init_fn, loss_fn, prefill_fn, decode_fn,
-                       init_cache)
+                       init_cache, lambda: encdec.param_axes(cfg),
+                       cache_axes)

@@ -52,6 +52,21 @@ def mamba2_init(generator, cfg, *, lead=(), device="cuda",
     }
 
 
+def mamba2_axes(cfg):
+    """``mamba2_init``'s logical axes."""
+    return {
+        "z_proj": cm.dense_axes(("embed", "ssm_inner")),
+        "xbc_proj": cm.dense_axes(("embed", "ssm_conv_ch")),
+        "dt_proj": cm.dense_axes(("embed", "ssm_heads")),
+        "out_proj": cm.dense_axes(("ssm_inner", "embed")),
+        "conv_w": ("conv", "ssm_conv_ch"),
+        "dt_bias": ("ssm_heads",),
+        "A_log": ("ssm_heads",),
+        "D": ("ssm_heads",),
+        "norm": cm.rmsnorm_axes("ssm_inner"),
+    }
+
+
 def _causal_conv(x, w):
     """Depthwise causal conv. x: (B, S, C); w: (W, C)."""
     wdt = w.to(x.dtype)

@@ -10,12 +10,14 @@ do.
 A Python loop over layers replaces ``lax.scan``; weights keep the stacked
 ``layer`` axis and each step takes its layer's views. Encoder-decoder
 models are ``models.encdec``. Still refused (``NotImplementedError``): a
-hybrid without attention and the MoE through ``shard_map`` (the mesh
-slice).
+hybrid without attention. ``moe_ctx={"impl": "shardmap", "mesh": mesh,
+"dp_axes": ...}`` runs the MoE through ``ffn.moe_forward_shardmap`` on a
+``DeviceMesh``, as the reference's does through ``shard_map``.
 
 Public surface (used by registry / launch / engine):
   init(cfg, generator=, device=,
        requires_grad=)                    -> param tree
+  param_axes(cfg)                         -> its logical axes
   forward(params, cfg, tokens, remat=)    -> logits (B, S, V) fp32
   loss_fn(params, cfg, batch, remat=)     -> next-token cross-entropy
   init_cache(cfg, batch, max_len, dtype)  -> {"k", "v"} (GQA; int8 adds
@@ -24,6 +26,7 @@ Public surface (used by registry / launch / engine):
                                              {"ssm_state", "conv_buf"} (SSM),
                                              GQA's and SSM's (hybrid), and
                                              "pos"
+  cache_axes(cfg, per_slot_pos, kv_dtype) -> the cache's logical axes
   prefill(params, cfg, tokens, max_len=)  -> (last-position logits, cache)
   decode_step(params, cfg, cache, token)  -> (logits, cache updated in place)
 """
@@ -60,10 +63,9 @@ def check_supported(cfg: ModelConfig) -> None:
     if (not (dense or moe or ssm or hybrid)
             or (cfg.attn_type == ATTN_MLA) != (cfg.mla is not None)):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves the dense, VLM and MoE (gather "
-            f"path) families with GQA or MLA attention, the SSM (Mamba2) "
-            f"family and the GQA + SSM hybrid (Hymba); the MoE through "
-            f"shard_map is not ported yet")
+            f"{cfg.name}: the port serves the dense, VLM and MoE families "
+            f"with GQA or MLA attention, the SSM (Mamba2) family and the "
+            f"GQA + SSM hybrid (Hymba)")
 
 
 def init(cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
@@ -111,6 +113,34 @@ def init(cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
     return requires_grad_(p) if requires_grad else p
 
 
+def param_axes(cfg: ModelConfig):
+    """``init``'s tree of logical axes (the reference's ``Param.axes``)."""
+    check_supported(cfg)
+    layers = {}
+    if cfg.attn_type in (ATTN_GQA, ATTN_MLA):
+        layers["attn_norm"] = cm.rmsnorm_axes()
+        layers["attn"] = (attn.gqa_axes(cfg) if cfg.attn_type == ATTN_GQA
+                          else attn.mla_axes(cfg))
+    if cfg.ssm is not None and cfg.family == FAMILY_HYBRID:
+        layers["ssm"] = ssm_mod.mamba2_axes(cfg)
+        layers["attn_out_norm"] = cm.rmsnorm_axes()
+        layers["ssm_out_norm"] = cm.rmsnorm_axes()
+    elif cfg.ssm is not None:
+        layers["ssm_norm"] = cm.rmsnorm_axes()
+        layers["ssm"] = ssm_mod.mamba2_axes(cfg)
+    if cfg.d_ff > 0:
+        layers["ffn_norm"] = cm.rmsnorm_axes()
+        layers["ffn"] = (ffn_mod.moe_axes(cfg) if cfg.moe
+                         else ffn_mod.swiglu_axes())
+    p = {"embed": cm.embedding_axes(), "layers": cm.stack_axes(layers),
+         "final_norm": cm.rmsnorm_axes()}
+    if not cfg.tie_embeddings:
+        p["unembed"] = cm.dense_axes(("embed", "vocab"))
+    if cfg.n_prefix_embeds:
+        p["prefix_proj"] = cm.dense_axes(("embed", "embed2"))
+    return p
+
+
 def requires_grad_(tree):
     """Mark every leaf of a param tree as needing a gradient, in place."""
     for v in tree.values():
@@ -146,19 +176,24 @@ def _ssm_forward(p, h, cfg, cache):
     return s
 
 
-def _ffn(lp, h, cfg):
-    if cfg.moe is not None:
-        return ffn_mod.moe_forward_gather(lp["ffn"], h, cfg)
-    return ffn_mod.swiglu(lp["ffn"], h)
+def _ffn(lp, h, cfg, moe_ctx=None):
+    if cfg.moe is None:
+        return ffn_mod.swiglu(lp["ffn"], h)
+    if moe_ctx and moe_ctx.get("impl") == "shardmap":
+        return ffn_mod.moe_forward_shardmap(lp["ffn"], h, cfg,
+                                            moe_ctx["mesh"],
+                                            dp_axes=moe_ctx["dp_axes"])
+    return ffn_mod.moe_forward_gather(lp["ffn"], h, cfg)
 
 
-def _block_forward(lp, x, cfg, window, positions, cache=None):
+def _block_forward(lp, x, cfg, window, positions, cache=None, moe_ctx=None):
     """One layer over the full sequence. ``cache``: this layer's slices of
     the decode cache (``k``/``v`` (B, max_len, Hkv, D) or MLA's ``ckv``/
     ``krope``; ``ssm_state``, ``conv_buf``), which receive its keys and
     values, or its latent, and/or its final SSM state and conv tail
     (prefill). A hybrid layer runs attention and the SSM on the same
-    normed input."""
+    normed input. ``moe_ctx``: the MoE's implementation, as the
+    reference's."""
     if "attn" in lp:
         h = cm.rmsnorm(lp["attn_norm"], x, cfg.rms_eps)
         if cfg.attn_type == ATTN_MLA:
@@ -178,7 +213,7 @@ def _block_forward(lp, x, cfg, window, positions, cache=None):
         x = x + _ssm_forward(lp["ssm"], h, cfg, cache)
     if "ffn" in lp:
         h = cm.rmsnorm(lp["ffn_norm"], x, cfg.rms_eps)
-        x = x + _ffn(lp, h, cfg)
+        x = x + _ffn(lp, h, cfg, moe_ctx)
     return x
 
 
@@ -212,16 +247,17 @@ def forward(params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
     recomputes each layer's activations in the backward instead of keeping
     them (the reference's ``jax.checkpoint`` with ``nothing_saveable``):
     autograd keeps each layer's input only, and the backward runs the
-    layer's forward once more, attention kernel included."""
-    if moe_ctx is not None:
-        raise NotImplementedError("the MoE through shard_map (moe_ctx) "
-                                  "waits for the mesh slice")
+    layer's forward once more, attention kernel included (it stops at the
+    layer's last saved tensor, so not at the shard_map MoE's all-reduce
+    after it). ``moe_ctx``: {"impl": "shardmap", "mesh", "dp_axes"} for
+    the MoE through ``ffn.moe_forward_shardmap``; the gather path
+    otherwise."""
     x = embed_inputs(params, cfg, tokens, prefix_embeds, dtype)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     windows = layer_windows(cfg)
     for i in range(cfg.n_layers):
         args = (cm.layer_params(params["layers"], i), x, cfg,
-                windows[i] if windows else 0, positions)
+                windows[i] if windows else 0, positions, None, moe_ctx)
         x = (checkpoint(_block_forward, *args, use_reentrant=False) if remat
              else _block_forward(*args))
     x = cm.rmsnorm(params["final_norm"], x, cfg.rms_eps)
@@ -248,6 +284,27 @@ def loss_fn(params, cfg: ModelConfig, batch, *, dtype=torch.bfloat16,
                       torch.zeros_like(tokens[:, :1], dtype=torch.float32)],
                      dim=1)
     return cm.softmax_cross_entropy(logits, labels, mask)
+
+
+def cache_axes(cfg: ModelConfig, per_slot_pos: bool = False,
+               kv_dtype=None):
+    """``init_cache``'s tree of logical axes (the reference's)."""
+    check_supported(cfg)
+    c = {}
+    if cfg.attn_type == ATTN_GQA:
+        kv = ("layer", "batch", "kv_seq", "kv_heads", "head_dim")
+        c["k"] = c["v"] = kv
+        if kv_dtype == torch.int8:
+            c["k_scale"] = c["v_scale"] = kv[:-1]
+    elif cfg.attn_type == ATTN_MLA:
+        c["ckv"] = ("layer", "batch", "kv_seq", "kv_lora")
+        c["krope"] = ("layer", "batch", "kv_seq", "head_dim")
+    if cfg.ssm is not None:
+        c["ssm_state"] = ("layer", "batch", "ssm_heads", "ssm_state",
+                          "head_dim")
+        c["conv_buf"] = ("layer", "batch", "conv", "ssm_conv_ch")
+    c["pos"] = ("batch",) if per_slot_pos else ()
+    return c
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

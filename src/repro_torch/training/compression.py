@@ -1,11 +1,13 @@
 """Gradient compression: blockwise int8 quantization with a per-block fp32
 scale (``repro.training.compression``), the error model of an
 int8-compressed all-reduce. ``compress_decompress`` quantizes and
-dequantizes each gradient leaf in place of the reduction. The compressed
-all-reduce itself (``compressed_psum``) waits for the port's mesh slice."""
+dequantizes each gradient leaf in place of the reduction;
+``compressed_psum`` is the compressed all-reduce itself, over a process
+group (a mesh axis's: ``mesh.get_group("data")``)."""
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.training.optimizer import tree_map
 
@@ -45,8 +47,24 @@ def compress_decompress(grads):
     return tree_map(leaf, grads)
 
 
-def compressed_psum(x, axis_name):
-    """The int8-compressed all-reduce across a mesh axis."""
-    raise NotImplementedError(
-        "compressed_psum runs inside a collective across cards: it waits "
-        "for the port's mesh slice")
+def compressed_psum(x, group=None):
+    """The reference's int8-compressed psum over ``group``: quantize
+    locally, all-reduce the int8 values as int32, sum the scales, divide
+    them by the group's size, dequantize. So the result is the summed
+    integers times the *mean* of the ranks' scales, not the sum of each
+    rank's dequantized values (the reference's arithmetic, kept). The
+    integers' sum is exact in any order; the scales are gathered and summed
+    in rank order, as the reference's psum sums them on the CPU, so the
+    result is the same bits whatever order the backend reduces in. Over a
+    group of one it is ``compress_decompress`` bit for bit."""
+    q, scale = _quant(x)
+    qsum = q.to(torch.int32)
+    dist.all_reduce(qsum, group=group)
+    scales = [torch.empty_like(scale)
+              for _ in range(dist.get_world_size(group))]
+    dist.all_gather(scales, scale, group=group)
+    ssum = scales[0]
+    for s in scales[1:]:
+        ssum = ssum + s
+    deq = (qsum.float() * (ssum / float(len(scales)))).reshape(-1)
+    return deq[:_size(x.shape)].reshape(x.shape).to(x.dtype)

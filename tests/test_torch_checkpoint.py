@@ -137,7 +137,7 @@ def test_other_dtypes_and_mesh_restore_refused(tmp_path):
         ck.save(str(tmp_path), 0, {"w": torch.zeros(2, dtype=torch.bfloat16)})
     assert ck.latest_step(str(tmp_path)) is None
     ck.save(str(tmp_path), 0, tiny_state())
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ck.restore(str(tmp_path), mesh=object(), rules={})
     with pytest.raises(FileNotFoundError):
         ck.restore(str(tmp_path / "empty"))

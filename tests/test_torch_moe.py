@@ -315,8 +315,8 @@ def test_serve_main_runs_granite_on_cpu(capsys):
 
 
 def test_moe_is_served_on_the_moe_family_only():
-    """The MoE family needs its MoE config, and the dense family has none
-    (an MoE through shard_map, on the mesh, is not ported)."""
+    """The MoE family needs its MoE config, and the dense family has
+    none."""
     from repro_torch.configs import FAMILY_DENSE
     cfg = reduced(get_config(ARCH))
     transformer.check_supported(cfg)

@@ -332,8 +332,17 @@ def test_compress_decompress_is_bit_equal_to_jax():
     jq, jscale = jcomp._quant(jnp.asarray(grads["a"]))
     np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
     np.testing.assert_array_equal(scale.numpy(), np.asarray(jscale))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        compression.compressed_psum(to_torch(grads["a"]), "data")
+    # the compressed all-reduce over a group of one rank is the same bits
+    import torch.distributed as dist
+    dist.init_process_group("gloo", rank=0, world_size=1,
+                            store=dist.HashStore())
+    try:
+        for k in grads:
+            np.testing.assert_array_equal(
+                compression.compressed_psum(to_torch(grads[k])).numpy(),
+                got[k].numpy())
+    finally:
+        dist.destroy_process_group()
 
 
 def test_train_step_microbatches_match_jax_and_one_batch(pair):
@@ -418,10 +427,12 @@ def test_init_and_convert_give_trainable_leaves():
 
 
 def test_unported_training_inputs_raise(pair):
-    """The MoE through shard_map (``moe_ctx``) still raises. Encoder inputs
-    no longer do: a decoder-only model's loss ignores ``enc_embeds``, as
-    the reference's does (the encoder-decoder's loss is
-    ``tests/test_torch_encdec.py``'s)."""
+    """Neither input raises any longer. A decoder-only model's loss ignores
+    ``enc_embeds``, as the reference's does (the encoder-decoder's loss is
+    ``tests/test_torch_encdec.py``'s), and a ``moe_ctx`` that does not ask
+    for the shard_map path leaves every model as it was, as the
+    reference's does (the MoE through shard_map is
+    ``tests/test_torch_mesh.py``'s)."""
     _, _, _, cfg, bundle, params = pair
     toks = torch.as_tensor(random_tokens(1, 8, seed=11)).long()
     with torch.no_grad():
@@ -429,9 +440,11 @@ def test_unported_training_inputs_raise(pair):
                                            "enc_embeds": toks},
                                   dtype=torch.float32)
         alone = bundle.loss_fn(params, {"tokens": toks}, dtype=torch.float32)
+        with_ctx = bundle.loss_fn(params, {"tokens": toks},
+                                  dtype=torch.float32,
+                                  moe_ctx={"impl": "gather"})
     assert torch.equal(with_enc, alone)
-    with pytest.raises(NotImplementedError):
-        bundle.loss_fn(params, {"tokens": toks}, moe_ctx="shardmap")
+    assert torch.equal(with_ctx, alone)
 
 
 def test_train_rewriter_example_runs_on_cpu():

@@ -1,0 +1,176 @@
+"""The JAX package's results at real mesh splits, for
+``tests/test_torch_mesh.py``.
+
+    XLA_FLAGS=--xla_force_host_platform_device_count=4 JAX_PLATFORMS=cpu \\
+        PYTHONPATH=src python tests/torch_mesh_reference.py OUT_DIR
+
+Forced host devices must be set before JAX is imported, so this runs in a
+process of its own. It writes ``OUT_DIR/reference.npz``:
+
+* for reduced granite-moe-1b-a400m and reduced llama4-scout-17b-a16e at the
+  published capacity factor 1.25, one MoE layer's ``PRNGKey(1)`` weights,
+  skewed rows ``x`` (B = 4, S = 16) and a cotangent ``ct``; then at each
+  (data, model) mesh of ``MOE_MESHES`` the output of
+  ``moe_forward_shardmap`` and ``jax.grad`` of ``sum(y * ct)`` for x and
+  every weight (inside ``jax.set_mesh``, without which the gradient at more
+  than one device raises);
+* ``compressed_psum`` inside ``shard_map`` over 2 and 4 devices, each
+  device's input and result;
+
+and ``OUT_DIR/indices.json``: for every config of ``ARCH_IDS`` at full
+width, every mode and every mesh of ``INDEX_MESHES``, each param and cache
+leaf's spec and, per mesh coordinate, the offset and size of the block
+``NamedSharding.devices_indices_map`` gives that device.
+"""
+import json
+import os
+import sys
+import time
+from dataclasses import replace
+
+import numpy as np
+
+import jax
+import jax.numpy as jnp
+from jax.sharding import Mesh, NamedSharding
+from jax.sharding import PartitionSpec as P
+
+from repro.configs import ARCH_IDS, get_config, reduced
+from repro.distributed import sharding as shd
+from repro.kernels import compat
+from repro.models import common as cm
+from repro.models import ffn, registry
+from repro.training import compression
+
+MOE_ARCHS = ("granite-moe-1b-a400m", "llama4-scout-17b-a16e")
+MOE_MESHES = ((1, 1), (1, 2), (1, 4), (2, 2))
+MOE_BATCH, MOE_SEQ = 4, 16
+PSUM_RANKS = (2, 4)
+PSUM_SHAPE = (3, 300)          # 900 values: three and a half blocks of 256
+INDEX_MESHES = {(1, 4): ("data", "model"), (2, 2): ("data", "model"),
+                (4, 1): ("data", "model"),
+                (2, 2, 1): ("pod", "data", "model")}
+MODES = ("train", "serve", "prefill")
+CACHE_BATCH, CACHE_LEN = 8, 4096
+
+
+def mesh_of(shape, names=("data", "model")):
+    n = int(np.prod(shape))
+    return Mesh(np.array(jax.devices()[:n]).reshape(shape), names)
+
+
+def skewed(b, s, d, seed):
+    """Rows that share one large direction, so the router favours some
+    experts and, at capacity factor 1.25, overflows them."""
+    rng = np.random.default_rng(seed)
+    common = rng.normal(size=d) * 1.5
+    return (rng.normal(size=(b, s, d)) * 0.5 + common).astype(np.float32)
+
+
+def moe_config(arch):
+    cfg = reduced(get_config(arch))
+    return replace(cfg, moe=replace(cfg.moe, capacity_factor=1.25))
+
+
+def flat(tree, prefix):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat(v, f"{prefix}/{k}"))
+        else:
+            out[f"{prefix}/{k}"] = np.asarray(v)
+    return out
+
+
+def moe_cases(out):
+    for arch in MOE_ARCHS:
+        cfg = moe_config(arch)
+        p = ffn.moe_init(jax.random.PRNGKey(1), cfg)
+        vals, axes = cm.values(p), cm.axes_tree(p)
+        x = skewed(MOE_BATCH, MOE_SEQ, cfg.d_model, seed=5)
+        ct = np.random.default_rng(6).normal(size=x.shape).astype(np.float32)
+        out[f"{arch}/x"], out[f"{arch}/ct"] = x, ct
+        out.update(flat(vals, f"{arch}/p"))
+        for shape in MOE_MESHES:
+            mesh = mesh_of(shape)
+
+            def loss(vals, x):
+                y = ffn.moe_forward_shardmap(cm.zip_params(vals, axes), x,
+                                             cfg, mesh, dp_axes=("data",))
+                return jnp.sum(y * ct), y
+            with jax.set_mesh(mesh):
+                (_, y), (gv, gx) = jax.jit(jax.value_and_grad(
+                    loss, argnums=(0, 1), has_aux=True))(vals, jnp.asarray(x))
+            key = f"{arch}/{shape[0]}x{shape[1]}"
+            out[f"{key}/y"], out[f"{key}/dx"] = np.asarray(y), np.asarray(gx)
+            out.update(flat(gv, f"{key}/g"))
+
+
+def psum_cases(out):
+    rng = np.random.default_rng(9)
+    for n in PSUM_RANKS:
+        mesh = mesh_of((n,), ("data",))
+        xs = (rng.normal(size=(n,) + PSUM_SHAPE)
+              * rng.uniform(0.1, 10, size=(n, 1, 1))).astype(np.float32)
+        fn = jax.jit(compat.shard_map(
+            lambda x: compression.compressed_psum(x[0], "data")[None], mesh,
+            in_specs=P("data"), out_specs=P("data"), check_vma=False))
+        out[f"psum{n}/x"], out[f"psum{n}/y"] = xs, np.asarray(fn(xs))
+
+
+def leaves(tree, prefix=""):
+    if cm.is_param(tree):
+        yield prefix, tree
+        return
+    for k, v in tree.items():
+        yield from leaves(v, f"{prefix}/{k}" if prefix else k)
+
+
+def index_cases():
+    out = []
+    for shape, names in INDEX_MESHES.items():
+        mesh = mesh_of(shape, names)
+        for arch in ARCH_IDS:
+            cfg = get_config(arch)
+            bundle = registry.build(cfg)
+            params = jax.eval_shape(bundle.init, jax.random.PRNGKey(0))
+            cache = jax.eval_shape(
+                lambda: bundle.init_cache(CACHE_BATCH, CACHE_LEN))
+            for mode in MODES:
+                rules = shd.make_rules(cfg, mesh, mode)
+                for tree, kind in ((params, "params"), (cache, "cache")):
+                    for name, p in leaves(tree):
+                        leaf_shape = tuple(p.value.shape)
+                        spec = shd.spec_for(leaf_shape, p.axes, rules, mesh)
+                        idx = NamedSharding(mesh, spec).devices_indices_map(
+                            leaf_shape)
+                        blocks = []
+                        for coord in np.ndindex(*shape):
+                            sl = idx[mesh.devices[coord]]
+                            blocks.append([list(coord), [
+                                [s.indices(n)[0], len(range(*s.indices(n)))]
+                                for s, n in zip(sl, leaf_shape)]])
+                        out.append({"mesh": list(shape), "names": list(names),
+                                    "arch": arch, "mode": mode,
+                                    "leaf": f"{kind}/{name}",
+                                    "shape": list(leaf_shape),
+                                    "axes": list(p.axes),
+                                    "blocks": blocks})
+    return out
+
+
+def main(out_dir):
+    assert len(jax.devices()) == 4, jax.devices()
+    out = {}
+    t0 = time.time()
+    moe_cases(out)
+    psum_cases(out)
+    np.savez(os.path.join(out_dir, "reference.npz"), **out)
+    t1 = time.time()
+    with open(os.path.join(out_dir, "indices.json"), "w") as f:
+        json.dump(index_cases(), f)
+    print(f"moe and psum {t1 - t0:.1f} s, indices {time.time() - t1:.1f} s")
+
+
+if __name__ == "__main__":
+    main(sys.argv[1])

@@ -1,0 +1,268 @@
+"""Ranks of ``tests/test_torch_mesh.py``: the port's side of the mesh at
+real splits, each rank one process of a gloo group on the CPU.
+
+``run_ranks(job, world, out_dir, ref_dir)`` spawns ``world`` processes
+(the ``spawn`` start method: each imports torch afresh), each of which joins
+a gloo group through a ``FileStore`` in ``out_dir``, runs ``JOBS[job]`` and
+writes what it returns to ``out_dir/<job>-<rank>.pt``; a rank that raises
+writes its traceback instead. Returns the ranks' results in rank order.
+The MoE cases read their weights and inputs from the JAX package's
+``ref_dir/reference.npz`` (``tests/torch_mesh_reference.py``).
+"""
+import datetime
+import multiprocessing
+import os
+import traceback
+from dataclasses import replace
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+MOE_ARCHS = ("granite-moe-1b-a400m", "llama4-scout-17b-a16e")
+
+
+def moe_config(arch):
+    from repro_torch.configs import get_config, reduced
+    cfg = reduced(get_config(arch))
+    return replace(cfg, moe=replace(cfg.moe, capacity_factor=1.25))
+
+
+def moe_params(ref, arch):
+    """{"router/w": ..., "gate/w": ..., ["shared/..."]} of the reference's
+    weights, as tensors."""
+    pre = f"{arch}/p/"
+    return {k[len(pre):]: torch.tensor(ref[k]) for k in ref.files
+            if k.startswith(pre)}
+
+
+def nest(flat):
+    tree = {}
+    for path, v in flat.items():
+        node = tree
+        keys = path.split("/")
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = v
+    return tree
+
+
+def moe_case(ref, arch, mesh, device="cpu"):
+    """``moe_forward_shardmap`` on this rank's block of the reference's x
+    on ``device``, and the gradient of ``sum(y * ct)``, as numpy arrays,
+    with the all-reduces it made."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import ffn
+    cfg = moe_config(arch)
+    sizes = shd.axis_sizes(mesh)
+    di = mesh.get_local_rank("data")
+    flat = {k: v.to(device) for k, v in moe_params(ref, arch).items()}
+    for v in flat.values():
+        v.requires_grad_(True)
+    bl = ref[f"{arch}/x"].shape[0] // sizes["data"]
+    rows = slice(di * bl, (di + 1) * bl)
+    x = torch.tensor(ref[f"{arch}/x"][rows], device=device,
+                     requires_grad=True)
+    ct = torch.tensor(ref[f"{arch}/ct"][rows], device=device)
+    shd.reset_collective_counts()
+    y = ffn.moe_forward_shardmap(nest(flat), x, cfg, mesh,
+                                 dp_axes=("data",))
+    names = sorted(flat)
+    grads = torch.autograd.grad((y * ct).sum(), [x] + [flat[k]
+                                                       for k in names])
+    out = {"y": y.detach().cpu().numpy(), "dx": grads[0].cpu().numpy(),
+           "rows": (rows.start, rows.stop),
+           "counts": shd.collective_counts()}
+    out.update({f"g/{k}": g.cpu().numpy()
+                for k, g in zip(names, grads[1:])})
+    return out
+
+
+def dropped(ref, arch, mesh):
+    """Assignments this rank's local dispatch drops past its capacity."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import ffn
+    cfg = moe_config(arch)
+    ep = shd.axis_sizes(mesh)["model"]
+    el = cfg.moe.num_experts // ep
+    x = torch.tensor(ref[f"{arch}/x"])
+    bl = x.shape[0] // shd.axis_sizes(mesh)["data"]
+    x2d = x[mesh.get_local_rank("data") * bl:][:bl].reshape(-1, x.shape[-1])
+    _, experts = ffn.route({"w": torch.tensor(ref[f"{arch}/p/router/w"])},
+                           x2d, cfg.moe)
+    lo = mesh.get_local_rank("model") * el
+    mine = experts[(experts >= lo) & (experts < lo + el)] - lo
+    cap = max(8, ffn.capacity(x2d.shape[0], cfg.moe) // ep * 2)
+    counts = torch.bincount(mine, minlength=el)
+    return int((counts - cap).clamp_min(0).sum())
+
+
+def moe_job(ref_dir, model):
+    from repro_torch.launch.mesh import make_host_mesh
+    ref = np.load(os.path.join(ref_dir, "reference.npz"))
+    mesh = make_host_mesh(model=model, device="cpu")
+    out = {}
+    for arch in MOE_ARCHS:
+        out[arch] = moe_case(ref, arch, mesh)
+        out[(arch, "dropped")] = dropped(ref, arch, mesh)
+    return out
+
+
+def psum_job(ref_dir):
+    from repro_torch.training import compression
+    ref = np.load(os.path.join(ref_dir, "reference.npz"))
+    world, rank = dist.get_world_size(), dist.get_rank()
+    x = torch.tensor(ref[f"psum{world}/x"][rank])
+    return compression.compressed_psum(x).numpy()
+
+
+def tiny_state(seed=0):
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import registry
+    from repro_torch.training import train_loop
+    bundle = registry.build(reduced(get_config("granite-moe-1b-a400m")))
+    state = train_loop.init_train_state(
+        bundle, torch.Generator().manual_seed(seed), device="cpu")
+    return bundle, state, train_loop.state_axes(bundle.param_axes())
+
+
+def remesh_job():
+    """A reduced granite train state placed on a (4, 1) mesh by the train
+    rules, then remeshed to (2, 2): every leaf's local shard the block its
+    placements give, every leaf whole again equal to the original."""
+    from torch.distributed.tensor._utils import \
+        _compute_local_shape_and_global_offset as local_block
+    from repro_torch.distributed import elastic
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.training.optimizer import leaves
+    bundle, state, axes = tiny_state()
+    old = make_host_mesh(model=1, device="cpu")
+    new = make_host_mesh(model=2, device="cpu")
+    rules = shd.make_rules(bundle.cfg, old, "train")
+    placed = shd.place(state, shd.sharding_for_tree(state, axes, rules, old))
+    new_rules = shd.make_rules(bundle.cfg, new, "train")
+    moved = elastic.remesh(placed, old, new, new_rules, axes=axes)
+    blocks_ok, whole_ok, split = True, True, 0
+    coord = [new.get_local_rank(a) for a in ("data", "model")]
+    for t, want in zip(leaves(moved), leaves(state)):
+        shape, offset = local_block(want.shape, (2, 2), coord, t.placements)
+        block = want[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
+        blocks_ok &= torch.equal(t.to_local(), block.detach())
+        whole_ok &= torch.equal(t.full_tensor(), want.detach())
+        split += tuple(t.to_local().shape) != tuple(want.shape)
+    return {"blocks": blocks_ok, "whole": whole_ok, "split_leaves": split,
+            "leaves": len(leaves(state))}
+
+
+def refusal_job():
+    """The train step on a state placed by the train rules over two ranks,
+    at (2, 1) (the embed dim split over data) and at (1, 2) (heads and
+    experts split over model): the error each rank's step raises."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training import train_loop
+    out = {}
+    for model in (1, 2):
+        bundle, state, axes = tiny_state()
+        mesh = make_host_mesh(model=model, device="cpu")
+        rules = shd.make_rules(bundle.cfg, mesh, "train")
+        placed = shd.place(state,
+                           shd.sharding_for_tree(state, axes, rules, mesh))
+        step = train_loop.make_train_step(
+            bundle, opt_mod.AdamWConfig(),
+            moe_ctx={"impl": "shardmap", "mesh": mesh,
+                     "dp_axes": shd.dp_axes(mesh)})
+        toks = torch.zeros((2, 8), dtype=torch.long)
+        try:
+            step(placed, {"tokens": toks})
+            out[model] = None
+        except ValueError as e:
+            out[model] = str(e)
+    return out
+
+
+def production_job():
+    """The production meshes over fake process groups of 256 and 512 ranks
+    (this rank is rank 0): their shapes, names and data axes, and the
+    placements of a batch sharded over them; and the error of a mesh asked
+    for before any group is up."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+    out = {}
+    try:
+        make_host_mesh(device="cpu")
+    except RuntimeError as e:
+        out["no_group"] = str(e)
+    for multi_pod, n in ((False, 256), (True, 512)):
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=n)
+        try:
+            mesh = make_production_mesh(multi_pod=multi_pod, device="cpu")
+            spec = (shd.dp_axes(mesh) if multi_pod else "data", None)
+            out[n] = (tuple(mesh.shape), tuple(mesh.mesh_dim_names),
+                      shd.dp_axes(mesh), shd.placements(spec, mesh))
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
+JOBS = {
+    "ranks2": lambda ref_dir: {"moe": moe_job(ref_dir, 2),
+                               "psum": psum_job(ref_dir),
+                               "refusal": refusal_job()},
+    "ranks4": lambda ref_dir: {"moe_1x4": moe_job(ref_dir, 4),
+                               "moe_2x2": moe_job(ref_dir, 2),
+                               "psum": psum_job(ref_dir),
+                               "remesh": remesh_job()},
+    "production": lambda ref_dir: production_job(),
+}
+
+
+def _rank(job, rank, world, out_dir, ref_dir):
+    torch.set_num_threads(1)
+    path = os.path.join(out_dir, f"{job}-{rank}.pt")
+    try:
+        if job == "production":     # its own fake groups
+            result = {"ok": JOBS[job](ref_dir)}
+        else:
+            dist.init_process_group(
+                "gloo", rank=rank, world_size=world,
+                timeout=datetime.timedelta(seconds=120),
+                store=dist.FileStore(os.path.join(out_dir, f"{job}.store"),
+                                     world))
+            try:
+                result = {"ok": JOBS[job](ref_dir)}
+            finally:
+                dist.destroy_process_group()
+    except Exception:
+        result = {"error": traceback.format_exc()}
+    torch.save(result, path)
+
+
+def run_ranks(job, world, out_dir, ref_dir=None, timeout=240):
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_rank, args=(job, r, world, out_dir,
+                                             ref_dir))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    out = []
+    for r, p in enumerate(procs):
+        path = os.path.join(out_dir, f"{job}-{r}.pt")
+        if not os.path.exists(path):
+            raise RuntimeError(f"{job} rank {r} wrote nothing "
+                               f"(exit code {p.exitcode})")
+        res = torch.load(path, weights_only=False)
+        if "error" in res:
+            raise RuntimeError(f"{job} rank {r}:\n{res['error']}")
+        out.append(res["ok"])
+    return out
