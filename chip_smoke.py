@@ -186,6 +186,17 @@ non-zero):
    layer and step), then the engine; cross_check_deepseek /
    cross_check_llama4 at 1 layer, card against CPU (logits 1e-3, argmax
    equal).
+21. dryrun (after the serve_deepseek and serve_llama4 phases, in a process
+   of its own): ``launch.dryrun`` traces qwen2-0.5b's train_4k,
+   prefill_32k and decode_32k and mamba2-1.3b's long_500k and hymba-1.5b's
+   decode_32k on the single-pod mesh (a fake process group of 256 ranks),
+   granite-moe-1b-a400m's train_4k on the two-pod one (512), and
+   qwen2-0.5b's long_500k skip: every record ``ok``, one line each with
+   the dominant roofline term, the step time, the bytes a device against
+   the card's 80 GB and the link bytes by kind. Then the train and
+   train_mesh phases' own cells at a (1, 1) mesh: the launches a step they
+   predict must equal the measured ones; each predicted peak is printed
+   beside the measured one.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the rest
@@ -353,6 +364,23 @@ MESH_STORE = os.path.join(ROOT, "build", "mesh_store")
 # engine; the card-vs-CPU check at BIG_CUT layer. Their heads: 64 over 8
 # and 40 over 8 (a group of 5), head_dim 128.
 BIG_LAYERS = {"deepseek-67b": 4, "llama4-scout-17b-a16e": 2}
+# dryrun: cells of launch.dryrun traced on the card over fake process
+# groups of 256 (single) and 512 (multi) ranks, one line each; then the
+# smoke's own training cells (train: qwen2-0.5b, train_mesh: granite through
+# the shard_map MoE) traced at a (1, 1) mesh at their batch and sequence,
+# whose predicted launches a step must equal the phases' measured ones
+DRYRUN_CELLS = (("qwen2-0.5b", "train_4k", "single"),
+                ("qwen2-0.5b", "prefill_32k", "single"),
+                ("qwen2-0.5b", "decode_32k", "single"),
+                ("qwen2-0.5b", "long_500k", "single"),
+                ("granite-moe-1b-a400m", "train_4k", "multi"),
+                ("mamba2-1.3b", "long_500k", "single"),
+                ("hymba-1.5b", "decode_32k", "single"))
+DRYRUN_CROSS = {"train": ("qwen2-0.5b", "gather"),
+                "train_mesh": (MESH_ARCH, "shardmap")}
+DEVICE_GB = 80.0
+# the training phases' measured launches, steps and peak memory, for dryrun
+MEASURED = {}
 BIG_PHASE = {"deepseek-67b": "serve_deepseek",
              "llama4-scout-17b-a16e": "serve_llama4"}
 BIG_BATCH, BIG_PROMPT, BIG_STEPS, BIG_MAX_LEN, BIG_CUT = 4, 32, 24, 160, 1
@@ -2150,6 +2178,8 @@ def phase_train(rows, phase="train", flags=TRAIN, ckpt=True):
               1.0 - busy_step_ms / (1e3 * float(np.median(step_s))),
           **extra})
     shutil.rmtree(ckpt_dir, ignore_errors=True)
+    MEASURED[phase] = {"launches": counts, "steps": len(log),
+                       "peak_memory_gb": peak_gb}
     if counts != want:
         raise AssertionError(f"{phase}: launch counts {counts}, expected "
                              f"{want}")
@@ -3021,6 +3051,8 @@ def phase_train_mesh(rows):
           "restored_leaves_bit_equal": sum(same), "leaves": len(same),
           "remesh_serve_bit_equal": remesh_same,
           "compressed_psum_bit_equal": psum_same})
+    MEASURED["train_mesh"] = {"launches": counts, "steps": MESH_STEPS,
+                              "peak_memory_gb": peak_gb}
     if counts != want or counts_b != want_b or colls != want_colls:
         raise AssertionError(f"train_mesh: launches {counts} / {counts_b} "
                              f"(expected {want} / {want_b}) or all-reduces "
@@ -3059,6 +3091,93 @@ def phase_cross_check_train_mesh():
         cross_check_step("cross_check_train_mesh", cfg,
                          {"tokens": torch.as_tensor(toks)},
                          train_launches(cfg, 1), moe_ctx=ctx)
+
+
+DRYRUN_SCRIPT = """
+import json, sys
+from repro_torch.configs import InputShape, get_config
+from repro_torch.launch import dryrun
+cells, cross, batch, seq = json.loads(sys.argv[1])
+for arch, shape, mesh in cells:
+    rec = dryrun.run_cell(arch, shape, multi_pod=mesh == "multi")
+    print(json.dumps(rec), flush=True)
+for phase, (arch, moe) in cross.items():
+    shape = InputShape(f"{phase}_{batch}x{seq}", seq, batch, "train")
+    rec = dryrun.run_cell(arch, shape, multi_pod=False, moe_impl=moe,
+                          mesh_shape=(1, 1))
+    rec["phase"] = phase
+    print(json.dumps(rec), flush=True)
+"""
+
+
+def phase_dryrun():
+    """``launch.dryrun`` on the card, in a process of its own (its fake
+    default group cannot live beside an NCCL one): DRYRUN_CELLS on the
+    production meshes over fake groups of 256 and 512 ranks, each record
+    ``ok`` (long_500k of a full-attention arch: the reference's skip), one
+    line each with the dominant term, the step time, the bytes a device
+    against the card's 80 GB and the link bytes by kind. Then the smoke's
+    own training cells (DRYRUN_CROSS) at a (1, 1) mesh at TRAIN_BATCH x
+    TRAIN_SEQ: the kernel launches a step they predict must equal the
+    train and train_mesh phases' measured launches over their steps; the
+    predicted bytes a device are printed beside each phase's measured
+    peak."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    arg = json.dumps([DRYRUN_CELLS, DRYRUN_CROSS, TRAIN_BATCH, TRAIN_SEQ])
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", DRYRUN_SCRIPT, arg],
+                          env=env, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    seconds = time.perf_counter() - t0
+    recs = [json.loads(line) for line in proc.stdout.splitlines()
+            if line.startswith("{")]
+    failures = []
+    for rec in recs:
+        line = {"phase": "dryrun", "cell": f"{rec['arch']}__{rec['shape']}__"
+                f"{rec['mesh']}", "chips": rec["chips"], "ok": rec["ok"],
+                "trace_s": rec.get("trace_s")}
+        if rec.get("skipped"):
+            line["skipped"] = rec["skip_reason"]
+        elif rec["ok"]:
+            roof = rec["roofline"]
+            line.update(dominant=roof["dominant"],
+                        step_time_s=roof["step_time_s"],
+                        roofline_fraction=roof["roofline_fraction"],
+                        bytes_per_device_gb=rec["bytes_per_device"] / 1e9,
+                        device_gb=DEVICE_GB,
+                        link_bytes_by_kind=rec["collectives"]["bytes_by_kind"],
+                        launches=rec["launches"])
+        else:
+            line["error"] = rec.get("error")
+            failures.append(line["cell"])
+        if "phase" in rec and rec["ok"]:
+            got = MEASURED.get(rec["phase"])
+            if got is None:
+                failures.append(f"{rec['phase']}: no measured run")
+            else:
+                per_step = {k.replace("_fwd", ""): v
+                            for k, v in rec["launches"].items()}
+                measured = {k: v // got["steps"]
+                            for k, v in got["launches"].items() if v}
+                line.update(cross_check=rec["phase"],
+                            predicted_launches_per_step=per_step,
+                            measured_launches_per_step=measured,
+                            predicted_peak_gb=rec["bytes_per_device"] / 1e9,
+                            measured_peak_gb=got["peak_memory_gb"],
+                            peak_gap_gb=rec["bytes_per_device"] / 1e9
+                            - got["peak_memory_gb"])
+                if per_step != measured or any(
+                        v % got["steps"] for v in got["launches"].values()):
+                    failures.append(f"{rec['phase']}: predicted {per_step}, "
+                                    f"measured {measured}")
+        emit(line)
+    emit({"phase": "dryrun", "seconds": seconds, "records": len(recs),
+          "returncode": proc.returncode,
+          "stderr_tail": proc.stderr[-1500:] if proc.returncode else ""})
+    want = len(DRYRUN_CELLS) + len(DRYRUN_CROSS)
+    if proc.returncode or len(recs) != want or failures:
+        raise AssertionError(f"dryrun: {len(recs)} of {want} records, "
+                             f"failures {failures}, exit {proc.returncode}")
 
 
 def mesh_phases(rows):
@@ -3161,6 +3280,7 @@ def main():
                    mesh_phases, big_phases):
         phases(rows)
         release()
+    phase_dryrun()
     phase_window_decode()
     phase_cosine_api(rows)
     phase_semantic(rows)

@@ -4,8 +4,9 @@ Every architecture the port serves is a module
 ``repro_torch.configs.<arch_id>`` exporting ``CONFIG`` (the published dims)
 built on :class:`ModelConfig`. ``get_config(arch_id)`` resolves ids (dashes
 or underscores accepted); ``reduced(cfg)`` shrinks a config to a
-CPU-testable size of the same family. Architectures join ``ARCH_IDS`` as
-their model families are ported.
+CPU-testable size of the same family. ``SHAPES`` are the four input shapes
+every architecture is paired with, and ``cells()`` yields the 40 (arch,
+shape) cells of the dry-run (``launch.dryrun``).
 """
 from __future__ import annotations
 
@@ -101,6 +102,19 @@ class ModelConfig:
             total += c.n_layers * self._attn_params()  # cross attention
         return total
 
+    def active_param_count(self) -> int:
+        """Params used per token (MoE: only the routed experts)."""
+        c = self
+        if c.moe is None:
+            return self.param_count()
+        emb = c.vocab_size * c.d_model * (1 if c.tie_embeddings else 2)
+        expert = 3 * c.d_model * c.d_ff
+        active_ffn = (c.moe.top_k * expert
+                      + 3 * c.d_model * c.moe.shared_expert_ff)
+        router = c.d_model * c.moe.num_experts
+        per_layer = self._attn_params() + active_ffn + router + 2 * c.d_model
+        return emb + c.n_layers * per_layer
+
     def _attn_params(self) -> int:
         c = self
         if c.attn_type == ATTN_NONE:
@@ -144,6 +158,24 @@ class ModelConfig:
         return self._attn_params() + ffn + 2 * c.d_model
 
 
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
+
+# the archs that run long_500k (a sub-quadratic context path)
+SUBQUADRATIC = ("hymba-1.5b", "mamba2-1.3b")
+
 ARCH_IDS = ("qwen2-0.5b", "mamba2-1.3b", "hymba-1.5b", "codeqwen1.5-7b",
             "granite-moe-1b-a400m", "minicpm3-4b", "internvl2-76b",
             "seamless-m4t-large-v2", "deepseek-67b", "llama4-scout-17b-a16e")
@@ -160,6 +192,19 @@ def get_config(arch_id: str) -> ModelConfig:
             return importlib.import_module(
                 f"repro_torch.configs.{_mod_name(a)}").CONFIG
     raise KeyError(f"unknown arch '{arch_id}'; known: {ARCH_IDS}")
+
+
+def list_configs() -> dict:
+    return {a: get_config(a) for a in ARCH_IDS}
+
+
+def cells(include_skipped: bool = True):
+    """Yield (arch_id, shape_name, runnable) for all 40 cells."""
+    for a in ARCH_IDS:
+        for s in SHAPES:
+            runnable = not (s == "long_500k" and a not in SUBQUADRATIC)
+            if runnable or include_skipped:
+                yield a, s, runnable
 
 
 def reduced(cfg: ModelConfig, *, n_layers: int = 2, d_model: int = 64,

@@ -40,7 +40,7 @@ from typing import Any, Optional
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import (DTensor, Replicate, Shard,
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
                                       distribute_tensor)
 
 # ---------------------------------------------------------------------------
@@ -230,17 +230,42 @@ _ACT = contextvars.ContextVar("activation_sharding", default=None)
 
 @contextlib.contextmanager
 def activation_sharding(mesh, rules: dict):
+    """``constrain`` places by ``rules`` on ``mesh`` inside; a plain tensor
+    met by a DTensor (a mask, the positions) counts as replicated."""
+    from torch.distributed.tensor.experimental import implicit_replication
     token = _ACT.set((mesh, rules))
+    try:
+        with implicit_replication():
+            yield
+    finally:
+        _ACT.reset(token)
+
+
+@contextlib.contextmanager
+def without_activation_sharding():
+    """``constrain`` is the identity inside, whatever context is around
+    (a one-rank train step computing on the local tensors)."""
+    token = _ACT.set(None)
     try:
         yield
     finally:
         _ACT.reset(token)
 
 
+def checkpoint_contexts():
+    """``torch.utils.checkpoint``'s ``context_fn``: the recompute runs in
+    the forward's activation-sharding context (the backward may run on
+    another thread, which does not see it)."""
+    ctx = _ACT.get()
+    return (contextlib.nullcontext(), contextlib.nullcontext()
+            if ctx is None else activation_sharding(*ctx))
+
+
 def constrain(x, axes: tuple):
     """The reference's ``with_sharding_constraint`` by logical axis names:
     a DTensor is redistributed to the spec's placements, a whole tensor is
-    placed by them; without an active context, ``x`` itself."""
+    placed by them (``from_whole``); without an active context, ``x``
+    itself."""
     ctx = _ACT.get()
     if ctx is None:
         return x
@@ -248,7 +273,44 @@ def constrain(x, axes: tuple):
     pl = placements(spec_for(x.shape, axes, rules, mesh), mesh)
     if isinstance(x, DTensor):
         return x.redistribute(mesh, pl)
-    return distribute_tensor(x, mesh, pl)
+    return from_whole(x, mesh, pl)
+
+
+def from_whole(x, mesh, pl):
+    """A tensor every rank holds whole (a fresh cache, a constant) as a
+    DTensor of placements ``pl``: each rank keeps its block, with no
+    communication."""
+    shape, offset = local_block(x.shape, mesh, pl)
+    local = x[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
+    return DTensor.from_local(local.clone(), mesh, pl, run_check=False,
+                              shape=x.shape, stride=x.stride())
+
+
+def _contiguous(shape) -> tuple:
+    stride, acc = [], 1
+    for n in reversed(shape):
+        stride.append(acc)
+        acc *= n
+    return tuple(reversed(stride))
+
+
+def zeros_tree(tree, axes, device):
+    """Zeros shaped as the leaves of ``tree`` (tensors of any device, the
+    meta device included), on ``device``; inside ``activation_sharding``
+    each leaf a DTensor placed by its axes, each rank allocating its block
+    alone."""
+    ctx = _ACT.get()
+
+    def leaf(t, ax):
+        if ctx is None:
+            return torch.zeros(t.shape, dtype=t.dtype, device=device)
+        mesh, rules = ctx
+        pl = placements(spec_for(t.shape, ax, rules, mesh), mesh)
+        shape, _ = local_block(t.shape, mesh, pl)
+        return DTensor.from_local(
+            torch.zeros(shape, dtype=t.dtype, device=device), mesh, pl,
+            run_check=False, shape=t.shape, stride=_contiguous(t.shape))
+    return map_tree(leaf, tree, axes)
 
 
 def constrain_if(x, axes: tuple, key: str):
@@ -257,6 +319,232 @@ def constrain_if(x, axes: tuple, key: str):
     if ctx is None or ctx[1].get(key) is None:
         return x
     return constrain(x, axes)
+
+
+# ---------------------------------------------------------------------------
+# In-place writes into a (possibly sharded) cache, and the label's logit of
+# vocab-split logits: each rank writes or reads its own block, computed on
+# its local tensor, so nothing is written or read silently wrong.
+# ---------------------------------------------------------------------------
+
+def local_block(shape, mesh, pl):
+    """(this rank's block's shape, its offset in the whole) of a tensor of
+    ``shape`` placed by ``pl`` on ``mesh``: DTensor's split, each mesh dim
+    in order cutting the block so far as ``torch.chunk`` does. Plain
+    integers from the mesh coordinate, so it runs under ``FakeTensorMode``
+    too."""
+    coord = mesh.get_coordinate()
+    shape, offset = list(shape), [0] * len(shape)
+    for i, p in enumerate(pl):
+        if isinstance(p, Shard):
+            d, n = p.dim, mesh.size(i)
+            full = -(-shape[d] // n)
+            start = min(coord[i] * full, shape[d])
+            offset[d] += start
+            shape[d] = max(0, min(full, shape[d] - start))
+    return tuple(shape), tuple(offset)
+
+
+def as_dtensor(t, mesh):
+    """A plain tensor (the same on every rank) as a replicated DTensor; a
+    DTensor or a non-tensor as it is."""
+    if isinstance(t, DTensor) or not isinstance(t, torch.Tensor):
+        return t
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def _placed(t, mesh, pl):
+    return as_dtensor(t, mesh).redistribute(mesh, pl)
+
+
+def _seq_block(cache, dim=1):
+    """(the placements a write into ``cache`` reads its new rows with:
+    the cache's, whole along ``dim``; this rank's offset along ``dim``)."""
+    mesh, cp = cache.device_mesh, cache.placements
+    if any(isinstance(p, Partial) for p in cp):
+        raise ValueError(f"a cache placed as a partial sum {cp}")
+    _, offset = local_block(cache.shape, mesh, cp)
+    new_pl = [Replicate() if isinstance(p, Shard) and p.dim == dim else p
+              for p in cp]
+    return new_pl, offset[dim]
+
+
+def assign(dst, src):
+    """``dst.copy_(src)``; a DTensor ``dst`` takes ``src`` redistributed to
+    its own placements, each rank its block."""
+    if not isinstance(dst, DTensor):
+        return dst.copy_(src)
+    dst.to_local().copy_(_placed(src, dst.device_mesh,
+                                 dst.placements).to_local())
+    return dst
+
+
+def write_prefix(cache, new):
+    """``cache[:, :n] = new`` (n = new.shape[1]), in place. A DTensor cache
+    split along its sequence writes, on each rank, the new rows that fall
+    in its block."""
+    n = new.shape[1]
+    if not isinstance(cache, DTensor):
+        cache[:, :n] = new
+        return cache
+    if cache.shape == new.shape:
+        return assign(cache, new)
+    pl, lo = _seq_block(cache)
+    new_l = _placed(new, cache.device_mesh, pl).to_local()
+    local = cache.to_local()
+    m = max(0, min(n - lo, local.shape[1]))
+    if m:
+        local[:, :m].copy_(new_l[:, lo:lo + m])
+    return cache
+
+
+def write_at(cache, new, pos):
+    """One position per sequence of ``new`` (B, 1, ...) into the (B, S,
+    ...) ``cache``, in place: ``pos`` 0-dim (one shared position) or (B,)
+    (every slot at its own depth); 0 <= pos < S. The JAX model blends a
+    one-hot over the whole cache and returns a new one; this writes only
+    the new rows. A DTensor cache split along its sequence is written only
+    on the rank whose block holds the position (the others write their own
+    rows back), each batch block with its own positions."""
+    if not isinstance(cache, DTensor):
+        new = new[:, 0].to(cache.dtype)
+        if pos.dim() == 0:
+            cache.index_copy_(1, pos.reshape(1).long(), new[:, None])
+        else:
+            cache[torch.arange(cache.shape[0], device=cache.device),
+                  pos.long()] = new
+        return cache
+    mesh = cache.device_mesh
+    pl, lo = _seq_block(cache)
+    new_l = _placed(new, mesh, pl).to_local()[:, 0].to(cache.dtype)
+    pos_pl = [p if pos.dim() and isinstance(p, Shard) and p.dim == 0
+              else Replicate() for p in cache.placements]
+    pos_l = _placed(pos, mesh, pos_pl).to_local().long() - lo
+    local = cache.to_local()
+    n = local.shape[1]
+    valid = (pos_l >= 0) & (pos_l < n)
+    idx = pos_l.clamp(0, n - 1)
+    if pos_l.dim() == 0:
+        idx = idx.reshape(1)
+        local.index_copy_(1, idx, torch.where(
+            valid, new_l[:, None], local.index_select(1, idx)))
+    else:
+        rows = torch.arange(local.shape[0], device=local.device)
+        keep = valid.view((-1,) + (1,) * (new_l.dim() - 1))
+        local[rows, idx] = torch.where(keep, new_l, local[rows, idx])
+    return cache
+
+
+def contract(x, w, in_dims: int = 1):
+    """``tensordot(x, w, in_dims)`` of DTensors, each rank on its blocks
+    (``local_map``), by Megatron's and FSDP's rules per mesh dim:
+
+    * x split along a batch dim: w gathered there (FSDP), out split as x;
+    * else w split along an output dim (column-parallel): x gathered, out
+      split along that dim;
+    * else w split along a contracted dim (row-parallel), or x split along
+      one: the other split to match, out a partial sum;
+    * else out as x (replicated, or a partial sum carried through).
+
+    So no view of a split dim is ever taken (tensordot flattens its
+    operands). Gradients: w's a partial sum over the mesh dims that split
+    x's batch, x's a partial sum over those that split w's outputs."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    w = as_dtensor(w, mesh)
+    nb = x.dim() - in_dims
+    xs, ws, outs, xg, wg = [], [], [], [], []
+    for xp, wp in zip(x.placements, w.placements):
+        if isinstance(xp, Shard) and xp.dim < nb:           # batch split
+            xi, wi, oi = xp, Replicate(), xp
+            xgi, wgi = xp, Partial()
+        elif isinstance(wp, Shard) and wp.dim >= in_dims:    # column split
+            xi, wi, oi = Replicate(), wp, Shard(nb + wp.dim - in_dims)
+            xgi, wgi = Partial(), wp
+        elif isinstance(wp, Shard):                          # row split
+            xi, wi, oi = Shard(nb + wp.dim), wp, Partial()
+            xgi, wgi = xi, wp
+        elif isinstance(xp, Shard):                          # x's contraction
+            xi, wi, oi = xp, Shard(xp.dim - nb), Partial()
+            xgi, wgi = xp, wi
+        elif isinstance(xp, Partial):
+            xi, wi, oi = xp, Replicate(), Partial()
+            xgi, wgi = Replicate(), Partial()
+        else:
+            xi = wi = oi = xgi = wgi = Replicate()
+        xs.append(xi)
+        ws.append(wi)
+        outs.append(oi)
+        xg.append(xgi)
+        wg.append(wgi)
+    return local_map(lambda a, b: torch.tensordot(a, b, dims=in_dims),
+                     out_placements=outs, in_placements=(xs, ws),
+                     in_grad_placements=(xg, wg), device_mesh=mesh,
+                     redistribute_inputs=True)(x, w)
+
+
+def embedding(tokens, table):
+    """``table[tokens]`` of a DTensor table (V, d), each rank on its blocks
+    (``local_map``), per mesh dim: the tokens' batch split kept (the table
+    gathered there, FSDP), else a vocab split read as masked rows summed
+    over the dim (the rows outside a rank's block read zero), else an
+    embed split kept."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh = table.device_mesh
+    tokens = as_dtensor(tokens, mesh)
+    ts, ws, outs, wg = [], [], [], []
+    for tp, wp in zip(tokens.placements, table.placements):
+        if isinstance(tp, Shard) and tp.dim == 0:
+            ti, wi, oi, wgi = tp, Replicate(), Shard(0), Partial()
+        elif isinstance(wp, Shard) and wp.dim == 0:
+            ti, wi, oi, wgi = Replicate(), wp, Partial(), wp
+        elif isinstance(wp, Shard):
+            ti, wi, oi, wgi = Replicate(), wp, Shard(tokens.dim()), wp
+        else:
+            ti = wi = oi = wgi = Replicate()
+        ts.append(ti)
+        ws.append(wi)
+        outs.append(oi)
+        wg.append(wgi)
+    lo = local_block(table.shape, mesh, ws)[1][0]
+
+    def local(tok, w):
+        idx = tok.long() - lo
+        valid = (idx >= 0) & (idx < w.shape[0])
+        rows = torch.nn.functional.embedding(idx.clamp(0, w.shape[0] - 1), w)
+        return rows * valid[..., None].to(rows.dtype)
+    return local_map(local, out_placements=outs, in_placements=(ts, ws),
+                     in_grad_placements=(ts, wg), device_mesh=mesh,
+                     redistribute_inputs=True)(tokens, table)
+
+
+def label_logits(logits, labels):
+    """``logits[..., labels]`` of DTensor logits whose last (vocab) dim may
+    be split: each rank reads the labels that fall in its vocab block, a
+    partial sum over the mesh dims that split it; the gradient is each
+    rank's block."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh, nd = logits.device_mesh, logits.dim()
+    lp = [Replicate() if isinstance(p, Partial) else p
+          for p in logits.placements]
+    lab_pl = [p if isinstance(p, Shard) and p.dim < nd - 1 else Replicate()
+              for p in lp]
+    out_pl = [Partial() if isinstance(p, Shard) and p.dim == nd - 1 else b
+              for p, b in zip(lp, lab_pl)]
+    _, offset = local_block(logits.shape, mesh, lp)
+    lo = offset[-1]
+
+    def local(lg, lab):
+        idx = lab.long() - lo
+        valid = (idx >= 0) & (idx < lg.shape[-1])
+        got = torch.gather(lg, -1, idx.clamp(0, lg.shape[-1] - 1)[..., None])
+        return torch.where(valid, got[..., 0], torch.zeros_like(got[..., 0]))
+    return local_map(local, out_placements=out_pl,
+                     in_placements=(lp, lab_pl), in_grad_placements=(lp,
+                                                                    lab_pl),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        logits, as_dtensor(labels, mesh))
 
 
 # ---------------------------------------------------------------------------

@@ -6,6 +6,16 @@ the root of the checkout and loaded with ``ctypes``. The library's file name
 carries a hash of the source, the ``csrc`` headers it includes and the
 flags, so an edited source or header is rebuilt and an unchanged one is
 reused. A failed build or load raises.
+
+Each launch is a ``torch.library`` op in the ``repro_torch`` namespace
+(``torch.ops.repro_torch.*``): its CUDA implementation launches the kernel
+and counts the launch, and its fake implementation gives the kernel's
+outputs' shapes and dtypes without launching anything, so that a trace over
+fake tensors (``launch.dryrun``) reaches the kernels as the card would.
+``register_costs`` gives each op its FLOPs (torch's flop counter,
+``torch.utils.flop_counter.flop_registry``) and the bytes it moves
+(``OP_BYTES``). The op has no CPU implementation: a CPU tensor that reaches
+it raises, and so does a fake tensor of an op without a fake one.
 """
 from __future__ import annotations
 
@@ -113,6 +123,38 @@ def count_launch(stats: dict) -> None:
     changes under one lock."""
     with LAUNCH_LOCK:
         stats["launches"] += 1
+
+
+def is_fake(t) -> bool:
+    """Whether ``t`` is a fake tensor (shapes and dtypes, no storage)."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    return isinstance(t, FakeTensor)
+
+
+OP_BYTES: dict = {}
+
+
+def call(op, impl, *args):
+    """One kernel op: its CUDA implementation ``impl`` called directly
+    where nothing but the card would see it (real tensors, no dispatch
+    mode active: serving's eager calls, which pay the dispatcher's host
+    time on every launch), else through the dispatcher (``op``: fake
+    tensors, a trace's counter)."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode
+    if _get_current_dispatch_mode() is None and not is_fake(args[0]):
+        return impl(*args)
+    return op(*args)
+
+
+def register_costs(op, *, flops, nbytes) -> None:
+    """Register the FLOPs and the bytes of one kernel op
+    (``torch.ops.repro_torch.<name>``): ``flops(*args, out_val=...)`` with
+    torch's flop counter, ``nbytes(*args)`` in ``OP_BYTES``. Both take the
+    op's own arguments (tensors, real or fake, and scalars)."""
+    from torch.utils.flop_counter import flop_registry, register_flop_formula
+    if op not in flop_registry:
+        register_flop_formula(op, get_raw=True)(flops)
+    OP_BYTES[op] = nbytes
 
 
 def refuse_grad(name: str, *tensors) -> None:

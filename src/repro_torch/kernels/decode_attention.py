@@ -11,7 +11,7 @@ lacks; the JAX model masks it in its einsum decode) starts each sequence's
 keys at ``cache_len - window``, so no tile before the window is loaded.
 ``plain`` is the same function in plain PyTorch
 (``kernels.ref.decode_attention_ref``); the wrapper never falls back to
-it.
+it. The launch is the op ``repro_torch::decode_attention`` (``_build``).
 """
 from __future__ import annotations
 
@@ -76,7 +76,16 @@ def decode_attention(q, k_cache, v_cache, cache_len, window=0):
     if cache_len.dtype != torch.int32 or cache_len.shape != (b,) \
             or not cache_len.is_contiguous():
         raise ValueError(f"cache_len must be a contiguous ({b},) int32 tensor")
-    out = torch.empty((b, 1, hq, d), dtype=q.dtype, device=q.device)
+    return _build.call(torch.ops.repro_torch.decode_attention, _impl, q,
+                       k_cache, v_cache, cache_len, int(window),
+                       float(d ** -0.5))
+
+
+def _impl(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+        cache_len: torch.Tensor, window: int, scale: float) -> torch.Tensor:
+    b, _, hq, d = q.shape
+    _, s, hkv, _ = k_cache.shape
+    out = _fake(q, k_cache, v_cache, cache_len, window, scale)
     if b == 0 or s == 0:
         return out.zero_()
     fn = _lib()
@@ -87,10 +96,47 @@ def decode_attention(q, k_cache, v_cache, cache_len, window=0):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                  cache_len.data_ptr(), out.data_ptr(), DTYPES[q.dtype], b,
-                 s, hq, hkv, d, int(window), strides, float(d ** -0.5),
-                 stream)
+                 s, hq, hkv, d, window, strides, scale, stream)
     if err:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {err}")
     _build.count_launch(stats)
     return out
+
+
+_op = torch.library.custom_op("repro_torch::decode_attention", _impl,
+                              mutates_args=(), device_types="cuda")
+
+
+@_op.register_fake
+def _fake(q, k_cache, v_cache, cache_len, window, scale):
+    """The (B, 1, Hq, D) output, in q's dtype."""
+    return q.new_empty(q.shape)
+
+
+def attended(k_cache, cache_len, window) -> int:
+    """The cache rows the kernel reads over all sequences: each one's
+    valid entries, or its window's. A fake ``cache_len`` has no values:
+    then every sequence's whole cache (or window) counts."""
+    s = k_cache.shape[1]
+    if _build.is_fake(cache_len) or cache_len.device.type == "meta":
+        return cache_len.shape[0] * (min(s, window) if window else s)
+    lens = cache_len.detach().to("cpu", torch.int64).clamp(0, s)
+    return int((lens.clamp(max=window) if window else lens).sum())
+
+
+def _flops(q, k_cache, v_cache, cache_len, window, scale, out_val=None):
+    """4 D FLOPs per (query head, attended key) pair."""
+    return 4 * q.shape[3] * q.shape[2] * attended(k_cache, cache_len, window)
+
+
+def _bytes(q, k_cache, v_cache, cache_len, window, scale):
+    """q and the attended K/V rows read once, cache_len read, o written."""
+    b, _, hq, d = q.shape
+    hkv = k_cache.shape[2]
+    return ((2 * b * hq * d + 2 * attended(k_cache, cache_len, window)
+             * hkv * d) * q.element_size() + 4 * b)
+
+
+_build.register_costs(torch.ops.repro_torch.decode_attention, flops=_flops,
+                      nbytes=_bytes)

@@ -10,7 +10,10 @@ padded. Its rows are read as 16-byte vectors: the wrapper raises on a tensor
 whose rows do not start 16-byte aligned (the model's tensors and its
 layer-stacked cache slices do at head_dim 16, 32, 64
 and 128). ``plain`` is the same function in plain PyTorch
-(``kernels.ref.attention_ref``); the wrapper never falls back to it.
+(``kernels.ref.attention_ref``); the wrapper never falls back to it. The
+launches are the ops ``repro_torch::flash_attention_fwd`` and
+``repro_torch::flash_attention_bwd`` (``_build``), with their fake
+implementations, FLOPs and bytes.
 
 For training, ``attention`` runs the forward through ``FlashAttention``:
 the forward kernel also writes each row's log-sum-exp, and the backward
@@ -93,7 +96,7 @@ def _check_inputs(q, k, v):
                          f"v {tuple(v.shape)} do not match")
     if d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d} not supported; take {HEAD_DIMS}")
-    if not rows_aligned(q, k, v):
+    if not _build.is_fake(q) and not rows_aligned(q, k, v):
         raise ValueError("q, k and v rows must start 16-byte aligned (data "
                          "pointers and strides)")
     if k.shape[2] == 0 or hq % k.shape[2]:
@@ -108,6 +111,21 @@ def _sk_valid(sk_valid, sk):
     return sk_valid
 
 
+def attended_pairs(sq, sk, *, causal=True, window=0, q_offset=0,
+                   sk_valid=0) -> int:
+    """The (query, key) pairs one sequence and query head attends: query
+    row i at position i + q_offset against the keys below ``sk_valid``
+    (0 = all sk), at or before it where causal, and within ``window`` of it
+    (0 = no window). What the kernels compute, tile edges aside."""
+    import numpy as np
+    skv = int(sk_valid) or sk
+    pos = np.arange(sq, dtype=np.int64) + int(q_offset)
+    hi = np.minimum(skv - 1, pos) if causal else np.full(sq, skv - 1)
+    lo = np.maximum(0, pos - int(window) + 1) if window else np.zeros(sq,
+                                                                      np.int64)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
 def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
                     sk_valid=0, scale=None, return_lse=False):
     """q: (B, Sq, Hq, D); k/v: (B, Sk, Hkv, D), CUDA tensors of one dtype
@@ -116,31 +134,74 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
     Returns a new (B, Sq, Hq, D) tensor in q's dtype; with ``return_lse``
     also each row's fp32 log-sum-exp of the scaled scores, (B, Hq, Sq),
     -inf for a row with no valid key. The result carries no autograd
-    graph: ``attention`` is the differentiable entry point."""
+    graph: ``attention`` is the differentiable entry point. One launch of
+    ``torch.ops.repro_torch.flash_attention_fwd``."""
     _check_inputs(q, k, v)
-    b, sq, hq, d = q.shape
-    sk = k.shape[1]
-    sk_valid = _sk_valid(sk_valid, sk)
-    scale = float(d ** -0.5 if scale is None else scale)
-    out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
-    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
-           if return_lse else None)
+    sk_valid = _sk_valid(sk_valid, k.shape[1])
+    scale = float(q.shape[3] ** -0.5 if scale is None else scale)
+    out, lse = _build.call(
+        torch.ops.repro_torch.flash_attention_fwd, _fwd_impl, q, k, v,
+        bool(causal), int(window), int(q_offset), sk_valid, scale,
+        bool(return_lse))
+    return (out, lse) if return_lse else out
+
+
+def _fwd_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            window: int, q_offset: int, sk_valid: int, scale: float,
+            return_lse: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    out, lse = _fwd_fake(q, k, v, causal, window, q_offset, sk_valid, scale,
+                         return_lse)
     if out.numel() == 0:
-        return (out, lse) if return_lse else out
+        return out, lse
+    b, sq, hq, d = q.shape
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    None if lse is None else lse.data_ptr(),
+                    lse.data_ptr() if return_lse else None,
                     DTYPES[q.dtype], b, sq, hq, k.shape[2], d, strides,
-                    int(causal), int(window), int(q_offset), sk_valid, scale,
-                    stream)
+                    int(causal), window, q_offset, sk_valid, scale, stream)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error "
                            f"{err}")
     _build.count_launch(stats)
-    return (out, lse) if return_lse else out
+    return out, lse
+
+
+_fwd_op = torch.library.custom_op("repro_torch::flash_attention_fwd",
+                                  _fwd_impl, mutates_args=(),
+                                  device_types="cuda")
+
+
+@_fwd_op.register_fake
+def _fwd_fake(q, k, v, causal, window, q_offset, sk_valid, scale,
+              return_lse):
+    """The outputs the kernel writes: o like q, and the fp32 log-sum-exp
+    (B, Hq, Sq) where asked for (else an empty (0,))."""
+    b, sq, hq, _ = q.shape
+    return (q.new_empty(q.shape),
+            q.new_empty((b, hq, sq) if return_lse else (0,),
+                        dtype=torch.float32))
+
+
+def _fwd_flops(q, k, v, causal, window, q_offset, sk_valid, scale,
+               return_lse, out_val=None):
+    """4 D FLOPs per attended (query, key) pair and query head."""
+    b, sq, hq, d = q.shape
+    return 4 * d * hq * b * attended_pairs(
+        sq, k.shape[1], causal=causal, window=window, q_offset=q_offset,
+        sk_valid=sk_valid)
+
+
+def _fwd_bytes(q, k, v, causal, window, q_offset, sk_valid, scale,
+               return_lse):
+    """q, k and v read once, o written once, and the log-sum-exp's fp32
+    rows where written."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    return (b * (2 * sq * hq * d + 2 * sk * hkv * d) * q.element_size()
+            + (4 * b * sq * hq if return_lse else 0))
 
 
 def flash_attention_backward(q, k, v, out, dout, lse, *, causal=True,
@@ -150,15 +211,14 @@ def flash_attention_backward(q, k, v, out, dout, lse, *, causal=True,
     same masks and scale as the forward. CUDA tensors; q, k, v, out and
     dout of one dtype (float32 or bfloat16), lse fp32 (B, Hq, Sq). Returns
     new tensors in q's dtype, shaped like q, k and v. Head_dim 16, 32 or 64:
-    128 (codeqwen1.5-7b) trains only across cards, which the port does not
-    yet do. One call counts one launch of three kernels: each row's
-    Delta = rowsum(dO out), then dK and dV (summed over each KV head's
-    group) on the current stream beside dQ on a second stream that the
-    current one waits for; the two on the tensor cores. ``out`` and
+    128 (codeqwen1.5-7b) trains only across cards. One call is one launch of
+    ``torch.ops.repro_torch.flash_attention_bwd``, which runs three kernels:
+    each row's Delta = rowsum(dO out), then dK and dV (summed over each KV
+    head's group) on the current stream beside dQ on a second stream that
+    the current one waits for; the two on the tensor cores. ``out`` and
     ``dout`` rows that do not start 16-byte aligned are copied first."""
     _check_inputs(q, k, v)
     b, sq, hq, d = q.shape
-    sk, hkv = k.shape[1], k.shape[2]
     if d not in BWD_HEAD_DIMS:
         raise ValueError(f"head_dim {d}: the backward kernel takes "
                          f"{BWD_HEAD_DIMS}")
@@ -170,13 +230,25 @@ def flash_attention_backward(q, k, v, out, dout, lse, *, causal=True,
             or not lse.is_contiguous() or lse.device != q.device):
         raise ValueError(f"lse must be a contiguous fp32 {(b, hq, sq)} on "
                          f"q's device")
-    out, dout = (t if t.stride(3) == 1 and rows_aligned(t)
-                 else t.clone(memory_format=torch.contiguous_format)
-                 for t in (out, dout))
-    sk_valid = _sk_valid(sk_valid, sk)
+    if not _build.is_fake(out):
+        out, dout = (t if t.stride(3) == 1 and rows_aligned(t)
+                     else t.clone(memory_format=torch.contiguous_format)
+                     for t in (out, dout))
+    sk_valid = _sk_valid(sk_valid, k.shape[1])
     scale = float(d ** -0.5 if scale is None else scale)
-    dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device)
-                  for t in (q, k, v))
+    return _build.call(
+        torch.ops.repro_torch.flash_attention_bwd, _bwd_impl, q, k, v, out,
+        dout, lse, bool(causal), int(window), int(q_offset), sk_valid, scale)
+
+
+def _bwd_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            out: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor,
+            causal: bool, window: int, q_offset: int, sk_valid: int,
+            scale: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    dq, dk, dv = _bwd_fake(q, k, v, out, dout, lse, causal, window, q_offset,
+                           sk_valid, scale)
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
@@ -188,13 +260,51 @@ def flash_attention_backward(q, k, v, out, dout, lse, *, causal=True,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), delta.data_ptr(), DTYPES[q.dtype], b, sq, sk, hq,
-            hkv, d, strides, int(causal), int(window), int(q_offset),
-            sk_valid, scale, stream)
+            hkv, d, strides, int(causal), window, q_offset, sk_valid, scale,
+            stream)
     if err:
         raise RuntimeError(f"flash_attention backward kernel launch failed: "
                            f"CUDA error {err}")
     _build.count_launch(bwd_stats)
     return dq, dk, dv
+
+
+_bwd_op = torch.library.custom_op("repro_torch::flash_attention_bwd",
+                                  _bwd_impl, mutates_args=(),
+                                  device_types="cuda")
+
+
+@_bwd_op.register_fake
+def _bwd_fake(q, k, v, out, dout, lse, causal, window, q_offset, sk_valid,
+              scale):
+    """dQ, dK and dV, shaped like q, k and v."""
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+def _bwd_flops(q, k, v, out, dout, lse, causal, window, q_offset, sk_valid,
+               scale, out_val=None):
+    """The five products of the backward (S, dP, dV, dQ, dK): 10 D FLOPs
+    per attended (query, key) pair and query head."""
+    b, sq, hq, d = q.shape
+    return 10 * d * hq * b * attended_pairs(
+        sq, k.shape[1], causal=causal, window=window, q_offset=q_offset,
+        sk_valid=sk_valid)
+
+
+def _bwd_bytes(q, k, v, out, dout, lse, causal, window, q_offset, sk_valid,
+               scale):
+    """q, k, v, o, dO and the log-sum-exp read once, dQ, dK and dV written
+    once."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    return (b * (4 * sq * hq + 4 * sk * hkv) * d * q.element_size()
+            + 4 * b * hq * sq)
+
+
+_build.register_costs(torch.ops.repro_torch.flash_attention_fwd,
+                      flops=_fwd_flops, nbytes=_fwd_bytes)
+_build.register_costs(torch.ops.repro_torch.flash_attention_bwd,
+                      flops=_bwd_flops, nbytes=_bwd_bytes)
 
 
 class FlashAttention(torch.autograd.Function):

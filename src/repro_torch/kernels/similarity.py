@@ -9,7 +9,8 @@ morsel against its predicate's anchor. ``cosine_matrix`` replaces
 ``repro.kernels.similarity.cosine_matrix``: the fp32 dot product of every
 pair of rows, any M, N and D. ``plain`` and ``plain_matrix`` are the same
 functions in plain PyTorch (``kernels.ref``); the wrappers never fall back
-to them.
+to them. The launches are the ops ``repro_torch::rowwise_cosine`` and
+``repro_torch::cosine_matrix`` (``_build``).
 
 The cascade calls ``rowwise_cosine`` from several tier-0 worker threads at
 once; the launch counts change under ``_build.count_launch``'s lock.
@@ -78,7 +79,13 @@ def rowwise_cosine(a, b):
     m, d = a.shape
     if m >= 2 ** 31 or d >= 2 ** 31:
         raise ValueError(f"a {tuple(a.shape)} is too large for int32 indexing")
-    out = torch.empty((m,), dtype=torch.float32, device=a.device)
+    return _build.call(torch.ops.repro_torch.rowwise_cosine, _rowwise_impl,
+                       a, b)
+
+
+def _rowwise_impl(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    m, d = a.shape
+    out = _rowwise_fake(a, b)
     if m == 0:
         return out
     sb = b.stride(0) if b.dim() == 2 else 0
@@ -91,6 +98,26 @@ def rowwise_cosine(a, b):
                            f"{err}")
     _build.count_launch(stats)
     return out
+
+
+_rowwise_op = torch.library.custom_op("repro_torch::rowwise_cosine",
+                                      _rowwise_impl, mutates_args=(),
+                                      device_types="cuda")
+
+
+@_rowwise_op.register_fake
+def _rowwise_fake(a, b):
+    """The (M,) fp32 scores."""
+    return a.new_empty((a.shape[0],), dtype=torch.float32)
+
+
+_build.register_costs(
+    torch.ops.repro_torch.rowwise_cosine,
+    # 2 FLOPs per element pair
+    flops=lambda a, b, out_val=None: 2 * a.numel(),
+    # a and b read once, the fp32 scores written once
+    nbytes=lambda a, b: (a.numel() + b.numel()) * a.element_size()
+    + 4 * a.shape[0])
 
 
 def cosine_matrix(a, b):
@@ -107,7 +134,13 @@ def cosine_matrix(a, b):
     if max(m, n, d) >= 2 ** 31 or m >= 64 * 65535:
         raise ValueError(f"a {tuple(a.shape)}, b {tuple(b.shape)} are too "
                          f"large for the kernel's grid and int32 indexing")
-    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    return _build.call(torch.ops.repro_torch.cosine_matrix, _matrix_impl,
+                       a, b)
+
+
+def _matrix_impl(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    (m, d), n = a.shape, b.shape[0]
+    out = _matrix_fake(a, b)
     if m == 0 or n == 0:
         return out
     with torch.cuda.device(a.device):
@@ -120,3 +153,23 @@ def cosine_matrix(a, b):
                            f"{err}")
     _build.count_launch(matrix_stats)
     return out
+
+
+_matrix_op = torch.library.custom_op("repro_torch::cosine_matrix",
+                                     _matrix_impl, mutates_args=(),
+                                     device_types="cuda")
+
+
+@_matrix_op.register_fake
+def _matrix_fake(a, b):
+    """The (M, N) fp32 scores."""
+    return a.new_empty((a.shape[0], b.shape[0]), dtype=torch.float32)
+
+
+_build.register_costs(
+    torch.ops.repro_torch.cosine_matrix,
+    # 2 D FLOPs per output
+    flops=lambda a, b, out_val=None: 2 * a.shape[0] * b.shape[0] * a.shape[1],
+    # a and b read once, the (M, N) fp32 output written once
+    nbytes=lambda a, b: (a.numel() + b.numel()) * a.element_size()
+    + 4 * a.shape[0] * b.shape[0])

@@ -11,7 +11,8 @@ last one ragged) and reads dx, dA, B and C through their strides, so the
 model's slices of the conv output need no copy.
 ``plain`` is the same function in plain PyTorch at a chunk that divides S,
 the counterpart of ``repro.models.ssm.ssd_chunked``; the wrapper never falls
-back to it.
+back to it. The launches are the ops ``repro_torch::ssd_scan_fwd`` and
+``repro_torch::ssd_scan_bwd`` (``_build``).
 
 For training, ``scan`` runs the forward through ``SSDScan``, whose backward
 is the backward kernel (the Pallas kernel has no VJP: the JAX model
@@ -24,6 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -270,6 +272,8 @@ def _check_inputs(dx, dA, B, C, initial_state):
             or not initial_state.is_contiguous()):
         raise ValueError(f"initial_state must be a contiguous {(b, h, n, p)}, "
                          f"got {tuple(initial_state.shape)}")
+    if _build.is_fake(dx):
+        return
     lib = _lib()
     need, most = lib.ssd_scan_smem_bytes(n), lib.ssd_scan_max_smem()
     if need > most:
@@ -285,10 +289,16 @@ def ssd_scan(dx, dA, B, C, initial_state=None):
     final state (B, H, N, P) float32) that carry no autograd graph:
     ``scan`` is the differentiable entry point."""
     _check_inputs(dx, dA, B, C, initial_state)
+    return _build.call(torch.ops.repro_torch.ssd_scan_fwd, _fwd_impl,
+                       dx, dA, B, C, initial_state)
+
+
+def _fwd_impl(dx: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
+            C: torch.Tensor, initial_state: Optional[torch.Tensor]
+            ) -> tuple[torch.Tensor, torch.Tensor]:
     b, s, h, p = dx.shape
     g, n = B.shape[2], B.shape[3]
-    y = torch.empty((b, s, h, p), dtype=dx.dtype, device=dx.device)
-    fin = torch.empty((b, h, n, p), dtype=torch.float32, device=dx.device)
+    y, fin = _fwd_fake(dx, dA, B, C, initial_state)
     if b == 0 or h == 0:
         return y, fin
     strides = (ctypes.c_longlong * 12)(
@@ -304,6 +314,72 @@ def ssd_scan(dx, dA, B, C, initial_state=None):
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
     _build.count_launch(stats)
     return y, fin
+
+
+_fwd_op = torch.library.custom_op("repro_torch::ssd_scan_fwd", _fwd_impl,
+                                  mutates_args=(), device_types="cuda")
+
+
+@_fwd_op.register_fake
+def _fwd_fake(dx, dA, B, C, initial_state):
+    """y like dx, and the fp32 final state (B, H, N, P)."""
+    b, s, h, p = dx.shape
+    return (dx.new_empty(dx.shape),
+            dx.new_empty((b, h, B.shape[3], p), dtype=torch.float32))
+
+
+def _chunked_least(s, per_chunk) -> int:
+    """The least over chunk lengths 1..min(S, 256) of the work of S steps
+    cut into chunks of that length (the last one ragged), ``per_chunk(l)``
+    the work of a chunk of l steps."""
+    best = None
+    for step in range(1, min(s, 256) + 1):
+        total = (s // step) * per_chunk(step)
+        if s % step:
+            total += per_chunk(s % step)
+        best = total if best is None else min(best, total)
+    return best or 0
+
+
+@functools.lru_cache(maxsize=None)
+def scan_flops(s, h, p, n, g) -> int:
+    """The fewest FLOPs of an exact form of one sequence's scan: the
+    chunked dual form at the chunk length that needs least. Per chunk of l
+    steps and head, C . state (2 l N P), the B (x) dx state update
+    (2 l N P), the causal decayed scores times dx (l (l + 1) P) and the
+    state's decay (N P); per chunk and group, the causal scores C . B^T
+    (l (l + 1) N), which the group's heads share. Exps and masks are not
+    counted."""
+    return _chunked_least(s, lambda l: (
+        h * (4 * l * n * p + l * (l + 1) * p + n * p) + g * l * (l + 1) * n))
+
+
+@functools.lru_cache(maxsize=None)
+def scan_bwd_flops(s, h, p, n, g) -> int:
+    """The fewest FLOPs of one sequence's scan backward in the chunked form
+    of ``plain_backward``, at the chunk length that needs least: per chunk
+    of l steps and head, five state products (2 l N P each), M^T dy and
+    dy dx^T over the causal pairs (l (l + 1) P each), (G o E) B and
+    (G o E)^T C (l (l + 1) N each) and two state decays (N P each); per
+    chunk and group, the scores C B^T (l (l + 1) N)."""
+    return _chunked_least(s, lambda l: (
+        h * (10 * l * n * p + 2 * l * (l + 1) * (p + n) + 2 * n * p)
+        + g * l * (l + 1) * n))
+
+
+def _fwd_flops(dx, dA, B, C, initial_state, out_val=None):
+    b, s, h, p = dx.shape
+    return b * scan_flops(s, h, p, B.shape[3], B.shape[2])
+
+
+def _fwd_bytes(dx, dA, B, C, initial_state):
+    """dx, dA, B, C (and the initial state) read once, y and the final
+    state written once."""
+    b, s, h, p = dx.shape
+    g, n = B.shape[2], B.shape[3]
+    return (b * ((2 * s * h * p + 2 * s * g * n) * dx.element_size()
+                 + (s * h + h * n * p) * 4)
+            + (0 if initial_state is None else 4 * b * h * n * p))
 
 
 def ssd_scan_backward(dx, dA, B, C, initial_state, dy, dstate=None):
@@ -339,24 +415,32 @@ def ssd_scan_backward(dx, dA, B, C, initial_state, dy, dstate=None):
         raise ValueError(f"dstate must be a float32 {(b, h, n, p)} on dx's "
                          f"device, got {tuple(dstate.shape)} {dstate.dtype}")
     dstate = None if dstate is None else dstate.contiguous()
+    return _build.call(torch.ops.repro_torch.ssd_scan_bwd, _bwd_impl, dx,
+                       dA, B, C, initial_state, dy, dstate)
+
+
+def _bwd_impl(dx: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
+            C: torch.Tensor, initial_state: Optional[torch.Tensor],
+            dy: torch.Tensor, dstate: Optional[torch.Tensor]
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                       torch.Tensor, torch.Tensor]:
+    b, s, h, p = dx.shape
+    g, n = B.shape[2], B.shape[3]
     lib = _bwd_lib()
     need = lib.ssd_scan_bwd_smem_bytes(n)
     if need > lib.ssd_scan_bwd_max_smem():
         raise ValueError(f"d_state {n}: the backward needs {need} bytes of "
                          f"shared memory a block")
-    f32, dev = torch.float32, dx.device
-    ddx = torch.empty((b, s, h, p), dtype=dx.dtype, device=dev)
-    ddA = torch.empty((b, s, h), dtype=f32, device=dev)
-    dB = torch.empty((b, s, g, n), dtype=dx.dtype, device=dev)
-    dC = torch.empty((b, s, g, n), dtype=dx.dtype, device=dev)
-    dinit = torch.empty((b, h, n, p), dtype=f32, device=dev)
+    ddx, ddA, dB, dC, dinit = _bwd_fake(dx, dA, B, C, initial_state, dy,
+                                        dstate)
     if s == 0:  # the final state is the initial one
         return ddx, ddA, dB, dC, (dinit.zero_() if dstate is None
                                   else dstate.clone())
+    dev = dx.device
     # scratch: the state entering and the gradient leaving each chunk, and
     # the runs' dB and dC (the library sizes it: the runs follow the SMs)
     scratch = torch.empty(lib.ssd_scan_bwd_scratch(b, s, h, g, n, p),
-                          dtype=f32, device=dev)
+                          dtype=torch.float32, device=dev)
     strides = (ctypes.c_longlong * 15)(
         *dx.stride()[:3], *dA.stride(), *B.stride()[:3], *C.stride()[:3],
         *dy.stride()[:3])
@@ -376,6 +460,40 @@ def ssd_scan_backward(dx, dA, B, C, initial_state, dy, dstate=None):
                            f"error {err}")
     _build.count_launch(bwd_stats)
     return ddx, ddA, dB, dC, dinit
+
+
+_bwd_op = torch.library.custom_op("repro_torch::ssd_scan_bwd", _bwd_impl,
+                                  mutates_args=(), device_types="cuda")
+
+
+@_bwd_op.register_fake
+def _bwd_fake(dx, dA, B, C, initial_state, dy, dstate):
+    """ddx, dB and dC in dx's dtype, ddA and the initial state's gradient
+    fp32, all contiguous."""
+    b, s, h, p = dx.shape
+    n = B.shape[3]
+    f32 = torch.float32
+    return (dx.new_empty(dx.shape), dx.new_empty(dA.shape, dtype=f32),
+            dx.new_empty(B.shape), dx.new_empty(C.shape),
+            dx.new_empty((b, h, n, p), dtype=f32))
+
+
+def _bwd_flops(dx, dA, B, C, initial_state, dy, dstate, out_val=None):
+    b, s, h, p = dx.shape
+    return b * scan_bwd_flops(s, h, p, B.shape[3], B.shape[2])
+
+
+def _bwd_bytes(dx, dA, B, C, initial_state, dy, dstate):
+    """dx, dA, B, C and dy read once, ddx, ddA, dB and dC written once."""
+    b, s, h, p = dx.shape
+    g, n = B.shape[2], B.shape[3]
+    return b * s * ((3 * h * p + 4 * g * n) * dx.element_size() + 2 * h * 4)
+
+
+_build.register_costs(torch.ops.repro_torch.ssd_scan_fwd, flops=_fwd_flops,
+                      nbytes=_fwd_bytes)
+_build.register_costs(torch.ops.repro_torch.ssd_scan_bwd, flops=_bwd_flops,
+                      nbytes=_bwd_bytes)
 
 
 class SSDScan(torch.autograd.Function):

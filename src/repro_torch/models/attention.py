@@ -17,8 +17,10 @@ the cached latent directly with the up-projections absorbed.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
-from repro_torch.kernels import ops
+from repro_torch.distributed import sharding as shd
+from repro_torch.kernels import ops, sharded
 from repro_torch.models import common as cm
 
 
@@ -45,10 +47,17 @@ def gqa_axes(cfg):
 
 
 def gqa_project_qkv(p, x, positions, theta):
+    """q, k, v (B, S, heads, hd), rotated, each placed by the reference's
+    constraints (the identity outside ``activation_sharding``)."""
     q = cm.apply_dense(p["q"], x)            # (B,S,H,hd)
     k = cm.apply_dense(p["k"], x)            # (B,S,KV,hd)
     v = cm.apply_dense(p["v"], x)
-    return cm.apply_rope(q, positions, theta), cm.apply_rope(k, positions, theta), v
+    q = shd.constrain(cm.apply_rope(q, positions, theta),
+                      ("batch", "seq", "heads", "head_dim"))
+    k = shd.constrain(cm.apply_rope(k, positions, theta),
+                      ("batch", "seq", "kv_heads", "head_dim"))
+    v = shd.constrain(v, ("batch", "seq", "kv_heads", "head_dim"))
+    return q, k, v
 
 
 def gqa_forward(p, x, cfg, *, positions, window=0, causal=True, kv_out=None):
@@ -56,24 +65,15 @@ def gqa_forward(p, x, cfg, *, positions, window=0, causal=True, kv_out=None):
     receive the keys and values of the sequence (prefill)."""
     q, k, v = gqa_project_qkv(p, x, positions, cfg.rope_theta)
     if kv_out is not None:
-        kv_out[0][:, :k.shape[1]] = k
-        kv_out[1][:, :v.shape[1]] = v
+        shd.write_prefix(kv_out[0], k)
+        shd.write_prefix(kv_out[1], v)
+    # the query rows split over `model` where the heads are not (the
+    # reference's q-chunk constraint, "attn_q")
+    q = shd.constrain_if(q, ("batch", "attn_q", "heads", "head_dim"),
+                         "attn_q")
     o = ops.flash_attention(q, k, v, causal=causal, window=window)
+    o = shd.constrain(o, ("batch", "attn_q", "heads", "head_dim"))
     return cm.apply_dense(p["o"], o, in_dims=2)
-
-
-def write_kv(cache, new, pos):
-    """Write one position per sequence of ``new`` (B, 1, ...) into a
-    (B, S, ...) cache, in place. pos: 0-dim (one shared position) or (B,)
-    (every slot at its own depth). The JAX model blends a one-hot over the
-    whole cache and returns a new one; the scatter writes only the new rows.
-    Requires 0 <= pos < S."""
-    new = new[:, 0].to(cache.dtype)
-    if pos.dim() == 0:
-        cache[:, pos] = new
-    else:
-        cache[torch.arange(cache.shape[0], device=cache.device), pos.long()] = new
-    return cache
 
 
 def gqa_decode(p, x, cache_k, cache_v, pos, cfg, *, cache_len, window=0):
@@ -88,8 +88,8 @@ def gqa_decode(p, x, cache_k, cache_v, pos, cfg, *, cache_len, window=0):
     positions = pos.reshape(-1, 1).expand(x.shape[0], 1)
     q = cm.apply_rope(q, positions, cfg.rope_theta)
     k = cm.apply_rope(k, positions, cfg.rope_theta)
-    write_kv(cache_k, k, pos)
-    write_kv(cache_v, v, pos)
+    shd.write_at(cache_k, k, pos)
+    shd.write_at(cache_v, v, pos)
     o = ops.decode_attention(q, cache_k, cache_v, cache_len, window=window)
     return cm.apply_dense(p["o"], o, in_dims=2), cache_k, cache_v
 
@@ -130,10 +130,10 @@ def gqa_decode_q8(p, x, cache_k, cache_v, k_scale, v_scale, pos, cfg, *,
     k = cm.apply_rope(k, positions, cfg.rope_theta)
     kq, ks = quant_kv(k)
     vq, vs = quant_kv(v)
-    write_kv(cache_k, kq, pos)
-    write_kv(cache_v, vq, pos)
-    write_kv(k_scale, ks, pos)
-    write_kv(v_scale, vs, pos)
+    shd.write_at(cache_k, kq, pos)
+    shd.write_at(cache_v, vq, pos)
+    shd.write_at(k_scale, ks, pos)
+    shd.write_at(v_scale, vs, pos)
     o = ops.decode_attention(q, dequant_kv(cache_k, k_scale, x.dtype),
                              dequant_kv(cache_v, v_scale, x.dtype), cache_len,
                              window=window)
@@ -207,8 +207,8 @@ def mla_forward(p, x, cfg, *, positions, latent_out=None):
     q_nope, q_rope = _mla_query(p, x, positions, cfg)
     c_kv, k_rope = mla_latent(p, x, positions, cfg)
     if latent_out is not None:
-        latent_out[0][:, :c_kv.shape[1]] = c_kv
-        latent_out[1][:, :k_rope.shape[1]] = k_rope
+        shd.write_prefix(latent_out[0], c_kv)
+        shd.write_prefix(latent_out[1], k_rope)
     k_nope = cm.apply_dense(p["k_up"], c_kv)                       # (B,S,H,nd)
     v = cm.apply_dense(p["v_up"], c_kv)                            # (B,S,H,vd)
     b, s, h, _ = k_nope.shape
@@ -216,11 +216,24 @@ def mla_forward(p, x, cfg, *, positions, latent_out=None):
     k = torch.cat([k_nope, k_rope[:, :, None].expand(b, s, h,
                                                      m.qk_rope_head_dim)],
                   dim=-1).float()
+    if isinstance(q, DTensor):  # each rank its rows and heads
+        o = sharded.flash(q, k, v.float(), causal=True, window=0,
+                          fn=lambda ql, kl, vl, off, sk: _mla_attend(
+                              ql, kl, vl, off))
+    else:
+        o = _mla_attend(q, k, v.float(), 0)
+    return cm.apply_dense(p["o"], o.to(x.dtype), in_dims=2)
+
+
+def _mla_attend(q, k, v, q_offset):
+    """Causal attention in fp32 of q (B, Sq, H, dqk), scaled, against k
+    (B, Sk, H, dqk) and v (B, Sk, H, dv); query row i at position
+    i + q_offset."""
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k)
-    causal = torch.ones((s, s), dtype=torch.bool, device=x.device).tril()
+    q_pos = torch.arange(q.shape[1], device=q.device)[:, None] + q_offset
+    causal = torch.arange(k.shape[1], device=q.device)[None, :] <= q_pos
     probs = torch.softmax(scores.masked_fill(~causal, float("-inf")), dim=-1)
-    o = torch.einsum("bhqk,bkhd->bqhd", probs, v.float()).to(x.dtype)
-    return cm.apply_dense(p["o"], o, in_dims=2)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
 def mla_decode(p, x, cache_ckv, cache_krope, pos, cfg):
@@ -232,8 +245,8 @@ def mla_decode(p, x, cache_ckv, cache_krope, pos, cfg):
     positions = pos.reshape(-1, 1).expand(x.shape[0], 1)
     q_nope, q_rope = _mla_query(p, x, positions, cfg)
     c_kv, k_rope = mla_latent(p, x, positions, cfg)
-    write_kv(cache_ckv, c_kv, pos)
-    write_kv(cache_krope, k_rope, pos)
+    shd.write_at(cache_ckv, c_kv, pos)
+    shd.write_at(cache_krope, k_rope, pos)
     w_uk = p["k_up"]["w"].to(x.dtype)                              # (r,H,nd)
     q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], w_uk)       # (B,H,r)
     scores = (torch.einsum("bhr,bsr->bhs", q_lat.float(), cache_ckv.float())

@@ -17,6 +17,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 
 def _trunc_normal(shape, scale, generator, device, dtype):
@@ -58,7 +59,11 @@ def stack_axes(tree):
 def apply_dense(p, x, *, in_dims=1):
     """y = x @ w (+ b), contracting the last ``in_dims`` dims of x with the
     first ``in_dims`` dims of w."""
-    y = torch.tensordot(x, p["w"].to(x.dtype), dims=in_dims)
+    if isinstance(x, DTensor):  # a layer run sharded
+        from repro_torch.distributed import sharding as shd
+        y = shd.contract(x, p["w"].to(x.dtype), in_dims)
+    else:
+        y = torch.tensordot(x, p["w"].to(x.dtype), dims=in_dims)
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y
@@ -105,8 +110,16 @@ def softmax_cross_entropy(logits, labels, mask=None):
     one-hot reduction (it keeps a vocab-sharded reduction sharded under
     GSPMD); a gather gives the same value."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if isinstance(logits, DTensor):  # vocab-split: each rank its block
+        from repro_torch.distributed import sharding as shd
+        # logsumexp by its parts, so that only (..., 1) maxima and sums
+        # cross the ranks, not the logits
+        m = logits.detach().amax(dim=-1, keepdim=True)
+        logz = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
+        ll = shd.label_logits(logits, labels)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = logz - ll
     if mask is not None:
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

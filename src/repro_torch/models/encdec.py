@@ -33,6 +33,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import ATTN_GQA, ModelConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
@@ -138,8 +139,8 @@ def _dec_block(lp, x, enc_out, cfg, positions, cache=None):
     ek = cm.apply_dense(lp["cross_attn"]["k"], enc_out)
     ev = cm.apply_dense(lp["cross_attn"]["v"], enc_out)
     if cache is not None:
-        cache["ek"].copy_(ek)
-        cache["ev"].copy_(ev)
+        shd.assign(cache["ek"], ek)
+        shd.assign(cache["ev"], ev)
     x = x + _cross_attend(lp["cross_attn"], h, ek, ev)
     h = cm.rmsnorm(lp["ffn_norm"], x, cfg.rms_eps)
     return x + ffn_mod.swiglu(lp["ffn"], h)
@@ -156,7 +157,8 @@ def forward(params, cfg, tokens, enc_embeds, *, dtype=torch.bfloat16,
     for i in range(cfg.n_layers):
         args = (cm.layer_params(params["dec_layers"], i), x, enc_out, cfg,
                 positions)
-        x = (checkpoint(_dec_block, *args, use_reentrant=False) if remat
+        x = (checkpoint(_dec_block, *args, use_reentrant=False,
+                        context_fn=shd.checkpoint_contexts) if remat
              else _dec_block(*args))
     x = cm.rmsnorm(params["final_norm"], x, cfg.rms_eps)
     return cm.apply_dense(params["unembed"], x).float()
@@ -215,8 +217,9 @@ def prefill(params, cfg, tokens, enc_embeds, *, max_len=None,
     x = embed_inputs(params, cfg, tokens, dtype=dtype)
     b, seq = tokens.shape
     max_len = max_len or seq
-    cache = init_cache(cfg, b, max_len, enc_out.shape[1], dtype,
-                       device=x.device)
+    cache = shd.zeros_tree(
+        init_cache(cfg, b, max_len, enc_out.shape[1], dtype,
+                   device="meta"), cache_axes(cfg), x.device)
     positions = torch.arange(seq, device=x.device)[None, :]
     for i in range(cfg.n_layers):
         x = _dec_block(cm.layer_params(params["dec_layers"], i), x, enc_out,

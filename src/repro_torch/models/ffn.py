@@ -46,7 +46,10 @@ def swiglu_axes():
 
 
 def swiglu(p, x):
-    g = cm.apply_dense(p["gate"], x)
+    # the reference's constraint on the hidden: under the sequence-split
+    # prefill it stays split along the sequence
+    axes = ("batch",) + ("seq",) * (x.dim() - 2) + ("mlp",)
+    g = shd.constrain(cm.apply_dense(p["gate"], x), axes)
     u = cm.apply_dense(p["up"], x)
     return cm.apply_dense(p["down"], F.silu(g) * u)
 
@@ -276,3 +279,71 @@ def moe_forward_shardmap(p, x, cfg, mesh, *, dp_axes=("data",),
                               p["shared"])
         y = y + swiglu(shared, x2d)
     return y.reshape(b, s, d)
+
+
+def moe_forward_sharded(p, x, cfg, *, shardmap=False):
+    """The MoE on a DTensor ``x`` (B, S, d): expert-parallel, as the
+    shard_map path computes it. Each rank routes its token block (the batch
+    and sequence splits of x over the mesh dims that do not split the
+    experts; over those the tokens are gathered) against the whole router,
+    dispatches the choices that fall in its block of the expert stacks
+    (their split over dim 0; any other split gathered) and computes them;
+    the others' go to the phantom expert. The outputs are a partial sum
+    over the mesh dims that split the experts. Local capacity: the gather
+    path's ``capacity`` of the local tokens (its global slots, shared over
+    the token blocks), or with ``shardmap`` the shard_map path's
+    ``max(8, capacity // ep * 2)``. The shared expert runs on the DTensors
+    beside it. Gradients: an expert block's is its rank's, summed over the
+    token blocks; the router's and x's are sums over the expert blocks
+    too."""
+    import math
+
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    moe = cfg.moe
+    mesh = x.device_mesh
+    ndim = mesh.ndim
+    stack = p["gate"]["w"]
+    ep_dims = [i for i, pl in enumerate(stack.placements)
+               if isinstance(pl, Shard) and pl.dim == 0]
+    xp = [pl if isinstance(pl, Shard) and pl.dim in (0, 1)
+          and i not in ep_dims else Replicate()
+          for i, pl in enumerate(x.placements)]
+    tok_dims = [i for i, pl in enumerate(xp) if isinstance(pl, Shard)]
+    w_pl = [Shard(0) if i in ep_dims else Replicate() for i in range(ndim)]
+    w_grad = [Shard(0) if i in ep_dims else
+              Partial() if i in tok_dims else Replicate()
+              for i in range(ndim)]
+    r_pl = [Replicate()] * ndim
+    r_grad = [Partial() if i in ep_dims or i in tok_dims else Replicate()
+              for i in range(ndim)]
+    x_grad = [Partial() if i in ep_dims else xp[i] for i in range(ndim)]
+    ep = math.prod(mesh.size(i) for i in ep_dims)
+    e_local = moe.num_experts // ep
+    lo = shd.local_block(stack.shape, mesh, w_pl)[1][0]
+
+    def local(xl, router_w, wg, wu, wd):
+        b, s, d = xl.shape
+        x2d = xl.reshape(b * s, d)
+        weights, experts = route({"w": router_w}, x2d, moe)
+        mine = (experts >= lo) & (experts < lo + e_local)
+        local_experts = torch.where(mine, experts - lo,
+                                    torch.full_like(experts, e_local))
+        local_weights = torch.where(mine, weights, torch.zeros_like(weights))
+        cap = capacity(b * s, moe)
+        if shardmap:
+            cap = max(8, cap // ep * 2)
+        y = dispatch_compute_combine(
+            {"gate": {"w": wg}, "up": {"w": wu}, "down": {"w": wd}}, x2d,
+            local_weights, local_experts, cap, _LocalMoE(e_local, moe.top_k))
+        return y.reshape(b, s, d)
+    y = local_map(local, out_placements=x_grad,
+                  in_placements=(xp, r_pl, w_pl, w_pl, w_pl),
+                  in_grad_placements=(x_grad, r_grad, w_grad, w_grad,
+                                      w_grad),
+                  device_mesh=mesh, redistribute_inputs=True)(
+        x, p["router"]["w"], stack, p["up"]["w"], p["down"]["w"])
+    y = y.redistribute(mesh, xp)
+    if "shared" in p:
+        y = y + swiglu(p["shared"], x)
+    return y

@@ -7,7 +7,16 @@ the VLM's prefix, the SSM and hybrid families, the int8 KV cache;
 ``transformer.check_supported``), encoder-decoder configs to
 ``models.encdec``. ``param_axes()`` and ``cache_axes(...)`` give the
 logical axis names of the params' and the cache's leaves, which the
-sharding rules (``distributed.sharding``) read.
+sharding rules (``distributed.sharding``) read. ``batch_specs(shape)``
+gives a cell's inputs as meta tensors (the reference's
+``jax.ShapeDtypeStruct``), in the reference's conventions:
+
+  train_4k      tokens (B, S). VLM: S_text = S - n_prefix, and bf16
+                prefix_embeds (B, n_prefix, d) fill the rest. Enc-dec:
+                S_enc = S_dec = S // 2.
+  prefill_32k   decoder prefill of length S (enc-dec: ENC_CTX_SERVE encoder
+                frames).
+  decode_*      one token (B, 1) against a cache of length S.
 """
 from __future__ import annotations
 
@@ -16,7 +25,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.configs import ModelConfig
+from repro_torch.configs import FAMILY_VLM, InputShape, ModelConfig
 from repro_torch.models import encdec, transformer
 
 ENC_CTX_SERVE = 4096  # encoder context frames for enc-dec serve shapes
@@ -34,6 +43,11 @@ class ModelBundle:
     init_cache: Callable       # (batch, max_len, dtype, ...) -> cache
     param_axes: Callable       # () -> the params' tree of axis names
     cache_axes: Callable       # (batch, max_len, ...) -> the cache's
+    batch_specs: Callable      # (InputShape) -> {name: meta tensor}
+
+
+def _spec(shape, dtype):
+    return torch.empty(shape, dtype=dtype, device="meta")
 
 
 def build(cfg: ModelConfig) -> ModelBundle:
@@ -73,9 +87,22 @@ def _build_decoder(cfg: ModelConfig) -> ModelBundle:
         return transformer.cache_axes(cfg, per_slot_pos=per_slot_pos,
                                       kv_dtype=kv_dtype)
 
+    def batch_specs(shape: InputShape):
+        b, s = shape.global_batch, shape.seq_len
+        if shape.kind == "decode":
+            return {"token": _spec((b, 1), torch.int32)}
+        specs = {}
+        s_text = s
+        if cfg.family == FAMILY_VLM:
+            s_text = s - cfg.n_prefix_embeds
+            specs["prefix_embeds"] = _spec(
+                (b, cfg.n_prefix_embeds, cfg.d_model), torch.bfloat16)
+        specs["tokens"] = _spec((b, s_text), torch.int32)
+        return specs
+
     return ModelBundle(cfg, init_fn, loss_fn, prefill_fn, decode_fn,
                        init_cache, lambda: transformer.param_axes(cfg),
-                       cache_axes)
+                       cache_axes, batch_specs)
 
 
 def _build_encdec(cfg: ModelConfig) -> ModelBundle:
@@ -106,6 +133,17 @@ def _build_encdec(cfg: ModelConfig) -> ModelBundle:
     def cache_axes(batch, max_len, enc_len=ENC_CTX_SERVE):
         return encdec.cache_axes(cfg)
 
+    def batch_specs(shape: InputShape):
+        b, s = shape.global_batch, shape.seq_len
+        if shape.kind == "decode":
+            return {"token": _spec((b, 1), torch.int32)}
+        if shape.kind == "train":
+            s_enc = s_dec = s // 2
+        else:  # prefill
+            s_enc, s_dec = ENC_CTX_SERVE, s
+        return {"tokens": _spec((b, s_dec), torch.int32),
+                "enc_embeds": _spec((b, s_enc, cfg.d_model), torch.bfloat16)}
+
     return ModelBundle(cfg, init_fn, loss_fn, prefill_fn, decode_fn,
                        init_cache, lambda: encdec.param_axes(cfg),
-                       cache_axes)
+                       cache_axes, batch_specs)

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import ops
 from repro_torch.models import common as cm
@@ -87,70 +88,154 @@ def mamba2_forward(p, x, cfg):
     """x: (B, S, d_model) -> (out (B, S, d_model), (final ssm_state
     (B, H, N, P) fp32, conv_buf (B, W-1, conv_ch): the last W-1 conv
     inputs, front-padded with zeros when S < W-1))."""
-    s = cfg.ssm
-    d_inner, nh, _ = dims(cfg)
-    b, seq, _ = x.shape
-    gn = s.n_groups * s.d_state
-
     z = cm.apply_dense(p["z_proj"], x)                       # (B,S,di)
     xbc = cm.apply_dense(p["xbc_proj"], x)                   # (B,S,cc)
-    conv = F.silu(_causal_conv(xbc, p["conv_w"]))
+    dt_raw = cm.apply_dense(p["dt_proj"], x)                 # (B,S,H)
+    args = (z, xbc, dt_raw, p["conv_w"], p["dt_bias"], p["A_log"], p["D"])
+    if isinstance(x, DTensor):
+        y, state, conv_buf = _sharded_core(_scan_core, args, cfg, step=False)
+    else:
+        y, state, conv_buf = _scan_core(*args, cfg=cfg)
+    y = cm.rmsnorm(p["norm"], y, cfg.rms_eps)
+    return cm.apply_dense(p["out_proj"], y), (state, conv_buf)
+
+
+def _scan_core(z, xbc, dt_raw, conv_w, dt_bias, A_log, D, *, cfg,
+               head_lo=0):
+    """From the projections to the gated y before its norm, for the heads
+    [head_lo, head_lo + H_local) that dt_raw (B, S, H_local), z
+    (B, S, H_local * P) and dt_bias, A_log, D (H_local,) hold: the causal
+    conv over all of xbc's channels, then the scan. Returns (y (B, S,
+    H_local * P), final state (B, H_local, N, P) fp32, conv_buf)."""
+    s = cfg.ssm
+    d_inner, nh, _ = dims(cfg)
+    b, seq, _ = xbc.shape
+    gn = s.n_groups * s.d_state
+    n_local = dt_raw.shape[-1]
+    conv = F.silu(_causal_conv(xbc, conv_w))
     xin = conv[..., :d_inner]
     Bmat = conv[..., d_inner:d_inner + gn].reshape(b, seq, s.n_groups,
                                                    s.d_state)
     Cmat = conv[..., d_inner + gn:].reshape(b, seq, s.n_groups, s.d_state)
+    if n_local != nh:  # this rank's heads, and the groups they read
+        per = nh // s.n_groups
+        g_lo, g_hi = head_lo // per, -(-(head_lo + n_local) // per)
+        Bmat, Cmat = Bmat[:, :, g_lo:g_hi], Cmat[:, :, g_lo:g_hi]
 
-    dt = F.softplus(cm.apply_dense(p["dt_proj"], x).float()
-                    + p["dt_bias"].float())                  # (B,S,H)
-    A = -torch.exp(p["A_log"].float())                       # (H,)
+    dt = F.softplus(dt_raw.float() + dt_bias.float())        # (B,S,H)
+    A = -torch.exp(A_log.float())                            # (H,)
     dA = dt * A                                              # log decay
-    xh = xin.reshape(b, seq, nh, s.head_dim)
+    xh = xin.reshape(b, seq, nh, s.head_dim)[:, :, head_lo:head_lo + n_local]
     dx = xh * dt[..., None].to(xh.dtype)
 
     chunk = min(s.chunk_size, seq)
     y, state = ops.ssd_scan(dx, dA, Bmat, Cmat, chunk=chunk)
-    y = y + xh * p["D"][None, None, :, None].to(y.dtype)
-    y = y.reshape(b, seq, d_inner)
-    y = cm.rmsnorm(p["norm"], y * F.silu(z), cfg.rms_eps)
-    out = cm.apply_dense(p["out_proj"], y)
+    y = y + xh * D[None, None, :, None].to(y.dtype)
+    y = y.reshape(b, seq, n_local * s.head_dim)
+    y = y * F.silu(z)
     width = s.conv_width
     conv_buf = (xbc[:, seq - (width - 1):] if seq >= width - 1
                 else F.pad(xbc, (0, 0, width - 1 - seq, 0)))
-    return out, (state, conv_buf)
+    return y, state, conv_buf
+
+
+def _sharded_core(core, args, cfg, *, step):
+    """``core`` (``_scan_core`` or ``_step_core``) on each rank's block of
+    DTensors: the batch split of the tokens kept, the heads split of the
+    ``ssm_heads`` leaves (A_log's placements) kept, xbc and the conv tail
+    gathered whole along their channels (the conv and the B/C slices need
+    them). Gradients: xbc's, conv_w's and the per-head leaves' are partial
+    sums over the mesh dims that split the heads or the batch."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.distributed import sharding as shd
+    z, xbc = args[0], args[1]
+    mesh = z.device_mesh
+    a_log = args[-2]
+    batch = [i for i, pl in enumerate(z.placements)
+             if isinstance(pl, Shard) and pl.dim == 0]
+    heads = [i for i, pl in enumerate(a_log.placements)
+             if isinstance(pl, Shard) and i not in batch]
+    head_pl = [Shard(0) if i in heads else Replicate()
+               for i in range(mesh.ndim)]
+    head_lo = shd.local_block(a_log.shape, mesh, head_pl)[1][0]
+
+    def pl(split_dim, head_dim=None, partial=False):
+        return [Shard(split_dim) if i in batch else
+                Shard(head_dim) if i in heads and head_dim is not None else
+                Partial() if partial and i in heads else Replicate()
+                for i in range(mesh.ndim)]
+    wide, per_head = z.dim() - 1, 1 if step else 2   # z's channel dim
+    vec = [Shard(0) if i in heads else Replicate() for i in range(mesh.ndim)]
+    vec_grad = [Shard(0) if i in heads else Partial() if i in batch
+                else Replicate() for i in range(mesh.ndim)]
+    conv_grad = [Partial() if i in batch or i in heads else Replicate()
+                 for i in range(mesh.ndim)]
+    in_pl = [pl(0, wide), pl(0), pl(0, per_head)]
+    in_grad = [pl(0, wide), pl(0, partial=True), pl(0, per_head)]
+    if step:   # the conv tail and the state, from the cache
+        in_pl += [pl(0), pl(0, 1)]
+        in_grad += [pl(0), pl(0, 1)]
+    in_pl += [[Replicate()] * mesh.ndim, vec, vec, vec]
+    in_grad += [conv_grad, vec_grad, vec_grad, vec_grad]
+    out_pl = (pl(0, wide), pl(0, 1), pl(0))
+
+    def local(*t):
+        return core(*t, cfg=cfg, head_lo=head_lo)
+    return local_map(local, out_placements=out_pl, in_placements=tuple(in_pl),
+                     in_grad_placements=tuple(in_grad), device_mesh=mesh,
+                     redistribute_inputs=True)(*args)
 
 
 def mamba2_decode(p, x, state, conv_buf, cfg):
     """One-token step. x: (B, 1, d_model); state (B, H, N, P) fp32;
     conv_buf (B, W-1, conv_ch). Returns (y (B, 1, d_model), new state,
     new conv_buf)."""
-    s = cfg.ssm
-    d_inner, nh, _ = dims(cfg)
-    b = x.shape[0]
-    gn = s.n_groups * s.d_state
-
     z = cm.apply_dense(p["z_proj"], x)[:, 0]                 # (B,di)
     xbc = cm.apply_dense(p["xbc_proj"], x)[:, 0]             # (B,cc)
+    dt_raw = cm.apply_dense(p["dt_proj"], x)[:, 0]           # (B,H)
+    args = (z, xbc, dt_raw, conv_buf, state, p["conv_w"], p["dt_bias"],
+            p["A_log"], p["D"])
+    if isinstance(x, DTensor):
+        y, state, new_buf = _sharded_core(_step_core, args, cfg, step=True)
+    else:
+        y, state, new_buf = _step_core(*args, cfg=cfg)
+    y = cm.rmsnorm(p["norm"], y.to(x.dtype), cfg.rms_eps)
+    out = cm.apply_dense(p["out_proj"], y)[:, None]          # (B,1,d_model)
+    return out, state, new_buf
+
+
+def _step_core(z, xbc, dt_raw, conv_buf, state, conv_w, dt_bias, A_log, D,
+               *, cfg, head_lo=0):
+    """One recurrent step for the heads [head_lo, head_lo + H_local) that
+    dt_raw (B, H_local), z (B, H_local * P), state (B, H_local, N, P) and
+    the per-head leaves hold; xbc (B, cc) and conv_buf (B, W-1, cc) whole.
+    Returns (the gated y before its norm, new state, new conv_buf)."""
+    s = cfg.ssm
+    d_inner, nh, _ = dims(cfg)
+    b = xbc.shape[0]
+    gn = s.n_groups * s.d_state
+    n_local = dt_raw.shape[-1]
+
     window = torch.cat([conv_buf.to(xbc.dtype), xbc[:, None]], dim=1)
-    conv = F.silu(torch.einsum("bwc,wc->bc", window,
-                               p["conv_w"].to(xbc.dtype)))
+    conv = F.silu(torch.einsum("bwc,wc->bc", window, conv_w.to(xbc.dtype)))
     new_buf = window[:, 1:]
 
     xin = conv[:, :d_inner]
     Bmat = conv[:, d_inner:d_inner + gn].reshape(b, s.n_groups, s.d_state)
     Cmat = conv[:, d_inner + gn:].reshape(b, s.n_groups, s.d_state)
 
-    dt = F.softplus(cm.apply_dense(p["dt_proj"], x)[:, 0].float()
-                    + p["dt_bias"].float())                  # (B,H)
-    A = -torch.exp(p["A_log"].float())
+    dt = F.softplus(dt_raw.float() + dt_bias.float())        # (B,H)
+    A = -torch.exp(A_log.float())
     da = torch.exp(dt * A)                                   # (B,H)
-    xh = xin.reshape(b, nh, s.head_dim).float()
-    B_h, C_h = _group_to_heads(Bmat, nh), _group_to_heads(Cmat, nh)
+    xh = xin.reshape(b, nh, s.head_dim)[:, head_lo:head_lo + n_local].float()
+    B_h = _group_to_heads(Bmat, nh)[:, head_lo:head_lo + n_local]
+    C_h = _group_to_heads(Cmat, nh)[:, head_lo:head_lo + n_local]
     # state <- decay * state + dt * B (x) x
     upd = torch.einsum("bhn,bhp->bhnp", B_h, xh * dt[..., None])
     state = state * da[:, :, None, None] + upd
     y = torch.einsum("bhn,bhnp->bhp", C_h, state)            # (B,H,P)
-    y = y + xh * p["D"].float()[None, :, None]
-    y = y.reshape(b, d_inner).to(x.dtype)
-    y = cm.rmsnorm(p["norm"], y * F.silu(z), cfg.rms_eps)
-    out = cm.apply_dense(p["out_proj"], y)[:, None]          # (B,1,d_model)
-    return out, state, new_buf
+    y = y + xh * D.float()[None, :, None]
+    y = y.reshape(b, n_local * s.head_dim).to(z.dtype)
+    return y * F.silu(z), state, new_buf

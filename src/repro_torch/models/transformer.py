@@ -35,11 +35,13 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import (ATTN_GQA, ATTN_MLA, ATTN_NONE,
                                  FAMILY_DENSE, FAMILY_HYBRID, FAMILY_MOE,
                                  FAMILY_SSM, FAMILY_VLM, ModelConfig)
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
 from repro_torch.models import ffn as ffn_mod
@@ -171,14 +173,18 @@ def _ssm_forward(p, h, cfg, cache):
     and conv tail go into the layer's cache slices."""
     s, (state, buf) = ssm_mod.mamba2_forward(p, h, cfg)
     if cache is not None:
-        cache["ssm_state"].copy_(state)
-        cache["conv_buf"].copy_(buf)
+        shd.assign(cache["ssm_state"], state)
+        shd.assign(cache["conv_buf"], buf)
     return s
 
 
 def _ffn(lp, h, cfg, moe_ctx=None):
     if cfg.moe is None:
         return ffn_mod.swiglu(lp["ffn"], h)
+    if isinstance(h, DTensor):  # a layer run sharded
+        return ffn_mod.moe_forward_sharded(
+            lp["ffn"], h, cfg,
+            shardmap=bool(moe_ctx and moe_ctx.get("impl") == "shardmap"))
     if moe_ctx and moe_ctx.get("impl") == "shardmap":
         return ffn_mod.moe_forward_shardmap(lp["ffn"], h, cfg,
                                             moe_ctx["mesh"],
@@ -193,7 +199,9 @@ def _block_forward(lp, x, cfg, window, positions, cache=None, moe_ctx=None):
     values, or its latent, and/or its final SSM state and conv tail
     (prefill). A hybrid layer runs attention and the SSM on the same
     normed input. ``moe_ctx``: the MoE's implementation, as the
-    reference's."""
+    reference's. ``x`` is placed by the reference's constraint first (the
+    identity outside ``activation_sharding``)."""
+    x = shd.constrain(x, ("batch", "seq", "embed_act"))
     if "attn" in lp:
         h = cm.rmsnorm(lp["attn_norm"], x, cfg.rms_eps)
         if cfg.attn_type == ATTN_MLA:
@@ -225,8 +233,13 @@ def embed_inputs(params, cfg, tokens, prefix_embeds=None,
     ``F.embedding`` gathers the rows as indexing does; its gradient on the
     card sums repeated tokens' rows in a fixed order (no atomics), which
     restart determinism needs."""
-    x = torch.nn.functional.embedding(
-        tokens.long(), params["embed"]["embedding"]).to(dtype)
+    table = params["embed"]["embedding"]
+    if isinstance(table, DTensor):  # a layer run sharded
+        x = shd.embedding(tokens, table).to(dtype)
+    else:
+        x = torch.nn.functional.embedding(tokens.long(), table).to(dtype)
+    # a vocab-split table's rows arrive as pending sums: placed here
+    x = shd.constrain(x, ("batch", "seq", "embed_act"))
     if cfg.n_prefix_embeds and prefix_embeds is not None:
         pfx = cm.apply_dense(params["prefix_proj"], prefix_embeds.to(dtype))
         x = torch.cat([pfx, x], dim=1)
@@ -235,9 +248,12 @@ def embed_inputs(params, cfg, tokens, prefix_embeds=None,
 
 def unembed(params, cfg, x):
     if cfg.tie_embeddings:
-        emb = params["embed"]["embedding"]
-        return torch.matmul(x, emb.to(x.dtype).T).float()
-    return cm.apply_dense(params["unembed"], x).float()
+        emb = params["embed"]["embedding"].to(x.dtype)
+        logits = (shd.contract(x, emb.T) if isinstance(x, DTensor)
+                  else torch.matmul(x, emb.T)).float()
+    else:
+        logits = cm.apply_dense(params["unembed"], x).float()
+    return shd.constrain(logits, ("batch", "seq", "vocab"))
 
 
 def forward(params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
@@ -258,7 +274,8 @@ def forward(params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
     for i in range(cfg.n_layers):
         args = (cm.layer_params(params["layers"], i), x, cfg,
                 windows[i] if windows else 0, positions, None, moe_ctx)
-        x = (checkpoint(_block_forward, *args, use_reentrant=False) if remat
+        x = (checkpoint(_block_forward, *args, use_reentrant=False,
+                        context_fn=shd.checkpoint_contexts) if remat
              else _block_forward(*args))
     x = cm.rmsnorm(params["final_norm"], x, cfg.rms_eps)
     return unembed(params, cfg, x)
@@ -363,7 +380,9 @@ def prefill(params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
     x = embed_inputs(params, cfg, tokens, prefix_embeds, dtype)
     b, seq = x.shape[0], x.shape[1]
     max_len = max_len or seq
-    cache = init_cache(cfg, b, max_len, dtype, device=x.device)
+    cache = shd.zeros_tree(init_cache(cfg, b, max_len, dtype,
+                                      device="meta"), cache_axes(cfg),
+                           x.device)
     positions = torch.arange(seq, device=x.device)[None, :]
     windows = layer_windows(cfg)
     for i in range(cfg.n_layers):
@@ -382,8 +401,8 @@ def _ssm_decode(p, h, cache, i, cfg):
     conv tail are written into the cache."""
     s, state, buf = ssm_mod.mamba2_decode(p, h, cache["ssm_state"][i],
                                           cache["conv_buf"][i], cfg)
-    cache["ssm_state"][i] = state
-    cache["conv_buf"][i] = buf
+    shd.assign(cache["ssm_state"][i], state)
+    shd.assign(cache["conv_buf"][i], buf)
     return s
 
 
@@ -396,7 +415,9 @@ def decode_step(params, cfg: ModelConfig, cache, token, *,
     Returns (logits (B,1,V) f32, cache)."""
     pos = cache["pos"]
     lens = pos + 1  # valid entries after this tick's write, for every layer
-    x = params["embed"]["embedding"][token.long()].to(dtype)
+    table = params["embed"]["embedding"]
+    x = (shd.embedding(token, table) if isinstance(table, DTensor)
+         else table[token.long()]).to(dtype)
     windows = layer_windows(cfg)
     for i in range(cfg.n_layers):
         lp = cm.layer_params(params["layers"], i)

@@ -2,15 +2,16 @@
 gradient by autograd, then AdamW; optional microbatch gradient
 accumulation and int8 gradient compression (``training.compression``).
 
-A state placed on a mesh (DTensor leaves, ``sharding.place``) trains where
-every leaf's local shard is the whole leaf and the mesh's data axes hold
-one rank: the step computes on the local tensors and places the new state
-as the old one was (on a model axis of more ranks, ``moe_ctx``'s shard_map
-MoE takes each rank's block of the whole expert stacks and gathers their
-gradients whole). A split leaf raises, and so does a data axis of more than
-one rank: executing the layers sharded is what the reference leaves to
-GSPMD in a compiled step, which the port does not run; nothing computes on
-a shard as if it were the whole.
+A state placed on a mesh (DTensor leaves, ``sharding.place``) trains on
+its DTensors: every layer runs on each rank's blocks (the placements the
+leaves, the batch and ``sharding.constrain`` give, the kernels through
+``kernels.sharded``), and each gradient is redistributed to its leaf's
+placements, so the gradient of a leaf replicated over the data axes comes
+out summed over them (an all-reduce; a reduce-scatter where the leaf is
+split). AdamW and the global-norm clip run on the DTensors. Where every
+mesh has one rank, the step computes on the local tensors, which are the
+whole leaves, and places the new state as the old one was (the same
+operations, so the same bits, as an unplaced state's step).
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from typing import Optional
 
 import torch
 from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.distributed import sharding as shd
 from repro_torch.training import compression as comp_mod
@@ -38,33 +40,27 @@ def state_axes(param_axes):
             "opt": {"m": param_axes, "v": param_axes, "step": None}}
 
 
-def _local(state, moe_ctx):
-    """(the state's local tensors, a function placing a tree of the same
-    keys as the state was placed). Raises on a split leaf or a data axis of
-    more than one rank."""
+def _meshes(state, moe_ctx):
+    """The meshes of the state's DTensor leaves and of ``moe_ctx``."""
     meshes = [moe_ctx["mesh"]] if moe_ctx and "mesh" in moe_ctx else []
+    _walk(lambda path, t: meshes.append(t.device_mesh)
+          if isinstance(t, DTensor) else None, state, "")
+    return meshes
+
+
+def _local(state):
+    """(the state's local tensors, a function placing a tree of the same
+    keys as the state was placed), for a state whose meshes have one rank
+    each."""
     layout = {}
 
     def unwrap(path, t):
         if not isinstance(t, DTensor):
             return t
-        local = t.to_local().detach()
-        if local.shape != t.shape:
-            raise ValueError(
-                f"{path}: its local shard {tuple(local.shape)} is not the "
-                f"whole leaf {tuple(t.shape)}; the port trains no split "
-                f"leaf (sharded dense layers are the compiled step's)")
         layout[path] = (t.device_mesh, t.placements)
-        meshes.append(t.device_mesh)
-        return local
+        return t.to_local().detach()
 
     local = _walk(unwrap, state, "")
-    for mesh in meshes:
-        sizes = shd.axis_sizes(mesh)
-        if any(sizes.get(a, 1) > 1 for a in shd.dp_axes(mesh)):
-            raise ValueError(f"a mesh of {sizes}: data-parallel training "
-                             f"would need its dense gradients reduced over "
-                             f"the data axes, which the port does not do")
 
     def wrap(tree):
         return _walk(lambda path, t: DTensor.from_local(
@@ -72,6 +68,15 @@ def _local(state, moe_ctx):
             if path in layout else t,
             tree, "")
     return local, wrap
+
+
+def reduce_grads(grads, params):
+    """Each gradient redistributed to its leaf's placements: a partial sum
+    (over the data axes, where the leaf is replicated) is all-reduced, or
+    reduce-scattered onto a split leaf."""
+    return opt_mod.tree_map(
+        lambda g, p: g.redistribute(p.device_mesh, p.placements)
+        if isinstance(g, DTensor) else g, grads, params)
 
 
 def _walk(fn, tree, path):
@@ -120,15 +125,40 @@ def make_train_step(bundle, opt_cfg: opt_mod.AdamWConfig, *,
         return loss_sum * inv, opt_mod.tree_map(lambda g: g * inv, gsum)
 
     def train_step(state, batch):
-        state, placed = _local(state, moe_ctx)
+        meshes = _meshes(state, moe_ctx)
+        sharded = any(m.size() > 1 for m in meshes)
+        if sharded:
+            return sharded_step(state, batch)
+        if meshes:
+            state, placed = _local(state)
+            batch = _walk(lambda path, t: t.to_local()
+                          if isinstance(t, DTensor) else t, batch, "")
+        else:
+            placed = lambda tree: tree  # noqa: E731
         for p in opt_mod.leaves(state["params"]):
             p.requires_grad_(True)
-        loss, grads = grads_of(state["params"], batch)
+        with shd.without_activation_sharding():
+            loss, grads = grads_of(state["params"], batch)
         if compress_grads:
             grads = comp_mod.compress_decompress(grads)
         params, opt_state, metrics = opt_mod.apply_updates(
             opt_cfg, state["params"], grads, state["opt"])
         metrics["loss"] = loss
         return placed({"params": params, "opt": opt_state}), metrics
+
+    def sharded_step(state, batch):
+        if compress_grads:
+            raise NotImplementedError("int8 gradient compression of a "
+                                      "sharded state")
+        params = state["params"]
+        for p in opt_mod.leaves(params):
+            p.requires_grad_(True)
+        with implicit_replication():
+            loss, grads = grads_of(params, batch)
+            grads = reduce_grads(grads, params)
+            params, opt_state, metrics = opt_mod.apply_updates(
+                opt_cfg, params, grads, state["opt"])
+        metrics["loss"] = loss
+        return {"params": params, "opt": opt_state}, metrics
 
     return train_step

@@ -47,9 +47,15 @@ COPIES = [
 # * models/encdec.py: a Python loop over the stacked layers replaces
 #   lax.scan, and every attention goes through the port's kernels (flash
 #   attention for the encoder, the decoder and cross-attention, decode
-#   attention over the self and the encoder cache).
+#   attention over the self and the encoder cache);
+# * analysis/roofline.py, analysis/recompute.py, launch/dryrun.py: the
+#   reference parses compiled HLO; the port traces one rank's ops over a
+#   fake process group (a TorchDispatchMode under DTensor) at the H100's
+#   constants.
 PORTED = ["core/semhash.py", "core/cascade.py", "core/executor.py",
-          "distributed/morsel_shards.py", "models/encdec.py"]
+          "distributed/morsel_shards.py", "models/encdec.py",
+          "analysis/roofline.py", "analysis/recompute.py",
+          "launch/dryrun.py"]
 
 
 def _rename(name):

@@ -588,14 +588,57 @@ def test_loss_and_grads_with_moe_ctx_match_jax(mesh):
         assert np.abs(got - want).max() <= 1e-4 * scale, name
 
 
-def test_train_step_refuses_a_split_leaf(ranks2):
-    """Over two ranks the train rules split the embedding (over data at
-    (2, 1), over model's heads at (1, 2)): the step raises on every rank and
-    names the leaf, and nothing trains on a shard."""
+SPLIT_ARCHS = ("qwen2-0.5b", "granite-moe-1b-a400m")
+
+
+@pytest.mark.parametrize("arch", SPLIT_ARCHS)
+@pytest.mark.parametrize("mesh_shape", ((1, 2), (2, 2)))
+def test_train_step_on_split_leaves_matches_reference(ref, ranks2, ranks4,
+                                                      arch, mesh_shape):
+    """Reduced qwen2 and granite with their state placed by the train
+    rules at (1, 2) and (2, 2) (heads, experts, the vocab and the MLP split
+    over model; the embed dim over data), as gloo ranks: the loss and
+    every gradient leaf, gathered whole, against the reference's compiled
+    ``jax.value_and_grad`` at the same mesh (the loss 1e-5 relative, every
+    leaf within 1e-4 of its largest |value|, as the shard_map MoE's); one
+    whole train step then runs on the split state, its loss the same and
+    its new leaves placed as the old ones."""
+    ranks = ranks2 if mesh_shape == (1, 2) else ranks4
+    key = f"split/{arch}/{mesh_shape[0]}x{mesh_shape[1]}"
+    want_loss = float(ref[f"{key}/loss"])
+    for r in ranks:
+        got = r["split"][arch]
+        assert got["split_leaves"] > 0
+        assert abs(got["loss"] - want_loss) <= 1e-5 * abs(want_loss)
+        names = [k for k in ref.files if k.startswith(f"{key}/g/")]
+        assert len(names) == sum(k.startswith("g/") for k in got)
+        for name in names:
+            want = ref[name]
+            leaf = name[len(f"{key}/g/"):]
+            scale = max(np.abs(want).max(), 1e-30)
+            assert np.abs(got[f"g/{leaf}"] - want).max() <= 1e-4 * scale, \
+                leaf
+        assert abs(got["step_loss"] - want_loss) <= 1e-5 * abs(want_loss)
+        assert got["step_placements_kept"] and got["step_finite"]
+
+
+@pytest.mark.parametrize("split", ("kv_heads", "kv_seq"))
+def test_prefill_and_decode_on_a_split_cache_match_reference(ref, ranks2,
+                                                             split):
+    """Reduced qwen2 served at (1, 2) by the serve rules, its cache split on
+    its 2 KV heads or, with 1 KV head, on its sequence (``kv_seq``; the
+    decode step writes position 12, in rank 1's block): the prefill's and
+    the decode step's logits within 1e-4 of their largest |value| of the
+    reference's (fp32)."""
     for r in ranks2:
-        for model, msg in r["refusal"].items():
-            assert msg is not None, model
-            assert "params/embed/embedding" in msg and "split" in msg
+        got = r["serve"][split]
+        dim = 3 if split == "kv_heads" else 2
+        assert f"Shard(dim={dim})" in got["cache_placements"]
+        assert got["pos"] == 13
+        for stage in ("prefill", "decode"):
+            want = ref[f"serve/{split}/{stage}"]
+            scale = np.abs(want).max()
+            assert np.abs(got[stage] - want).max() <= 1e-4 * scale, stage
 
 
 def test_remesh_4x1_to_2x2(ranks4):

@@ -16,6 +16,14 @@ process of its own. It writes ``OUT_DIR/reference.npz``:
   than one device raises);
 * ``compressed_psum`` inside ``shard_map`` over 2 and 4 devices, each
   device's input and result;
+* for reduced qwen2-0.5b and reduced granite-moe-1b-a400m (``SPLIT_ARCHS``),
+  ``PRNGKey(3)`` weights, a token batch and, at each mesh of
+  ``SPLIT_MESHES``, the fp32 loss and every gradient leaf of the compiled
+  ``jax.value_and_grad`` of the loss, its inputs placed by the train rules
+  (``split/...``);
+* for reduced qwen2-0.5b with 2 KV heads and with 1 (``SERVE_KV``),
+  ``PRNGKey(4)`` weights, a prompt's prefill logits at ``max_len`` and one
+  decode step's (``serve/...``);
 
 and ``OUT_DIR/indices.json``: for every config of ``ARCH_IDS`` at full
 width, every mode and every mesh of ``INDEX_MESHES``, each param and cache
@@ -47,6 +55,11 @@ MOE_MESHES = ((1, 1), (1, 2), (1, 4), (2, 2))
 MOE_BATCH, MOE_SEQ = 4, 16
 PSUM_RANKS = (2, 4)
 PSUM_SHAPE = (3, 300)          # 900 values: three and a half blocks of 256
+SPLIT_ARCHS = ("qwen2-0.5b", "granite-moe-1b-a400m")
+SPLIT_MESHES = ((1, 2), (2, 2))
+SPLIT_BATCH, SPLIT_SEQ = 4, 16
+SERVE_KV = {"kv_heads": 2, "kv_seq": 1}
+SERVE_BATCH, SERVE_PROMPT, SERVE_MAX_LEN = 2, 12, 16
 INDEX_MESHES = {(1, 4): ("data", "model"), (2, 2): ("data", "model"),
                 (4, 1): ("data", "model"),
                 (2, 2, 1): ("pod", "data", "model")}
@@ -118,6 +131,56 @@ def psum_cases(out):
         out[f"psum{n}/x"], out[f"psum{n}/y"] = xs, np.asarray(fn(xs))
 
 
+def split_cases(out):
+    for arch in SPLIT_ARCHS:
+        cfg = reduced(get_config(arch))
+        bundle = registry.build(cfg)
+        p = bundle.init(jax.random.PRNGKey(3))
+        vals, axes = cm.values(p), cm.axes_tree(p)
+        out.update(flat(vals, f"split/{arch}/p"))
+        toks = np.random.default_rng(7).integers(
+            0, cfg.vocab_size, (SPLIT_BATCH, SPLIT_SEQ), dtype=np.int32)
+        out[f"split/{arch}/tokens"] = toks
+        for shape in SPLIT_MESHES:
+            mesh = mesh_of(shape)
+            rules = shd.make_rules(cfg, mesh, "train")
+
+            def loss(vals, toks):
+                return bundle.loss_fn(cm.zip_params(vals, axes),
+                                      {"tokens": toks}, dtype=jnp.float32,
+                                      remat=True)
+            in_sh = (shd.sharding_for_tree(p, rules, mesh),
+                     shd.batch_sharding({"t": jax.ShapeDtypeStruct(
+                         toks.shape, jnp.int32)}, rules, mesh)["t"])
+            with jax.set_mesh(mesh), shd.activation_sharding(mesh, rules):
+                lv, gv = jax.jit(jax.value_and_grad(loss),
+                                 in_shardings=in_sh)(vals, jnp.asarray(toks))
+            key = f"split/{arch}/{shape[0]}x{shape[1]}"
+            out[f"{key}/loss"] = np.asarray(lv)
+            out.update(flat(gv, f"{key}/g"))
+
+
+def serve_cases(out):
+    for name, kv in SERVE_KV.items():
+        cfg = replace(reduced(get_config("qwen2-0.5b")), n_kv_heads=kv)
+        bundle = registry.build(cfg)
+        p = bundle.init(jax.random.PRNGKey(4))
+        prompt = np.random.default_rng(8).integers(
+            0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), dtype=np.int32)
+        token = np.random.default_rng(9).integers(
+            0, cfg.vocab_size, (SERVE_BATCH, 1), dtype=np.int32)
+        logits, cache = bundle.prefill(p, {"tokens": jnp.asarray(prompt)},
+                                       max_len=SERVE_MAX_LEN,
+                                       dtype=jnp.float32)
+        step, _ = bundle.decode_step(p, cache, jnp.asarray(token),
+                                     dtype=jnp.float32)
+        key = f"serve/{name}"
+        out.update(flat(cm.values(p), f"{key}/p"))
+        out[f"{key}/prompt"], out[f"{key}/token"] = prompt, token
+        out[f"{key}/prefill"] = np.asarray(logits)
+        out[f"{key}/decode"] = np.asarray(step)
+
+
 def leaves(tree, prefix=""):
     if cm.is_param(tree):
         yield prefix, tree
@@ -165,6 +228,8 @@ def main(out_dir):
     t0 = time.time()
     moe_cases(out)
     psum_cases(out)
+    split_cases(out)
+    serve_cases(out)
     np.savez(os.path.join(out_dir, "reference.npz"), **out)
     t1 = time.time()
     with open(os.path.join(out_dir, "indices.json"), "w") as f:

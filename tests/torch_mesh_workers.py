@@ -155,31 +155,116 @@ def remesh_job():
             "leaves": len(leaves(state))}
 
 
-def refusal_job():
-    """The train step on a state placed by the train rules over two ranks,
-    at (2, 1) (the embed dim split over data) and at (1, 2) (heads and
-    experts split over model): the error each rank's step raises."""
+def ref_params(ref, prefix):
+    """The reference's weights under ``prefix`` (``.../p/...``) as the
+    port's nested dict of tensors."""
+    pre = prefix + "/p/"
+    return nest({k[len(pre):]: torch.tensor(ref[k]) for k in ref.files
+                 if k.startswith(pre)})
+
+
+def split_job(ref_dir):
+    """The loss and every gradient leaf (gathered whole) of reduced qwen2
+    and reduced granite on this group's (data, model = 2) mesh, the state
+    placed by the train rules so that the dense layers run split, fp32;
+    then one whole train step on the placed state: its new leaves keep
+    their placements."""
+    from repro_torch.configs import get_config, reduced
     from repro_torch.distributed import sharding as shd
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import registry
     from repro_torch.training import optimizer as opt_mod
     from repro_torch.training import train_loop
+    ref = np.load(os.path.join(ref_dir, "reference.npz"))
+    mesh = make_host_mesh(model=2, device="cpu")
     out = {}
-    for model in (1, 2):
-        bundle, state, axes = tiny_state()
-        mesh = make_host_mesh(model=model, device="cpu")
-        rules = shd.make_rules(bundle.cfg, mesh, "train")
-        placed = shd.place(state,
-                           shd.sharding_for_tree(state, axes, rules, mesh))
-        step = train_loop.make_train_step(
-            bundle, opt_mod.AdamWConfig(),
-            moe_ctx={"impl": "shardmap", "mesh": mesh,
-                     "dp_axes": shd.dp_axes(mesh)})
-        toks = torch.zeros((2, 8), dtype=torch.long)
-        try:
-            step(placed, {"tokens": toks})
-            out[model] = None
-        except ValueError as e:
-            out[model] = str(e)
+    for arch in ("qwen2-0.5b", "granite-moe-1b-a400m"):
+        cfg = reduced(get_config(arch))
+        bundle = registry.build(cfg)
+        params = ref_params(ref, f"split/{arch}")
+        rules = shd.make_rules(cfg, mesh, "train")
+        axes = bundle.param_axes()
+        placed = shd.place(params, shd.sharding_for_tree(params, axes, rules,
+                                                          mesh))
+        toks = torch.tensor(ref[f"split/{arch}/tokens"]).long()
+        batch = shd.place({"tokens": toks},
+                          shd.batch_sharding({"tokens": toks}, rules, mesh))
+        for p in opt_mod.leaves(placed):
+            p.requires_grad_(True)
+        with shd.activation_sharding(mesh, rules):
+            loss = bundle.loss_fn(placed, batch, dtype=torch.float32,
+                                  remat=True)
+            grads = train_loop.reduce_grads(
+                train_loop.grad_tree(loss, placed), placed)
+        res = {"loss": float(loss.full_tensor()),
+               "split_leaves": sum(
+                   tuple(p.to_local().shape) != tuple(p.shape)
+                   for p in opt_mod.leaves(placed))}
+        res.update({f"g/{k}": g.full_tensor().detach().numpy()
+                    for k, g in flat_tree(grads).items()})
+        state = train_loop.init_train_state(bundle, device="cpu")
+        state["params"] = params
+        state_axes = train_loop.state_axes(axes)
+        state = shd.place(state, shd.sharding_for_tree(state, state_axes,
+                                                        rules, mesh))
+        step = train_loop.make_train_step(bundle, opt_mod.AdamWConfig(),
+                                          dtype=torch.float32)
+        with shd.activation_sharding(mesh, rules):
+            new, metrics = step(state, batch)
+        res["step_loss"] = float(metrics["loss"].full_tensor())
+        res["step_placements_kept"] = all(
+            a.placements == b.placements for a, b in zip(
+                opt_mod.leaves(new), opt_mod.leaves(state)))
+        res["step_finite"] = all(
+            bool(torch.isfinite(x.full_tensor()).all())
+            for x in opt_mod.leaves(new["params"]))
+        out[arch] = res
+    return out
+
+
+def flat_tree(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat_tree(v, f"{prefix}/{k}" if prefix else k))
+        return out
+    return {prefix: tree}
+
+
+def serve_job(ref_dir):
+    """Reduced qwen2 with 2 KV heads (the cache split on its KV heads) and
+    with 1 (split on its sequence, the ``kv_seq`` rule) on the (1, 2)
+    mesh by the serve rules: the prefill's logits at max_len 16 and one
+    decode step's, which writes position 12, in rank 1's block of the
+    sequence-split cache."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import registry
+    ref = np.load(os.path.join(ref_dir, "reference.npz"))
+    mesh = make_host_mesh(model=2, device="cpu")
+    out = {}
+    for name, kv in (("kv_heads", 2), ("kv_seq", 1)):
+        cfg = replace(reduced(get_config("qwen2-0.5b")), n_kv_heads=kv)
+        bundle = registry.build(cfg)
+        params = ref_params(ref, f"serve/{name}")
+        rules = shd.make_rules(cfg, mesh, "serve")
+        placed = shd.place(params, shd.sharding_for_tree(
+            params, bundle.param_axes(), rules, mesh))
+        prompt = torch.tensor(ref[f"serve/{name}/prompt"]).long()
+        token = torch.tensor(ref[f"serve/{name}/token"]).long()
+        with torch.no_grad(), shd.activation_sharding(mesh, rules):
+            logits, cache = bundle.prefill(placed, {"tokens": prompt},
+                                           max_len=16, dtype=torch.float32)
+            placements = str(cache["k"].placements)
+            step, cache = bundle.decode_step(placed, cache, token,
+                                             dtype=torch.float32)
+        out[name] = {"prefill": logits.full_tensor().numpy(),
+                     "decode": step.full_tensor().numpy(),
+                     "cache_placements": placements,
+                     "pos": int(cache["pos"].full_tensor())}
     return out
 
 
@@ -212,11 +297,13 @@ def production_job():
 JOBS = {
     "ranks2": lambda ref_dir: {"moe": moe_job(ref_dir, 2),
                                "psum": psum_job(ref_dir),
-                               "refusal": refusal_job()},
+                               "split": split_job(ref_dir),
+                               "serve": serve_job(ref_dir)},
     "ranks4": lambda ref_dir: {"moe_1x4": moe_job(ref_dir, 4),
                                "moe_2x2": moe_job(ref_dir, 2),
                                "psum": psum_job(ref_dir),
-                               "remesh": remesh_job()},
+                               "remesh": remesh_job(),
+                               "split": split_job(ref_dir)},
     "production": lambda ref_dir: production_job(),
 }
 
