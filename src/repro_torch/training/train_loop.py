@@ -86,6 +86,20 @@ def _walk(fn, tree, path):
     return fn(path, tree)
 
 
+def _microbatch(v, i, n):
+    """Microbatch ``i`` of ``n`` of a batch leaf: rows [i m, (i + 1) m) of
+    its m = B / n. Of a batch split over ranks, each rank's i-th chunk of
+    its own rows (no view of the split dim): the microbatches hold the same
+    rows between them, so their mean gradient is the same."""
+    if isinstance(v, DTensor):
+        local = v.to_local()
+        m = local.shape[0] // n
+        return DTensor.from_local(local[i * m:(i + 1) * m], v.device_mesh,
+                                  v.placements, run_check=False)
+    m = v.shape[0] // n
+    return v.reshape((n, m) + tuple(v.shape[1:]))[i]
+
+
 def grad_tree(loss, params):
     """The gradient of ``loss`` for every leaf of ``params``, as a tree of
     the same keys."""
@@ -110,17 +124,16 @@ def make_train_step(bundle, opt_cfg: opt_mod.AdamWConfig, *,
     def grads_of(params, batch):
         if microbatches <= 1:
             return loss_and_grads(params, batch)
-        mbs = {k: v.reshape((microbatches, v.shape[0] // microbatches)
-                            + tuple(v.shape[1:])) for k, v in batch.items()}
-        loss_sum = torch.zeros((), device=opt_mod.leaves(params)[0].device)
-        gsum = opt_mod.tree_map(
-            lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device), params)
+        loss_sum = gsum = None
         for i in range(microbatches):
-            loss, acc = loss_and_grads(params,
-                                       {k: v[i] for k, v in mbs.items()})
-            loss_sum = loss_sum + loss
-            gsum = opt_mod.tree_map(torch.add, gsum, acc)
+            loss, acc = loss_and_grads(params, {
+                k: _microbatch(v, i, microbatches) for k, v in batch.items()})
+            if gsum is None:
+                loss_sum = loss.float()
+                gsum = opt_mod.tree_map(lambda g: g.float(), acc)
+            else:
+                loss_sum = loss_sum + loss
+                gsum = opt_mod.tree_map(torch.add, gsum, acc)
         inv = 1.0 / microbatches
         return loss_sum * inv, opt_mod.tree_map(lambda g: g * inv, gsum)
 

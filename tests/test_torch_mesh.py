@@ -602,7 +602,8 @@ def test_train_step_on_split_leaves_matches_reference(ref, ranks2, ranks4,
     ``jax.value_and_grad`` at the same mesh (the loss 1e-5 relative, every
     leaf within 1e-4 of its largest |value|, as the shard_map MoE's); one
     whole train step then runs on the split state, its loss the same and
-    its new leaves placed as the old ones."""
+    its new leaves placed as the old ones, and one in two microbatches
+    gives the same loss (1e-5)."""
     ranks = ranks2 if mesh_shape == (1, 2) else ranks4
     key = f"split/{arch}/{mesh_shape[0]}x{mesh_shape[1]}"
     want_loss = float(ref[f"{key}/loss"])
@@ -620,6 +621,8 @@ def test_train_step_on_split_leaves_matches_reference(ref, ranks2, ranks4,
                 leaf
         assert abs(got["step_loss"] - want_loss) <= 1e-5 * abs(want_loss)
         assert got["step_placements_kept"] and got["step_finite"]
+        assert abs(got["microbatched_loss"] - want_loss) <= \
+            1e-5 * abs(want_loss)
 
 
 @pytest.mark.parametrize("split", ("kv_heads", "kv_seq"))

@@ -167,8 +167,9 @@ def split_job(ref_dir):
     """The loss and every gradient leaf (gathered whole) of reduced qwen2
     and reduced granite on this group's (data, model = 2) mesh, the state
     placed by the train rules so that the dense layers run split, fp32;
-    then one whole train step on the placed state: its new leaves keep
-    their placements."""
+    then one whole train step on the placed state (its new leaves keep
+    their placements), and one in two microbatches (each rank's rows
+    halved: the same loss)."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.distributed import sharding as shd
     from repro_torch.launch.mesh import make_host_mesh
@@ -218,6 +219,11 @@ def split_job(ref_dir):
         res["step_finite"] = all(
             bool(torch.isfinite(x.full_tensor()).all())
             for x in opt_mod.leaves(new["params"]))
+        two = train_loop.make_train_step(bundle, opt_mod.AdamWConfig(),
+                                         dtype=torch.float32, microbatches=2)
+        with shd.activation_sharding(mesh, rules):
+            _, metrics = two(state, batch)
+        res["microbatched_loss"] = float(metrics["loss"].full_tensor())
         out[arch] = res
     return out
 
