@@ -3136,6 +3136,8 @@ def phase_dryrun():
         line = {"phase": "dryrun", "cell": f"{rec['arch']}__{rec['shape']}__"
                 f"{rec['mesh']}", "chips": rec["chips"], "ok": rec["ok"],
                 "trace_s": rec.get("trace_s")}
+        if "moe_impl_ran" in rec:
+            line["moe_impl_ran"] = rec["moe_impl_ran"]
         if rec.get("skipped"):
             line["skipped"] = rec["skip_reason"]
         elif rec["ok"]:

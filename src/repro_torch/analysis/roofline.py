@@ -113,7 +113,11 @@ def _nbytes(tree) -> int:
 
 
 def _group_size(name: str, args) -> int:
-    """The size of the process group a collective runs over."""
+    """The size of the process group a collective runs over: its group's
+    name (a functional collective's) or the group itself (a c10d one's).
+    Raises where no argument resolves to a group: a guessed size would give
+    wrong link bytes."""
+    import torch.distributed as dist
     import torch.distributed.distributed_c10d as c10d
     for a in args:
         if isinstance(a, str):
@@ -121,13 +125,10 @@ def _group_size(name: str, args) -> int:
                 return c10d._resolve_process_group(a).size()
             except (ValueError, RuntimeError, KeyError):
                 continue
-        if hasattr(a, "size") and not isinstance(a, torch.Tensor) \
-                and callable(a.size):
-            try:
-                return int(a.size())
-            except (TypeError, RuntimeError):
-                continue
-    return 2
+        if isinstance(a, torch.ScriptObject) and \
+                a._type().name() == "ProcessGroup":
+            return dist.ProcessGroup.unbox(a).size()
+    raise RuntimeError(f"{name}: no process group among its arguments")
 
 
 @dataclasses.dataclass

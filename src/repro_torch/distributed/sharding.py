@@ -449,7 +449,10 @@ def contract(x, w, in_dims: int = 1):
 
     So no view of a split dim is ever taken (tensordot flattens its
     operands). Gradients: w's a partial sum over the mesh dims that split
-    x's batch, x's a partial sum over those that split w's outputs."""
+    x's batch, x's a partial sum over those that split w's outputs. A
+    plain x: ``torch.tensordot``."""
+    if not isinstance(x, DTensor):
+        return torch.tensordot(x, w, dims=in_dims)
     from torch.distributed.tensor.experimental import local_map
     mesh = x.device_mesh
     w = as_dtensor(w, mesh)
@@ -489,7 +492,9 @@ def embedding(tokens, table):
     (``local_map``), per mesh dim: the tokens' batch split kept (the table
     gathered there, FSDP), else a vocab split read as masked rows summed
     over the dim (the rows outside a rank's block read zero), else an
-    embed split kept."""
+    embed split kept. A plain table: ``F.embedding``."""
+    if not isinstance(table, DTensor):
+        return torch.nn.functional.embedding(tokens.long(), table)
     from torch.distributed.tensor.experimental import local_map
     mesh = table.device_mesh
     tokens = as_dtensor(tokens, mesh)
@@ -517,6 +522,33 @@ def embedding(tokens, table):
     return local_map(local, out_placements=outs, in_placements=(ts, ws),
                      in_grad_placements=(ts, wg), device_mesh=mesh,
                      redistribute_inputs=True)(tokens, table)
+
+
+def log_z_and_label(logits, labels):
+    """(logsumexp over the last dim, the label's logit) of fp32 logits.
+    DTensor logits, whose vocab may be split: the logsumexp by its parts,
+    so that only (..., 1) maxima and sums cross the ranks, not the logits;
+    the label's logit by ``label_logits``."""
+    if not isinstance(logits, DTensor):
+        return (torch.logsumexp(logits, dim=-1),
+                torch.gather(logits, -1, labels.long()[..., None])[..., 0])
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    logz = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
+    return logz, label_logits(logits, labels)
+
+
+def on_blocks(fn, args, placements, out_placements):
+    """``fn`` on each rank's local blocks of the DTensors ``args``, each
+    redistributed to its ``placements`` first (``local_map``); its output
+    placed by ``out_placements``. Each block's gradient is declared with
+    the same placements: ``fn``'s own collectives must make it whole over
+    every mesh dim its block is replicated on."""
+    from torch.distributed.tensor.experimental import local_map
+    pls = tuple(list(p) for p in placements)
+    return local_map(fn, out_placements=list(out_placements),
+                     in_placements=pls, in_grad_placements=pls,
+                     device_mesh=args[0].device_mesh,
+                     redistribute_inputs=True)(*args)
 
 
 def label_logits(logits, labels):

@@ -21,6 +21,13 @@ morsel and the 18,891-row game table, warm and with L2 cold (8 copies of
 the rows in turn). The last line is a JSON
 summary: the mean of each number over each root's two turns, and the
 card's name and power limit.
+
+    python3 src/repro_torch/kernels/bench_ab.py --a OLD --b NEW \
+        --pairs 10 --host-only
+
+``--pairs N`` runs N pairs of turns, A B then B A in turn (A, B, B, A,
+A, B, ...), and the summary adds, per number, each pair's B - A and their
+median; ``--host-only`` times only the wrappers' host time a call.
 """
 from __future__ import annotations
 
@@ -40,7 +47,13 @@ HYMBA_SSM_HEADS = (50, 64, 16, 1)  # hymba-1.5b's SSM heads
 DECODE = ((160, (101, 75, 79, 83)), (4096, tuple(range(128, 4097, 128))))
 
 
+# --host-only: no device times (``cuda_ms`` returns None)
+HOST_ONLY = False
+
+
 def cuda_ms(fn, reps=20):
+    if HOST_ONLY:
+        return None
     import torch
     for _ in range(3):
         fn()
@@ -111,10 +124,11 @@ def one_turn(root):
                     lambda: sim.cosine_matrix(a, a))
     time_decode(out, gen)
     time_ssd(out, gen)
-    time_ssd_bwd(out, gen)
-    time_backward(out, gen)
-    time_rowwise(out, gen)
-    return out
+    if not HOST_ONLY:
+        time_ssd_bwd(out, gen)
+        time_backward(out, gen)
+        time_rowwise(out, gen)
+    return {k: v for k, v in out.items() if v is not None}
 
 
 def time_backward(out, gen):
@@ -231,35 +245,54 @@ def time_ssd_bwd(out, gen):
 
 
 def main():
+    global HOST_ONLY
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--a", help="first root")
     ap.add_argument("--b", help="second root")
     ap.add_argument("--one", help="time this root in this process")
+    ap.add_argument("--pairs", type=int, default=2,
+                    help="pairs of turns (A B, then B A, in turn)")
+    ap.add_argument("--host-only", action="store_true",
+                    help="only the wrappers' host time a call")
     args = ap.parse_args()
+    HOST_ONLY = args.host_only
     if args.one:
         print(json.dumps(one_turn(os.path.abspath(args.one))), flush=True)
         return
     import torch
     if not torch.cuda.is_available():
         sys.exit("bench_ab: no CUDA device")
-    turns = []
-    for root in (args.a, args.b, args.b, args.a):
-        proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--one",
-             os.path.abspath(root)], capture_output=True, text=True,
-            check=True)
-        line = json.loads(proc.stdout.strip().splitlines()[-1])
-        print(json.dumps(line), flush=True)
-        turns.append(line)
+    order = [(args.a, args.b) if i % 2 == 0 else (args.b, args.a)
+             for i in range(args.pairs)]
+    by_root = {"a": [], "b": []}
+    for pair in order:
+        for root in pair:
+            cmd = [sys.executable, os.path.abspath(__file__), "--one",
+                   os.path.abspath(root)]
+            if args.host_only:
+                cmd.append("--host-only")
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  check=True)
+            line = json.loads(proc.stdout.strip().splitlines()[-1])
+            print(json.dumps(line), flush=True)
+            by_root["a" if root == args.a else "b"].append(line)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    summary = {"card": smi}
-    for tag, pair in (("a", (turns[0], turns[3])), ("b", (turns[1], turns[2]))):
-        summary[tag] = {key: (pair[0][key] + pair[1][key]) / 2
-                        for key in pair[0] if key != "root"}
-        summary[tag]["root"] = pair[0]["root"]
+    summary = {"card": smi, "pairs": args.pairs}
+    for tag, turns in by_root.items():
+        summary[tag] = {key: sum(t[key] for t in turns) / len(turns)
+                        for key in turns[0] if key != "root"}
+        summary[tag]["root"] = turns[0]["root"]
+    if args.pairs > 2:
+        diffs = {key: sorted(b[key] - a[key] for a, b in
+                             zip(by_root["a"], by_root["b"]))
+                 for key in summary["a"] if key != "root"}
+        summary["b_minus_a"] = {key: {"median": (d[(len(d) - 1) // 2]
+                                                 + d[len(d) // 2]) / 2,
+                                      "per_pair": d}
+                                for key, d in diffs.items()}
     print(json.dumps(summary))
 
 

@@ -9,13 +9,13 @@ take. The JAX wrappers pad to block multiples and slice back; the Hopper
 kernels mask their ragged edges themselves, so the only pad rules carried
 over are the ones that change the answer: a causal query block sits at
 ``q_offset = Sk - Sq`` (prefill continuation) and keys at or beyond the
-unpadded ``Sk`` are masked. DTensor inputs (a layer run sharded) go through
-``kernels.sharded``: each rank's kernel on its block.
+unpadded ``Sk`` are masked. Attention and the SSD scan go through
+``kernels.sharded``, which runs each rank's kernel on its block of DTensor
+inputs (a layer run sharded) and passes plain tensors straight on.
 """
 from __future__ import annotations
 
 import torch
-from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import _build, sharded
 from repro_torch.kernels import decode_attention as dec_mod
@@ -56,21 +56,18 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
         if q.is_cuda:
             return fa_mod.attention(q, k, v, **kw)
         return fa_mod.plain(q, k, v, **kw)
-    if isinstance(q, DTensor):
-        return sharded.flash(q, k, v, causal=causal, window=window,
-                             fn=local)
-    sq, sk = q.shape[1], k.shape[1]
-    return local(q, k, v, (sk - sq) if causal else 0, sk)
+    return sharded.flash(q, k, v, causal=causal, window=window, fn=local)
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0):
     """Model layout: q (B, 1, Hq, D); caches (B, S, Hkv, D); cache_len int
     or (B,) count of valid entries per sequence; ``window > 0`` attends to
     the last ``window`` of them only. Returns (B, 1, Hq, D)."""
-    if isinstance(q, DTensor):
-        return sharded.decode(
-            q, k_cache, v_cache, cache_len,
-            fn=lambda *a: decode_attention(*a, window=window))
+    return sharded.decode(q, k_cache, v_cache, cache_len,
+                          fn=lambda *a: _decode(*a, window=window))
+
+
+def _decode(q, k_cache, v_cache, cache_len, *, window):
     if not q.is_cuda:
         return dec_mod.plain(q, k_cache, v_cache, cache_len, window=window)
     lens = torch.as_tensor(cache_len, dtype=torch.int32, device=q.device)
@@ -93,9 +90,11 @@ def ssd_scan(dx, dA, B, C, initial_state=None, *, chunk: int = 0):
     takes any S with its own chunk, and ignores ``chunk``. Differentiable
     on both devices: on the card through the backward kernel
     (``ssd_scan.scan``), on the CPU by autograd of the plain version."""
-    if isinstance(dx, DTensor):
-        return sharded.ssd(dx, dA, B, C, initial_state,
-                           fn=lambda *a: ssd_scan(*a, chunk=chunk))
+    return sharded.ssd(dx, dA, B, C, initial_state,
+                       fn=lambda *a: _ssd(*a, chunk=chunk))
+
+
+def _ssd(dx, dA, B, C, initial_state, *, chunk):
     if dx.is_cuda:
         return ssd_mod.scan(dx, dA, B, C, initial_state)
     return ssd_mod.plain(dx, dA, B, C, initial_state,

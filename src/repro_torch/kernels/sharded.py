@@ -1,8 +1,9 @@
 """The kernels on DTensors: each call goes through ``local_map`` with
 placements the kernel computes on locally, so that a layer run sharded
 (``distributed.sharding.activation_sharding``) launches each kernel on its
-rank's block, as the card would. ``kernels.ops`` comes here when its inputs
-are DTensors.
+rank's block, as the card would. ``kernels.ops`` and the models call the
+kernels through here; plain tensors go straight to the kernel's function.
+``ssm_core`` does the same for the Mamba2 mixer's core around its scan.
 
 Per mesh dim, an attention call keeps:
 
@@ -76,7 +77,11 @@ def _dense_grads(*ts):
 
 def flash(q, k, v, *, causal, window, fn):
     """``fn(q, k, v, q_offset, sk_valid)`` on each rank's block of DTensors
-    q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D); returns o placed as q."""
+    q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D); returns o placed as q. Plain
+    tensors: ``fn`` on them, at the causal offset Sk - Sq."""
+    sq, sk = q.shape[1], k.shape[1]
+    if not isinstance(q, DTensor):
+        return fn(q, k, v, (sk - sq) if causal else 0, sk)
     mesh = q.device_mesh
     k, v = as_dtensor(k, mesh), as_dtensor(v, mesh)
     qp = _kept(q.placements, (0, 1, 2))
@@ -88,7 +93,6 @@ def flash(q, k, v, *, causal, window, fn):
     # dK, dV: partial over the dims that split q's rows
     kv_grad = [Partial() if isinstance(p, Shard) and p.dim == 1 else kp
                for p, kp in zip(qp, kvp)]
-    sq, sk = q.shape[1], k.shape[1]
     offset = ((sk - sq) + _offset(q, qp, 1)) if causal else 0
 
     def local(ql, kl, vl):
@@ -103,7 +107,10 @@ def decode(q, k_cache, v_cache, cache_len, *, fn):
     """``fn(q, k_cache, v_cache, cache_len)`` on each rank's block of q
     (B, 1, Hq, D) and the caches (B, S, Hkv, D): the batch and heads
     splits kept, a sequence-split cache gathered whole. ``cache_len``: an
-    int, a 0-dim or (B,) tensor or DTensor."""
+    int, a 0-dim or (B,) tensor or DTensor. Plain tensors: ``fn`` on
+    them."""
+    if not isinstance(q, DTensor):
+        return fn(q, k_cache, v_cache, cache_len)
     mesh = q.device_mesh
     k_cache, v_cache = (as_dtensor(t, mesh) for t in (k_cache, v_cache))
     if not isinstance(cache_len, torch.Tensor):
@@ -126,7 +133,10 @@ def ssd(dx, dA, B, C, initial_state, *, fn):
     rank's block: dx (B, S, H, P), dA (B, S, H), B/C (B, S, G, N), the
     initial state None or (B, H, N, P). The batch and heads splits of dx
     are kept (the groups split with the heads where G divides the mesh
-    dims; else B and C are whole on every rank)."""
+    dims; else B and C are whole on every rank). Plain tensors: ``fn`` on
+    them."""
+    if not isinstance(dx, DTensor):
+        return fn(dx, dA, B, C, initial_state)
     mesh = dx.device_mesh
     dA, B, C = (as_dtensor(t, mesh) for t in (dA, B, C))
     xp = _kept(dx.placements, (0, 2))
@@ -154,4 +164,52 @@ def ssd(dx, dA, B, C, initial_state, *, fn):
         return fn(*_dense_grads(*t), *(None,) * (5 - len(t)))
     return local_map(local, out_placements=(xp, sp), in_placements=in_pl,
                      in_grad_placements=grad_pl, device_mesh=mesh,
+                     redistribute_inputs=True)(*args)
+
+
+def ssm_core(core, args, cfg, *, step):
+    """``core`` (``_scan_core`` or ``_step_core``) on each rank's block of
+    DTensors: the batch split of the tokens kept, the heads split of the
+    ``ssm_heads`` leaves (A_log's placements) kept, xbc and the conv tail
+    gathered whole along their channels (the conv and the B/C slices need
+    them). Gradients: xbc's, conv_w's and the per-head leaves' are partial
+    sums over the mesh dims that split the heads or the batch. Plain
+    tensors: ``core`` on them."""
+    z = args[0]
+    if not isinstance(z, DTensor):
+        return core(*args, cfg=cfg)
+    mesh = z.device_mesh
+    a_log = args[-2]
+    batch = [i for i, pl in enumerate(z.placements)
+             if isinstance(pl, Shard) and pl.dim == 0]
+    heads = [i for i, pl in enumerate(a_log.placements)
+             if isinstance(pl, Shard) and i not in batch]
+    head_pl = [Shard(0) if i in heads else Replicate()
+               for i in range(mesh.ndim)]
+    head_lo = local_block(a_log.shape, mesh, head_pl)[1][0]
+
+    def pl(split_dim, head_dim=None, partial=False):
+        return [Shard(split_dim) if i in batch else
+                Shard(head_dim) if i in heads and head_dim is not None else
+                Partial() if partial and i in heads else Replicate()
+                for i in range(mesh.ndim)]
+    wide, per_head = z.dim() - 1, 1 if step else 2   # z's channel dim
+    vec = [Shard(0) if i in heads else Replicate() for i in range(mesh.ndim)]
+    vec_grad = [Shard(0) if i in heads else Partial() if i in batch
+                else Replicate() for i in range(mesh.ndim)]
+    conv_grad = [Partial() if i in batch or i in heads else Replicate()
+                 for i in range(mesh.ndim)]
+    in_pl = [pl(0, wide), pl(0), pl(0, per_head)]
+    in_grad = [pl(0, wide), pl(0, partial=True), pl(0, per_head)]
+    if step:   # the conv tail and the state, from the cache
+        in_pl += [pl(0), pl(0, 1)]
+        in_grad += [pl(0), pl(0, 1)]
+    in_pl += [[Replicate()] * mesh.ndim, vec, vec, vec]
+    in_grad += [conv_grad, vec_grad, vec_grad, vec_grad]
+    out_pl = (pl(0, wide), pl(0, 1), pl(0))
+
+    def local(*t):
+        return core(*t, cfg=cfg, head_lo=head_lo)
+    return local_map(local, out_placements=out_pl, in_placements=tuple(in_pl),
+                     in_grad_placements=tuple(in_grad), device_mesh=mesh,
                      redistribute_inputs=True)(*args)

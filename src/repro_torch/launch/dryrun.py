@@ -18,7 +18,10 @@ and nothing runs on a device. This process is the mesh's last rank, the
 busiest one (``analysis.roofline``).
 
 Each record keeps the reference's keys; ``trace_s`` replaces ``lower_s``
-and ``compile_s``. ``memory_analysis`` holds the local shard bytes of the
+and ``compile_s``. A MoE's ``moe_impl_ran`` says which path ran: a layer
+on DTensors runs the shard_map path whatever ``--moe-impl`` asks (the
+gather path's global dispatch has no split form), so ``gather`` runs only
+in training at one rank. ``memory_analysis`` holds the local shard bytes of the
 state or params, the cache and the batch (``argument_size_in_bytes``), of
 the outputs (``output_size_in_bytes``; those written in place into an
 argument, a decode's cache, are ``alias_size_in_bytes``), and the peak of
@@ -230,6 +233,12 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
            "mesh": "multi" if multi_pod else "single", "chips": chips,
            "moe_impl": moe_impl, "microbatches": microbatches,
            "kv_int8": kv_int8, "reduced": reduced, "ok": False}
+    if cfg.moe is not None:
+        # what runs: a layer on DTensors (any split mesh, and serving on
+        # placed params) takes the shard_map path whatever was asked
+        rec["moe_impl_ran"] = ("gather" if moe_impl == "gather"
+                               and shape.kind == "train" and chips == 1
+                               else "shardmap")
     if name == "long_500k" and arch not in SUBQUADRATIC:
         rec.update(ok=True, skipped=True, skip_reason=SKIP_REASON)
         return rec

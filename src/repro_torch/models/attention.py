@@ -17,7 +17,6 @@ the cached latent directly with the up-projections absorbed.
 from __future__ import annotations
 
 import torch
-from torch.distributed.tensor import DTensor
 
 from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops, sharded
@@ -216,12 +215,9 @@ def mla_forward(p, x, cfg, *, positions, latent_out=None):
     k = torch.cat([k_nope, k_rope[:, :, None].expand(b, s, h,
                                                      m.qk_rope_head_dim)],
                   dim=-1).float()
-    if isinstance(q, DTensor):  # each rank its rows and heads
-        o = sharded.flash(q, k, v.float(), causal=True, window=0,
-                          fn=lambda ql, kl, vl, off, sk: _mla_attend(
-                              ql, kl, vl, off))
-    else:
-        o = _mla_attend(q, k, v.float(), 0)
+    o = sharded.flash(q, k, v.float(), causal=True, window=0,
+                      fn=lambda ql, kl, vl, off, sk: _mla_attend(
+                          ql, kl, vl, off))
     return cm.apply_dense(p["o"], o.to(x.dtype), in_dims=2)
 
 

@@ -17,7 +17,8 @@ from typing import Optional
 
 import numpy as np
 import torch
-from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed import sharding as shd
 
 
 def _trunc_normal(shape, scale, generator, device, dtype):
@@ -58,12 +59,9 @@ def stack_axes(tree):
 
 def apply_dense(p, x, *, in_dims=1):
     """y = x @ w (+ b), contracting the last ``in_dims`` dims of x with the
-    first ``in_dims`` dims of w."""
-    if isinstance(x, DTensor):  # a layer run sharded
-        from repro_torch.distributed import sharding as shd
-        y = shd.contract(x, p["w"].to(x.dtype), in_dims)
-    else:
-        y = torch.tensordot(x, p["w"].to(x.dtype), dims=in_dims)
+    first ``in_dims`` dims of w (of DTensors: each rank on its blocks,
+    ``sharding.contract``)."""
+    y = shd.contract(x, p["w"].to(x.dtype), in_dims)
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y
@@ -109,17 +107,7 @@ def softmax_cross_entropy(logits, labels, mask=None):
     where it is given. The reference reads the label's logit with a
     one-hot reduction (it keeps a vocab-sharded reduction sharded under
     GSPMD); a gather gives the same value."""
-    logits = logits.float()
-    if isinstance(logits, DTensor):  # vocab-split: each rank its block
-        from repro_torch.distributed import sharding as shd
-        # logsumexp by its parts, so that only (..., 1) maxima and sums
-        # cross the ranks, not the logits
-        m = logits.detach().amax(dim=-1, keepdim=True)
-        logz = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
-        ll = shd.label_logits(logits, labels)
-    else:
-        logz = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    logz, ll = shd.log_z_and_label(logits.float(), labels)
     nll = logz - ll
     if mask is not None:
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

@@ -18,12 +18,15 @@ order of the reference's scatter-add.
 ``DeviceMesh``: the experts sharded over the model axis, the tokens over
 the data axes, each model rank dispatching its token block to its own
 experts (the others' choices go to a phantom expert that is not computed)
-and one all-reduce over the model axis combining them.
+and one all-reduce over the model axis combining them. A layer run split
+(DTensor activations) runs it on each rank's blocks, whatever MoE was
+asked for (``moe_forward``).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.distributed import sharding as shd
 from repro_torch.models import common as cm
@@ -213,6 +216,20 @@ def moe_forward_gather(p, x, cfg):
     return y.reshape(b, s, d)
 
 
+def moe_forward(p, x, cfg, moe_ctx=None):
+    """The MoE by ``moe_ctx``: {"impl": "shardmap", "mesh", "dp_axes"}
+    runs ``moe_forward_shardmap`` on that mesh, else the gather path. A
+    DTensor ``x`` (a layer run split) runs the shard_map path on each
+    rank's blocks of its own mesh, whatever was asked: the gather path's
+    global dispatch has no split form."""
+    if isinstance(x, DTensor):
+        return _on_blocks(p, x, cfg)
+    if moe_ctx and moe_ctx.get("impl") == "shardmap":
+        return moe_forward_shardmap(p, x, cfg, moe_ctx["mesh"],
+                                    dp_axes=moe_ctx["dp_axes"])
+    return moe_forward_gather(p, x, cfg)
+
+
 class _LocalMoE:
     """The MoE config inside the shard_map path's local block: one phantom
     expert id (``e_local``) absorbs the choices of other ranks' experts."""
@@ -227,8 +244,8 @@ def moe_forward_shardmap(p, x, cfg, mesh, *, dp_axes=("data",),
     """The reference's shard_map MoE. ``x``: this rank's (B, S, d) block of
     the tokens (split over ``dp_axes``, the same on every rank of
     ``ep_axis``). The experts' weights are the whole (E, ...) stacks, of
-    which this rank takes its block (shard_map's in_spec). Each model rank
-    routes its token block
+    which this rank takes its block (shard_map's in_spec), or that block
+    already. Each model rank routes its token block
     against the full router and keeps the (token, k) choices that fall in
     its E / ep experts; the rest go to the phantom id. Its local capacity is
     ``max(8, capacity(T) // ep * 2)``, not rounded to 8. One all-reduce
@@ -252,10 +269,11 @@ def moe_forward_shardmap(p, x, cfg, mesh, *, dp_axes=("data",),
 
     def experts_w(name):
         w = p[name]["w"]
-        if w.shape[0] != moe.num_experts:
+        if w.shape[0] not in (moe.num_experts, e_local):
             raise ValueError(f"{name}: {w.shape[0]} experts, not the stack "
-                             f"of {moe.num_experts}")
-        if ep > 1:
+                             f"of {moe.num_experts} or its block of "
+                             f"{e_local}")
+        if w.shape[0] != e_local:
             w = shd.shard_of(w, mesh, ep_axis, 0)
         return {"w": shd.copy_to(w, mesh, dp_axes)}
 
@@ -281,69 +299,38 @@ def moe_forward_shardmap(p, x, cfg, mesh, *, dp_axes=("data",),
     return y.reshape(b, s, d)
 
 
-def moe_forward_sharded(p, x, cfg, *, shardmap=False):
-    """The MoE on a DTensor ``x`` (B, S, d): expert-parallel, as the
-    shard_map path computes it. Each rank routes its token block (the batch
-    and sequence splits of x over the mesh dims that do not split the
-    experts; over those the tokens are gathered) against the whole router,
-    dispatches the choices that fall in its block of the expert stacks
-    (their split over dim 0; any other split gathered) and computes them;
-    the others' go to the phantom expert. The outputs are a partial sum
-    over the mesh dims that split the experts. Local capacity: the gather
-    path's ``capacity`` of the local tokens (its global slots, shared over
-    the token blocks), or with ``shardmap`` the shard_map path's
-    ``max(8, capacity // ep * 2)``. The shared expert runs on the DTensors
-    beside it. Gradients: an expert block's is its rank's, summed over the
-    token blocks; the router's and x's are sums over the expert blocks
-    too."""
-    import math
-
-    from torch.distributed.tensor import Partial, Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
-    moe = cfg.moe
+def _on_blocks(p, x, cfg):
+    """``moe_forward_shardmap`` on each rank's blocks of DTensors
+    (``sharding.on_blocks``). Its expert axis is the mesh axis that splits
+    the expert stacks (``model``; ``data`` in the ZeRO-3 prefill), else
+    ``model``; its token axes are the others that split x's batch or
+    sequence, whose splits are kept (x is gathered along the expert axis
+    and every other); the stacks are split over the expert axis alone and
+    the router is whole, as shard_map's in_specs place them. Its
+    collectives make each block's gradient whole over the axes it is
+    replicated on, as those placements declare. The shared expert runs on
+    the DTensors beside it."""
+    from torch.distributed.tensor import Replicate, Shard
     mesh = x.device_mesh
-    ndim = mesh.ndim
-    stack = p["gate"]["w"]
-    ep_dims = [i for i, pl in enumerate(stack.placements)
-               if isinstance(pl, Shard) and pl.dim == 0]
-    xp = [pl if isinstance(pl, Shard) and pl.dim in (0, 1)
-          and i not in ep_dims else Replicate()
-          for i, pl in enumerate(x.placements)]
-    tok_dims = [i for i, pl in enumerate(xp) if isinstance(pl, Shard)]
-    w_pl = [Shard(0) if i in ep_dims else Replicate() for i in range(ndim)]
-    w_grad = [Shard(0) if i in ep_dims else
-              Partial() if i in tok_dims else Replicate()
-              for i in range(ndim)]
-    r_pl = [Replicate()] * ndim
-    r_grad = [Partial() if i in ep_dims or i in tok_dims else Replicate()
-              for i in range(ndim)]
-    x_grad = [Partial() if i in ep_dims else xp[i] for i in range(ndim)]
-    ep = math.prod(mesh.size(i) for i in ep_dims)
-    e_local = moe.num_experts // ep
-    lo = shd.local_block(stack.shape, mesh, w_pl)[1][0]
+    names = shd.axis_names(mesh)
+    split = [i for i, pl in enumerate(p["gate"]["w"].placements)
+             if isinstance(pl, Shard) and pl.dim == 0]
+    ep = split[0] if len(split) == 1 else names.index("model")
+    x_pl = [pl if i != ep and isinstance(pl, Shard) and pl.dim in (0, 1)
+            else Replicate() for i, pl in enumerate(x.placements)]
+    tokens = tuple(names[i] for i, pl in enumerate(x_pl)
+                   if isinstance(pl, Shard))
+    stacks = ("gate", "up", "down")
 
-    def local(xl, router_w, wg, wu, wd):
-        b, s, d = xl.shape
-        x2d = xl.reshape(b * s, d)
-        weights, experts = route({"w": router_w}, x2d, moe)
-        mine = (experts >= lo) & (experts < lo + e_local)
-        local_experts = torch.where(mine, experts - lo,
-                                    torch.full_like(experts, e_local))
-        local_weights = torch.where(mine, weights, torch.zeros_like(weights))
-        cap = capacity(b * s, moe)
-        if shardmap:
-            cap = max(8, cap // ep * 2)
-        y = dispatch_compute_combine(
-            {"gate": {"w": wg}, "up": {"w": wu}, "down": {"w": wd}}, x2d,
-            local_weights, local_experts, cap, _LocalMoE(e_local, moe.top_k))
-        return y.reshape(b, s, d)
-    y = local_map(local, out_placements=x_grad,
-                  in_placements=(xp, r_pl, w_pl, w_pl, w_pl),
-                  in_grad_placements=(x_grad, r_grad, w_grad, w_grad,
-                                      w_grad),
-                  device_mesh=mesh, redistribute_inputs=True)(
-        x, p["router"]["w"], stack, p["up"]["w"], p["down"]["w"])
-    y = y.redistribute(mesh, xp)
+    def local(xl, router, *ws):
+        lp = {"router": {"w": router}}
+        lp.update({n: {"w": w} for n, w in zip(stacks, ws)})
+        return moe_forward_shardmap(lp, xl, cfg, mesh, dp_axes=tokens,
+                                    ep_axis=names[ep])
+    w_pl = shd.placements((names[ep], None, None), mesh)
+    y = shd.on_blocks(
+        local, (x, p["router"]["w"]) + tuple(p[n]["w"] for n in stacks),
+        (x_pl, shd.placements((None, None), mesh)) + (w_pl,) * 3, x_pl)
     if "shared" in p:
         y = y + swiglu(p["shared"], x)
     return y

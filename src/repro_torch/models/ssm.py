@@ -14,9 +14,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, sharded
 from repro_torch.models import common as cm
 
 
@@ -92,10 +91,7 @@ def mamba2_forward(p, x, cfg):
     xbc = cm.apply_dense(p["xbc_proj"], x)                   # (B,S,cc)
     dt_raw = cm.apply_dense(p["dt_proj"], x)                 # (B,S,H)
     args = (z, xbc, dt_raw, p["conv_w"], p["dt_bias"], p["A_log"], p["D"])
-    if isinstance(x, DTensor):
-        y, state, conv_buf = _sharded_core(_scan_core, args, cfg, step=False)
-    else:
-        y, state, conv_buf = _scan_core(*args, cfg=cfg)
+    y, state, conv_buf = sharded.ssm_core(_scan_core, args, cfg, step=False)
     y = cm.rmsnorm(p["norm"], y, cfg.rms_eps)
     return cm.apply_dense(p["out_proj"], y), (state, conv_buf)
 
@@ -139,55 +135,6 @@ def _scan_core(z, xbc, dt_raw, conv_w, dt_bias, A_log, D, *, cfg,
     return y, state, conv_buf
 
 
-def _sharded_core(core, args, cfg, *, step):
-    """``core`` (``_scan_core`` or ``_step_core``) on each rank's block of
-    DTensors: the batch split of the tokens kept, the heads split of the
-    ``ssm_heads`` leaves (A_log's placements) kept, xbc and the conv tail
-    gathered whole along their channels (the conv and the B/C slices need
-    them). Gradients: xbc's, conv_w's and the per-head leaves' are partial
-    sums over the mesh dims that split the heads or the batch."""
-    from torch.distributed.tensor import Partial, Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
-
-    from repro_torch.distributed import sharding as shd
-    z, xbc = args[0], args[1]
-    mesh = z.device_mesh
-    a_log = args[-2]
-    batch = [i for i, pl in enumerate(z.placements)
-             if isinstance(pl, Shard) and pl.dim == 0]
-    heads = [i for i, pl in enumerate(a_log.placements)
-             if isinstance(pl, Shard) and i not in batch]
-    head_pl = [Shard(0) if i in heads else Replicate()
-               for i in range(mesh.ndim)]
-    head_lo = shd.local_block(a_log.shape, mesh, head_pl)[1][0]
-
-    def pl(split_dim, head_dim=None, partial=False):
-        return [Shard(split_dim) if i in batch else
-                Shard(head_dim) if i in heads and head_dim is not None else
-                Partial() if partial and i in heads else Replicate()
-                for i in range(mesh.ndim)]
-    wide, per_head = z.dim() - 1, 1 if step else 2   # z's channel dim
-    vec = [Shard(0) if i in heads else Replicate() for i in range(mesh.ndim)]
-    vec_grad = [Shard(0) if i in heads else Partial() if i in batch
-                else Replicate() for i in range(mesh.ndim)]
-    conv_grad = [Partial() if i in batch or i in heads else Replicate()
-                 for i in range(mesh.ndim)]
-    in_pl = [pl(0, wide), pl(0), pl(0, per_head)]
-    in_grad = [pl(0, wide), pl(0, partial=True), pl(0, per_head)]
-    if step:   # the conv tail and the state, from the cache
-        in_pl += [pl(0), pl(0, 1)]
-        in_grad += [pl(0), pl(0, 1)]
-    in_pl += [[Replicate()] * mesh.ndim, vec, vec, vec]
-    in_grad += [conv_grad, vec_grad, vec_grad, vec_grad]
-    out_pl = (pl(0, wide), pl(0, 1), pl(0))
-
-    def local(*t):
-        return core(*t, cfg=cfg, head_lo=head_lo)
-    return local_map(local, out_placements=out_pl, in_placements=tuple(in_pl),
-                     in_grad_placements=tuple(in_grad), device_mesh=mesh,
-                     redistribute_inputs=True)(*args)
-
-
 def mamba2_decode(p, x, state, conv_buf, cfg):
     """One-token step. x: (B, 1, d_model); state (B, H, N, P) fp32;
     conv_buf (B, W-1, conv_ch). Returns (y (B, 1, d_model), new state,
@@ -197,10 +144,7 @@ def mamba2_decode(p, x, state, conv_buf, cfg):
     dt_raw = cm.apply_dense(p["dt_proj"], x)[:, 0]           # (B,H)
     args = (z, xbc, dt_raw, conv_buf, state, p["conv_w"], p["dt_bias"],
             p["A_log"], p["D"])
-    if isinstance(x, DTensor):
-        y, state, new_buf = _sharded_core(_step_core, args, cfg, step=True)
-    else:
-        y, state, new_buf = _step_core(*args, cfg=cfg)
+    y, state, new_buf = sharded.ssm_core(_step_core, args, cfg, step=True)
     y = cm.rmsnorm(p["norm"], y.to(x.dtype), cfg.rms_eps)
     out = cm.apply_dense(p["out_proj"], y)[:, None]          # (B,1,d_model)
     return out, state, new_buf

@@ -12,7 +12,8 @@ A Python loop over layers replaces ``lax.scan``; weights keep the stacked
 models are ``models.encdec``. Still refused (``NotImplementedError``): a
 hybrid without attention. ``moe_ctx={"impl": "shardmap", "mesh": mesh,
 "dp_axes": ...}`` runs the MoE through ``ffn.moe_forward_shardmap`` on a
-``DeviceMesh``, as the reference's does through ``shard_map``.
+``DeviceMesh``, as the reference's does through ``shard_map``; a layer run
+split (DTensor activations) always runs it so (``ffn.moe_forward``).
 
 Public surface (used by registry / launch / engine):
   init(cfg, generator=, device=,
@@ -35,7 +36,6 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import (ATTN_GQA, ATTN_MLA, ATTN_NONE,
@@ -181,15 +181,7 @@ def _ssm_forward(p, h, cfg, cache):
 def _ffn(lp, h, cfg, moe_ctx=None):
     if cfg.moe is None:
         return ffn_mod.swiglu(lp["ffn"], h)
-    if isinstance(h, DTensor):  # a layer run sharded
-        return ffn_mod.moe_forward_sharded(
-            lp["ffn"], h, cfg,
-            shardmap=bool(moe_ctx and moe_ctx.get("impl") == "shardmap"))
-    if moe_ctx and moe_ctx.get("impl") == "shardmap":
-        return ffn_mod.moe_forward_shardmap(lp["ffn"], h, cfg,
-                                            moe_ctx["mesh"],
-                                            dp_axes=moe_ctx["dp_axes"])
-    return ffn_mod.moe_forward_gather(lp["ffn"], h, cfg)
+    return ffn_mod.moe_forward(lp["ffn"], h, cfg, moe_ctx)
 
 
 def _block_forward(lp, x, cfg, window, positions, cache=None, moe_ctx=None):
@@ -233,11 +225,7 @@ def embed_inputs(params, cfg, tokens, prefix_embeds=None,
     ``F.embedding`` gathers the rows as indexing does; its gradient on the
     card sums repeated tokens' rows in a fixed order (no atomics), which
     restart determinism needs."""
-    table = params["embed"]["embedding"]
-    if isinstance(table, DTensor):  # a layer run sharded
-        x = shd.embedding(tokens, table).to(dtype)
-    else:
-        x = torch.nn.functional.embedding(tokens.long(), table).to(dtype)
+    x = shd.embedding(tokens, params["embed"]["embedding"]).to(dtype)
     # a vocab-split table's rows arrive as pending sums: placed here
     x = shd.constrain(x, ("batch", "seq", "embed_act"))
     if cfg.n_prefix_embeds and prefix_embeds is not None:
@@ -249,8 +237,7 @@ def embed_inputs(params, cfg, tokens, prefix_embeds=None,
 def unembed(params, cfg, x):
     if cfg.tie_embeddings:
         emb = params["embed"]["embedding"].to(x.dtype)
-        logits = (shd.contract(x, emb.T) if isinstance(x, DTensor)
-                  else torch.matmul(x, emb.T)).float()
+        logits = shd.contract(x, emb.T).float()
     else:
         logits = cm.apply_dense(params["unembed"], x).float()
     return shd.constrain(logits, ("batch", "seq", "vocab"))
@@ -415,9 +402,7 @@ def decode_step(params, cfg: ModelConfig, cache, token, *,
     Returns (logits (B,1,V) f32, cache)."""
     pos = cache["pos"]
     lens = pos + 1  # valid entries after this tick's write, for every layer
-    table = params["embed"]["embedding"]
-    x = (shd.embedding(token, table) if isinstance(table, DTensor)
-         else table[token.long()]).to(dtype)
+    x = shd.embedding(token, params["embed"]["embedding"]).to(dtype)
     windows = layer_windows(cfg)
     for i in range(cfg.n_layers):
         lp = cm.layer_params(params["layers"], i)

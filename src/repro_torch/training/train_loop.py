@@ -15,10 +15,11 @@ operations, so the same bits, as an unplaced state's step).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Shard
 from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.distributed import sharding as shd
@@ -88,16 +89,24 @@ def _walk(fn, tree, path):
 
 def _microbatch(v, i, n):
     """Microbatch ``i`` of ``n`` of a batch leaf: rows [i m, (i + 1) m) of
-    its m = B / n. Of a batch split over ranks, each rank's i-th chunk of
-    its own rows (no view of the split dim): the microbatches hold the same
-    rows between them, so their mean gradient is the same."""
-    if isinstance(v, DTensor):
-        local = v.to_local()
-        m = local.shape[0] // n
-        return DTensor.from_local(local[i * m:(i + 1) * m], v.device_mesh,
-                                  v.placements, run_check=False)
+    its m = B / n, as the reference's reshape takes them. Of a batch split
+    over ranks, those rows gathered and placed as the batch was, each rank
+    keeping its block; each rank must get the same number of rows, else it
+    raises, as the reshape does where n does not divide B."""
+    if v.shape[0] % n:
+        raise ValueError(f"a batch of {v.shape[0]} rows does not split into "
+                         f"{n} microbatches")
     m = v.shape[0] // n
-    return v.reshape((n, m) + tuple(v.shape[1:]))[i]
+    if not isinstance(v, DTensor):
+        return v.reshape((n, m) + tuple(v.shape[1:]))[i]
+    mesh = v.device_mesh
+    ranks = math.prod(mesh.size(d) for d, p in enumerate(v.placements)
+                      if isinstance(p, Shard) and p.dim == 0)
+    if m % ranks:
+        raise ValueError(f"a microbatch of {m} rows does not split over the "
+                         f"{ranks} ranks of its batch")
+    return shd.from_whole(v.full_tensor()[i * m:(i + 1) * m], mesh,
+                          v.placements)
 
 
 def grad_tree(loss, params):

@@ -20,7 +20,9 @@ Tolerances, each with its reason:
   backward); at (2, 2) within 2% as well: the port's local products
   (``sharding.contract``, ``ssm._sharded_core``) split as GSPMD's do but
   for the SSM's, 1.2% more a rank, and the MoE's, 0.1% more (the
-  difference was measured, its op not traced further).
+  difference was measured, its op not traced further; the port's MoE runs
+  split through the shard_map path, whose local capacity at two model
+  ranks is the gather path's share of its slots).
 """
 import json
 import os
@@ -150,6 +152,32 @@ def test_collective_bytes_by_the_reference_ring_factors():
     for kind in rl._KIND_FACTOR:
         for g in (2, 16, 512):
             assert rl._KIND_FACTOR[kind](g) == jrl._KIND_FACTOR[kind](g)
+
+
+def test_collectives_record_their_group_size():
+    """A c10d all-reduce, a functional all-reduce and a functional
+    all-gather over a 16-rank fake group are each recorded at group 16;
+    a collective whose group no argument resolves raises."""
+    import torch.distributed as dist
+    counter = rl.RankCounter()
+    with dryrun.fake_group(16), fake_mode():
+        group = dist.group.WORLD.group_name
+        x = torch.empty(128, 256, dtype=torch.bfloat16)
+        with counter:
+            dist.all_reduce(x)
+            torch.ops._c10d_functional.wait_tensor(
+                torch.ops._c10d_functional.all_reduce(x, "sum", group))
+            torch.ops._c10d_functional.wait_tensor(
+                torch.ops._c10d_functional.all_gather_into_tensor(
+                    x, 16, group))
+    got = {(e["op"], e["kind"], e["group"]) for e in counter.entries()
+           if e["kind"]}
+    assert got == {("c10d.allreduce_", "all-reduce", 16),
+                   ("_c10d_functional.all_reduce", "all-reduce", 16),
+                   ("_c10d_functional.all_gather_into_tensor", "all-gather",
+                    16)}
+    with pytest.raises(RuntimeError, match="no process group"):
+        rl._group_size("_c10d_functional.all_reduce", ["sum", 3])
 
 
 # ---------------------------------------------------------------------------

@@ -591,38 +591,81 @@ def test_loss_and_grads_with_moe_ctx_match_jax(mesh):
 SPLIT_ARCHS = ("qwen2-0.5b", "granite-moe-1b-a400m")
 
 
+def close(got, want, tol):
+    """Every value within ``tol`` of the largest |value| of ``want``."""
+    scale = max(np.abs(want).max(), 1e-30)
+    return np.abs(got - want).max() <= tol * scale
+
+
 @pytest.mark.parametrize("arch", SPLIT_ARCHS)
 @pytest.mark.parametrize("mesh_shape", ((1, 2), (2, 2)))
 def test_train_step_on_split_leaves_matches_reference(ref, ranks2, ranks4,
                                                       arch, mesh_shape):
-    """Reduced qwen2 and granite with their state placed by the train
-    rules at (1, 2) and (2, 2) (heads, experts, the vocab and the MLP split
-    over model; the embed dim over data), as gloo ranks: the loss and
-    every gradient leaf, gathered whole, against the reference's compiled
-    ``jax.value_and_grad`` at the same mesh (the loss 1e-5 relative, every
-    leaf within 1e-4 of its largest |value|, as the shard_map MoE's); one
-    whole train step then runs on the split state, its loss the same and
-    its new leaves placed as the old ones, and one in two microbatches
-    gives the same loss (1e-5)."""
+    """Reduced qwen2 and granite (its MoE at capacity factor 1.25 through
+    shard_map on both sides) with their state placed by the train rules at
+    (1, 2) and (2, 2) (heads, experts, the vocab and the MLP split over
+    model; the embed dim over data), as gloo ranks, against the reference's
+    compiled step at the same mesh:
+
+    * the loss (1e-5 relative) and every gradient leaf, gathered whole
+      (within 1e-4 of its largest |value|, as the shard_map MoE's);
+    * AdamW on the split weights given the reference's gradients: the
+      gradient norm (1e-6 relative), the step, every new weight and moment
+      within 1e-6 of its largest |value| (the same fp32 operations on the
+      same inputs, summed in another order), and every update (new weight
+      less old) within 1e-2 of its largest |value| (the first step's
+      update is lr * ~1 = 3e-6, and one fp32 rounding of a weight of ~0.5
+      is 3e-8);
+    * the whole train step on the split state: its loss, its new leaves
+      finite and placed as the old ones, its step, and its moments, whose
+      gradients are the port's (m within 1e-4 of its largest |value|, as
+      the gradients; v, quadratic in them, within 2e-4);
+    * two microbatches give the reference's two microbatches' loss (1e-5);
+      a count that does not split the batch, or its microbatch over the
+      data ranks, raises (the reference's reshape raises on the first).
+
+    At (2, 2) granite's MoE drops assignments (data rank 1's block), so its
+    local capacity is held to the reference's."""
     ranks = ranks2 if mesh_shape == (1, 2) else ranks4
     key = f"split/{arch}/{mesh_shape[0]}x{mesh_shape[1]}"
     want_loss = float(ref[f"{key}/loss"])
+    if arch != "qwen2-0.5b" and mesh_shape == (2, 2):
+        assert sum(r["split"][arch]["dropped"] for r in ranks) > 0
     for r in ranks:
         got = r["split"][arch]
         assert got["split_leaves"] > 0
         assert abs(got["loss"] - want_loss) <= 1e-5 * abs(want_loss)
-        names = [k for k in ref.files if k.startswith(f"{key}/g/")]
+        names = [k[len(f"{key}/g/"):] for k in ref.files
+                 if k.startswith(f"{key}/g/")]
         assert len(names) == sum(k.startswith("g/") for k in got)
-        for name in names:
-            want = ref[name]
-            leaf = name[len(f"{key}/g/"):]
-            scale = max(np.abs(want).max(), 1e-30)
-            assert np.abs(got[f"g/{leaf}"] - want).max() <= 1e-4 * scale, \
+        for leaf in names:
+            assert close(got[f"g/{leaf}"], ref[f"{key}/g/{leaf}"], 1e-4), \
                 leaf
+        want_norm = float(ref[f"{key}/adamw/grad_norm"])
+        assert abs(got["given/grad_norm"] - want_norm) <= 1e-6 * want_norm
+        assert got["given/step"] == got["step/step"] == 1
+        for leaf in names:
+            old = ref[f"split/{arch}/p/{leaf}"]
+            new = ref[f"{key}/adamw/p/{leaf}"]
+            assert close(got[f"given/p/{leaf}"], new, 1e-6), leaf
+            assert close(got[f"given/p/{leaf}"] - old, new - old, 1e-2), \
+                leaf
+            for part, tol in (("m", 1e-6), ("v", 1e-6)):
+                want = ref[f"{key}/adamw/{part}/{leaf}"]
+                assert close(got[f"given/{part}/{leaf}"], want, tol), \
+                    (part, leaf)
+            for part, tol in (("m", 1e-4), ("v", 2e-4)):
+                want = ref[f"{key}/adamw/{part}/{leaf}"]
+                assert close(got[f"step/{part}/{leaf}"], want, tol), \
+                    (part, leaf)
         assert abs(got["step_loss"] - want_loss) <= 1e-5 * abs(want_loss)
         assert got["step_placements_kept"] and got["step_finite"]
-        assert abs(got["microbatched_loss"] - want_loss) <= \
-            1e-5 * abs(want_loss)
+        want_mb = float(ref[f"{key}/mb2_loss"])
+        assert abs(got["microbatched_loss"] - want_mb) <= 1e-5 * abs(want_mb)
+        bad = (3, 4) if mesh_shape[0] > 1 else (3,)
+        assert sorted(got["microbatch_errors"]) == list(bad)
+        for msg in got["microbatch_errors"].values():
+            assert "does not split" in msg
 
 
 @pytest.mark.parametrize("split", ("kv_heads", "kv_seq"))
@@ -642,6 +685,21 @@ def test_prefill_and_decode_on_a_split_cache_match_reference(ref, ranks2,
             want = ref[f"serve/{split}/{stage}"]
             scale = np.abs(want).max()
             assert np.abs(got[stage] - want).max() <= 1e-4 * scale, stage
+
+
+def test_moe_prefill_with_experts_split_over_data_matches_reference(
+        ref, ranks4):
+    """Reduced granite's prefill at (2, 2) by the ZeRO-3 prefill rules (the
+    expert stacks split over data, the sequence over model; each MoE layer
+    through the shard_map path with data as its expert axis), against the
+    reference's unsplit prefill: the logits within 1e-4 of their largest
+    |value| (fp32; the reduced capacity factor 8 drops nothing, so the two
+    paths compute the same sum)."""
+    want = ref["serve/granite/prefill"]
+    for r in ranks4:
+        got = r["moe_prefill"]
+        assert got["stack_placements"] == "(Shard(dim=1), Replicate())"
+        assert close(got["prefill"], want, 1e-4)
 
 
 def test_remesh_4x1_to_2x2(ranks4):

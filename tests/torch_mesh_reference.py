@@ -16,14 +16,19 @@ process of its own. It writes ``OUT_DIR/reference.npz``:
   than one device raises);
 * ``compressed_psum`` inside ``shard_map`` over 2 and 4 devices, each
   device's input and result;
-* for reduced qwen2-0.5b and reduced granite-moe-1b-a400m (``SPLIT_ARCHS``),
-  ``PRNGKey(3)`` weights, a token batch and, at each mesh of
-  ``SPLIT_MESHES``, the fp32 loss and every gradient leaf of the compiled
-  ``jax.value_and_grad`` of the loss, its inputs placed by the train rules
-  (``split/...``);
+* for reduced qwen2-0.5b and reduced granite-moe-1b-a400m (``SPLIT_ARCHS``;
+  granite at the published capacity factor 1.25, its MoE through
+  ``shard_map``), ``PRNGKey(3)`` weights, a token batch and, at each mesh
+  of ``SPLIT_MESHES``, the fp32 loss and every gradient leaf of the
+  compiled ``jax.value_and_grad`` of the loss, its inputs placed by the
+  train rules, the mean loss of its two microbatches, and one AdamW update
+  (``optimizer.apply_updates`` from a fresh state) of the weights by those
+  gradients: the new weights, moments and gradient norm (``split/...``);
 * for reduced qwen2-0.5b with 2 KV heads and with 1 (``SERVE_KV``),
   ``PRNGKey(4)`` weights, a prompt's prefill logits at ``max_len`` and one
-  decode step's (``serve/...``);
+  decode step's (``serve/...``); for reduced granite-moe-1b-a400m,
+  ``PRNGKey(4)`` weights and a prompt's prefill logits
+  (``serve/granite/...``);
 
 and ``OUT_DIR/indices.json``: for every config of ``ARCH_IDS`` at full
 width, every mode and every mesh of ``INDEX_MESHES``, each param and cache
@@ -49,6 +54,7 @@ from repro.kernels import compat
 from repro.models import common as cm
 from repro.models import ffn, registry
 from repro.training import compression
+from repro.training import optimizer
 
 MOE_ARCHS = ("granite-moe-1b-a400m", "llama4-scout-17b-a16e")
 MOE_MESHES = ((1, 1), (1, 2), (1, 4), (2, 2))
@@ -131,9 +137,16 @@ def psum_cases(out):
         out[f"psum{n}/x"], out[f"psum{n}/y"] = xs, np.asarray(fn(xs))
 
 
+def split_config(arch):
+    cfg = reduced(get_config(arch))
+    if cfg.moe is None:
+        return cfg
+    return replace(cfg, moe=replace(cfg.moe, capacity_factor=1.25))
+
+
 def split_cases(out):
     for arch in SPLIT_ARCHS:
-        cfg = reduced(get_config(arch))
+        cfg = split_config(arch)
         bundle = registry.build(cfg)
         p = bundle.init(jax.random.PRNGKey(3))
         vals, axes = cm.values(p), cm.axes_tree(p)
@@ -145,10 +158,14 @@ def split_cases(out):
             mesh = mesh_of(shape)
             rules = shd.make_rules(cfg, mesh, "train")
 
+            moe_ctx = (None if cfg.moe is None else
+                       {"impl": "shardmap", "mesh": mesh,
+                        "dp_axes": ("data",)})
+
             def loss(vals, toks):
                 return bundle.loss_fn(cm.zip_params(vals, axes),
                                       {"tokens": toks}, dtype=jnp.float32,
-                                      remat=True)
+                                      remat=True, moe_ctx=moe_ctx)
             in_sh = (shd.sharding_for_tree(p, rules, mesh),
                      shd.batch_sharding({"t": jax.ShapeDtypeStruct(
                          toks.shape, jnp.int32)}, rules, mesh)["t"])
@@ -157,10 +174,36 @@ def split_cases(out):
                                  in_shardings=in_sh)(vals, jnp.asarray(toks))
             key = f"split/{arch}/{shape[0]}x{shape[1]}"
             out[f"{key}/loss"] = np.asarray(lv)
+            # two microbatches, the reference's rows [0, B/2) and [B/2, B)
+            half = SPLIT_BATCH // 2
+            with jax.set_mesh(mesh), shd.activation_sharding(mesh, rules):
+                halves = [jax.jit(loss, in_shardings=in_sh)(
+                    vals, jnp.asarray(toks[i * half:(i + 1) * half]))
+                    for i in range(2)]
+            out[f"{key}/mb2_loss"] = np.asarray(sum(halves) / 2)
             out.update(flat(gv, f"{key}/g"))
+            new_p, new_opt, metrics = optimizer.apply_updates(
+                optimizer.AdamWConfig(), vals, gv,
+                {"m": jax.tree.map(jnp.zeros_like, vals),
+                 "v": jax.tree.map(jnp.zeros_like, vals),
+                 "step": jnp.zeros((), jnp.int32)})
+            out.update(flat(new_p, f"{key}/adamw/p"))
+            out.update(flat(new_opt["m"], f"{key}/adamw/m"))
+            out.update(flat(new_opt["v"], f"{key}/adamw/v"))
+            out[f"{key}/adamw/grad_norm"] = np.asarray(metrics["grad_norm"])
 
 
 def serve_cases(out):
+    cfg = reduced(get_config("granite-moe-1b-a400m"))
+    bundle = registry.build(cfg)
+    p = bundle.init(jax.random.PRNGKey(4))
+    prompt = np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), dtype=np.int32)
+    logits, _ = bundle.prefill(p, {"tokens": jnp.asarray(prompt)},
+                               max_len=SERVE_MAX_LEN, dtype=jnp.float32)
+    out.update(flat(cm.values(p), "serve/granite/p"))
+    out["serve/granite/prompt"] = prompt
+    out["serve/granite/prefill"] = np.asarray(logits)
     for name, kv in SERVE_KV.items():
         cfg = replace(reduced(get_config("qwen2-0.5b")), n_kv_heads=kv)
         bundle = registry.build(cfg)

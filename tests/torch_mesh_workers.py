@@ -163,41 +163,78 @@ def ref_params(ref, prefix):
                  if k.startswith(pre)})
 
 
+def split_config(arch):
+    """The reduced config of ``torch_mesh_reference.split_config``: granite
+    at the published capacity factor 1.25."""
+    from repro_torch.configs import get_config, reduced
+    cfg = reduced(get_config(arch))
+    if cfg.moe is None:
+        return cfg
+    return replace(cfg, moe=replace(cfg.moe, capacity_factor=1.25))
+
+
+def count_drops(ffn, counter):
+    """Wraps ``ffn.dispatch`` so that ``counter[0]`` adds the assignments
+    to real (not phantom) experts each dispatch drops."""
+    dispatch = ffn.dispatch
+
+    def counted(experts, cap, num_experts, n_tokens):
+        out = dispatch(experts, cap, num_experts, n_tokens)
+        real = experts.reshape(-1) < num_experts - 1
+        counter[0] += int(((out[2] == num_experts * cap) & real).sum())
+        return out
+    ffn.dispatch = counted
+    return dispatch
+
+
 def split_job(ref_dir):
     """The loss and every gradient leaf (gathered whole) of reduced qwen2
-    and reduced granite on this group's (data, model = 2) mesh, the state
-    placed by the train rules so that the dense layers run split, fp32;
-    then one whole train step on the placed state (its new leaves keep
-    their placements), and one in two microbatches (each rank's rows
-    halved: the same loss)."""
-    from repro_torch.configs import get_config, reduced
+    and reduced granite (its MoE at capacity factor 1.25, through the
+    shard_map path, as every layer run split runs it) on this group's
+    (data, model = 2) mesh, the state placed by the train rules so that the
+    dense layers run split, fp32, with the assignments the MoE dropped;
+    AdamW on the placed weights given the reference's gradients (its new
+    weights, moments, step and gradient norm); then one whole train step
+    on the placed state (its loss, new leaves, their placements and its
+    moments), one in two microbatches (each rank's rows halved: the same
+    loss), and the errors of microbatch counts that do not divide every
+    rank's rows."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
     from repro_torch.distributed import sharding as shd
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models import registry
+    from repro_torch.models import ffn, registry
     from repro_torch.training import optimizer as opt_mod
     from repro_torch.training import train_loop
     ref = np.load(os.path.join(ref_dir, "reference.npz"))
     mesh = make_host_mesh(model=2, device="cpu")
+    data = shd.axis_sizes(mesh)["data"]
     out = {}
     for arch in ("qwen2-0.5b", "granite-moe-1b-a400m"):
-        cfg = reduced(get_config(arch))
+        cfg = split_config(arch)
         bundle = registry.build(cfg)
+        key = f"split/{arch}/{data}x2"
         params = ref_params(ref, f"split/{arch}")
         rules = shd.make_rules(cfg, mesh, "train")
         axes = bundle.param_axes()
-        placed = shd.place(params, shd.sharding_for_tree(params, axes, rules,
-                                                          mesh))
+        shardings = shd.sharding_for_tree(params, axes, rules, mesh)
+        placed = shd.place(params, shardings)
         toks = torch.tensor(ref[f"split/{arch}/tokens"]).long()
         batch = shd.place({"tokens": toks},
                           shd.batch_sharding({"tokens": toks}, rules, mesh))
         for p in opt_mod.leaves(placed):
             p.requires_grad_(True)
-        with shd.activation_sharding(mesh, rules):
-            loss = bundle.loss_fn(placed, batch, dtype=torch.float32,
-                                  remat=True)
-            grads = train_loop.reduce_grads(
-                train_loop.grad_tree(loss, placed), placed)
-        res = {"loss": float(loss.full_tensor()),
+        drops = [0]
+        dispatch = count_drops(ffn, drops)
+        try:
+            with shd.activation_sharding(mesh, rules):
+                loss = bundle.loss_fn(placed, batch, dtype=torch.float32,
+                                      remat=True)
+                grads = train_loop.reduce_grads(
+                    train_loop.grad_tree(loss, placed), placed)
+        finally:
+            ffn.dispatch = dispatch
+        res = {"loss": float(loss.full_tensor()), "dropped": drops[0],
                "split_leaves": sum(
                    tuple(p.to_local().shape) != tuple(p.shape)
                    for p in opt_mod.leaves(placed))}
@@ -208,6 +245,19 @@ def split_job(ref_dir):
         state_axes = train_loop.state_axes(axes)
         state = shd.place(state, shd.sharding_for_tree(state, state_axes,
                                                         rules, mesh))
+        ref_grads = shd.place(nest({
+            k[len(key) + 3:]: torch.tensor(ref[k]) for k in ref.files
+            if k.startswith(f"{key}/g/")}), shardings)
+        with torch.no_grad(), implicit_replication():
+            new_p, new_opt, metrics = opt_mod.apply_updates(
+                opt_mod.AdamWConfig(), state["params"], ref_grads,
+                state["opt"])
+        res["given/grad_norm"] = float(metrics["grad_norm"].full_tensor())
+        res["given/step"] = int(new_opt["step"].full_tensor())
+        for part, tree in (("p", new_p), ("m", new_opt["m"]),
+                           ("v", new_opt["v"])):
+            res.update({f"given/{part}/{k}": t.full_tensor().numpy()
+                        for k, t in flat_tree(tree).items()})
         step = train_loop.make_train_step(bundle, opt_mod.AdamWConfig(),
                                           dtype=torch.float32)
         with shd.activation_sharding(mesh, rules):
@@ -219,11 +269,27 @@ def split_job(ref_dir):
         res["step_finite"] = all(
             bool(torch.isfinite(x.full_tensor()).all())
             for x in opt_mod.leaves(new["params"]))
+        res["step/step"] = int(new["opt"]["step"].full_tensor())
+        for part in ("m", "v"):
+            res.update({f"step/{part}/{k}": t.full_tensor().detach().numpy()
+                        for k, t in flat_tree(new["opt"][part]).items()})
         two = train_loop.make_train_step(bundle, opt_mod.AdamWConfig(),
                                          dtype=torch.float32, microbatches=2)
         with shd.activation_sharding(mesh, rules):
             _, metrics = two(state, batch)
         res["microbatched_loss"] = float(metrics["loss"].full_tensor())
+        # 3 divides no rank's rows; 4 divides the batch of 4 but not the 2
+        # rows a rank holds at data = 2
+        res["microbatch_errors"] = {}
+        for n in (3, 4) if data > 1 else (3,):
+            bad = train_loop.make_train_step(
+                bundle, opt_mod.AdamWConfig(), dtype=torch.float32,
+                microbatches=n)
+            try:
+                with shd.activation_sharding(mesh, rules):
+                    bad(state, batch)
+            except ValueError as e:
+                res["microbatch_errors"][n] = str(e)
         out[arch] = res
     return out
 
@@ -274,6 +340,32 @@ def serve_job(ref_dir):
     return out
 
 
+def moe_prefill_job(ref_dir):
+    """Reduced granite's prefill logits at max_len 16 on this group's
+    (data = 2, model = 2) mesh by the ZeRO-3 prefill rules: the expert
+    stacks split over data, the sequence over model, so each layer's MoE
+    runs the shard_map path with data as its expert axis."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import registry
+    ref = np.load(os.path.join(ref_dir, "reference.npz"))
+    mesh = make_host_mesh(model=2, device="cpu")
+    cfg = reduced(get_config("granite-moe-1b-a400m"))
+    bundle = registry.build(cfg)
+    params = ref_params(ref, "serve/granite")
+    rules = shd.make_rules(cfg, mesh, "prefill")
+    placed = shd.place(params, shd.sharding_for_tree(
+        params, bundle.param_axes(), rules, mesh))
+    prompt = torch.tensor(ref["serve/granite/prompt"]).long()
+    with torch.no_grad(), shd.activation_sharding(mesh, rules):
+        logits, _ = bundle.prefill(placed, {"tokens": prompt}, max_len=16,
+                                   dtype=torch.float32)
+    return {"prefill": logits.full_tensor().numpy(),
+            "stack_placements": str(
+                placed["layers"]["ffn"]["gate"]["w"].placements)}
+
+
 def production_job():
     """The production meshes over fake process groups of 256 and 512 ranks
     (this rank is rank 0): their shapes, names and data axes, and the
@@ -309,7 +401,8 @@ JOBS = {
                                "moe_2x2": moe_job(ref_dir, 2),
                                "psum": psum_job(ref_dir),
                                "remesh": remesh_job(),
-                               "split": split_job(ref_dir)},
+                               "split": split_job(ref_dir),
+                               "moe_prefill": moe_prefill_job(ref_dir)},
     "production": lambda ref_dir: production_job(),
 }
 
