@@ -27,7 +27,12 @@ card's name and power limit.
 
 ``--pairs N`` runs N pairs of turns, A B then B A in turn (A, B, B, A,
 A, B, ...), and the summary adds, per number, each pair's B - A and their
-median; ``--host-only`` times only the wrappers' host time a call.
+median; ``--host-only`` times only the wrappers' host time a call;
+``--serve ARCH,...`` times, in place of the kernels, each arch served at
+full width as ``chip_smoke.py``'s serve phases serve it (8 requests, 4
+slots, 24 new tokens; ``launch.serve.serve_tokens``): new tok/s, prefill
+and decode seconds of the second of two runs in the turn (the first
+builds the kernels and warms the allocator).
 """
 from __future__ import annotations
 
@@ -49,6 +54,9 @@ DECODE = ((160, (101, 75, 79, 83)), (4096, tuple(range(128, 4097, 128))))
 
 # --host-only: no device times (``cuda_ms`` returns None)
 HOST_ONLY = False
+# --serve: chip_smoke.py's serve flags, after --arch
+SERVE_FLAGS = ["--no-reduced", "--requests", "8", "--slots", "4",
+               "--max-len", "160", "--max-new", "24", "--device", "cuda"]
 
 
 def cuda_ms(fn, reps=20):
@@ -129,6 +137,24 @@ def one_turn(root):
         time_backward(out, gen)
         time_rowwise(out, gen)
     return {k: v for k, v in out.items() if v is not None}
+
+
+def serve_turn(root, archs):
+    """Each arch served twice from ``root``; the second run's numbers."""
+    sys.path.insert(0, os.path.join(root, "src"))
+    from repro_torch.launch import serve
+    out = {"root": root}
+    for arch in archs:
+        args = serve.build_parser().parse_args(["--arch", arch]
+                                               + SERVE_FLAGS)
+        serve.serve_tokens(args)
+        finished, engine, seconds = serve.serve_tokens(args)
+        new = sum(len(r.output_ids) for r in finished.values())
+        out[f"serve {arch} tok_per_s"] = new / seconds
+        for key in ("prefill_s", "decode_s"):
+            out[f"serve {arch} {key}"] = engine.stats[key]
+        del engine
+    return out
 
 
 def time_backward(out, gen):
@@ -254,10 +280,16 @@ def main():
                     help="pairs of turns (A B, then B A, in turn)")
     ap.add_argument("--host-only", action="store_true",
                     help="only the wrappers' host time a call")
+    ap.add_argument("--serve", default="",
+                    help="archs to serve, comma-separated, in place of "
+                         "the kernels")
     args = ap.parse_args()
     HOST_ONLY = args.host_only
     if args.one:
-        print(json.dumps(one_turn(os.path.abspath(args.one))), flush=True)
+        root = os.path.abspath(args.one)
+        line = (serve_turn(root, args.serve.split(",")) if args.serve
+                else one_turn(root))
+        print(json.dumps(line), flush=True)
         return
     import torch
     if not torch.cuda.is_available():
@@ -271,6 +303,8 @@ def main():
                    os.path.abspath(root)]
             if args.host_only:
                 cmd.append("--host-only")
+            if args.serve:
+                cmd += ["--serve", args.serve]
             proc = subprocess.run(cmd, capture_output=True, text=True,
                                   check=True)
             line = json.loads(proc.stdout.strip().splitlines()[-1])
