@@ -187,9 +187,10 @@ non-zero):
    cross_check_llama4 at 1 layer, card against CPU (logits 1e-3, argmax
    equal).
 21. dryrun (after the serve_deepseek and serve_llama4 phases, in a process
-   of its own): ``launch.dryrun`` traces qwen2-0.5b's train_4k,
-   prefill_32k and decode_32k and mamba2-1.3b's long_500k and hymba-1.5b's
-   decode_32k on the single-pod mesh (a fake process group of 256 ranks),
+   of its own): ``launch.dryrun`` traces qwen2-0.5b's and codeqwen1.5-7b's
+   train_4k, qwen2-0.5b's prefill_32k and decode_32k and mamba2-1.3b's
+   long_500k and hymba-1.5b's decode_32k on the single-pod mesh (a fake
+   process group of 256 ranks),
    granite-moe-1b-a400m's train_4k on the two-pod one (512), and
    qwen2-0.5b's long_500k skip: every record ``ok``, one line each with
    the dominant roofline term, the step time, the bytes a device against
@@ -197,6 +198,26 @@ non-zero):
    train_mesh phases' own cells at a (1, 1) mesh: the launches a step they
    predict must equal the measured ones; each predicted peak is printed
    beside the measured one.
+22. train_codeqwen (after train_mesh, before serve_deepseek):
+   full-width codeqwen1.5-7b (d_model 4096, 32/32 heads of 128, d_ff
+   13440, vocab 92416) cut to 4 of its 32 layers (1.686B parameters),
+   through ``launch.train.run(args, cfg=...)`` at qwen2's training shape
+   (B = 8, S = 512, bf16 activations, fp32 weights and AdamW moments,
+   remat) for 8 steps on the movie plots, no checkpoint: losses finite and
+   falling, step time, tok/s, the peak (under the card's 80 GB, printed
+   beside the prediction), the idle share of two profiled steps, a
+   gradient computed twice bit-equal; the flash forward 2 x 4 x 8 and the
+   backward 4 x 8 launches (head_dim 128 on the tensor cores).
+   cross_check_train_codeqwen: one fp32 step cut to 4 layers at (2, 256),
+   card against CPU (loss 1e-5, grad norm 1e-4, every leaf 1e-4 of its
+   max), through the fp32 head_dim 128 backward (the CUDA-core instance).
+   Each prints its seconds. The kernels phase holds the backward at
+   head_dim 128 in fp32 and bf16: codeqwen's heads at (8, 512), and
+   deepseek-67b's 64/8 and llama4-scout's 40/8 at S = 1, 73, 127 and 129,
+   rows with no key, a window across key tiles and non-causal, twice for
+   the same bits; and times the forward (with its log-sum-exp) and the
+   backward at codeqwen's training shape in bf16 (the kernels line), and
+   the fp32 backward at (2, 256).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the rest
@@ -370,6 +391,7 @@ BIG_LAYERS = {"deepseek-67b": 4, "llama4-scout-17b-a16e": 2}
 # the shard_map MoE) traced at a (1, 1) mesh at their batch and sequence,
 # whose predicted launches a step must equal the phases' measured ones
 DRYRUN_CELLS = (("qwen2-0.5b", "train_4k", "single"),
+                ("codeqwen1.5-7b", "train_4k", "single"),
                 ("qwen2-0.5b", "prefill_32k", "single"),
                 ("qwen2-0.5b", "decode_32k", "single"),
                 ("qwen2-0.5b", "long_500k", "single"),
@@ -385,6 +407,12 @@ BIG_PHASE = {"deepseek-67b": "serve_deepseek",
              "llama4-scout-17b-a16e": "serve_llama4"}
 BIG_BATCH, BIG_PROMPT, BIG_STEPS, BIG_MAX_LEN, BIG_CUT = 4, 32, 24, 160, 1
 DEEPSEEK_HEADS, LLAMA4_HEADS = (64, 8, 128), (40, 8, 128)
+# train_codeqwen: full-width codeqwen1.5-7b (32/32 heads of 128) cut to
+# CODEQWEN_TRAIN_LAYERS of its 32 layers (8.19B parameters and 131 GB of
+# fp32 weights and moments at full depth; 1.686B and 27.0 GB at 4), trained
+# at qwen2's shape (TRAIN_BATCH x TRAIN_SEQ) for SSM_TRAIN_STEPS steps, no
+# checkpoint; the peak predicted before the first run (GB)
+CODEQWEN_TRAIN_LAYERS, CODEQWEN_PEAK_PREDICTED = 4, (45.0, 65.0)
 # cosine_matrix: the shapes of tests/test_kernels.py, the cosine_api path's
 # all-pairs product of the 250 movie plots, a small one, ragged M, N and D
 # (D 250 and 33 are read element by element), and products in each of the
@@ -711,7 +739,9 @@ def bwd_cases():
     (= S) but for seamless's cross-attention, at its group of 1: 129
     queries against 200 keys and 200 against 129, non-causal; and its
     training shape (B = 4, S = 512) causal (the decoder) and non-causal
-    (the encoder, and cross-attention, whose S_enc = S_dec)."""
+    (the encoder, and cross-attention, whose S_enc = S_dec). Head_dim 128:
+    codeqwen1.5-7b's training shape, and deepseek-67b's and llama4-scout's
+    heads at the edges."""
     cases = ([(FULL_HEADS, "train", TRAIN_BATCH, TRAIN_SEQ, True, 0, 0,
               TRAIN_SEQ),
              (REWRITER_HEADS, "rewriter", 16, 384, True, 0, 0, 384)]
@@ -730,6 +760,19 @@ def bwd_cases():
                 0, 0, TRAIN_SEQ),
                (SEAMLESS_HEADS, "encdec_train_noncausal", ENCDEC_BATCH,
                 TRAIN_SEQ, False, 0, 0, TRAIN_SEQ)])
+    # head_dim 128: codeqwen's 32/32 at the training shape; deepseek's 64/8
+    # and llama4's 40/8 (a group of 5) at S = 1, either side of two 64-row
+    # tiles and a ragged 73, the first 6 rows with no key, a window of 24
+    # crossing key tiles, and non-causal
+    cases += [(CODEQWEN_HEADS, "codeqwen_train", TRAIN_BATCH, TRAIN_SEQ, True,
+               0, 0, TRAIN_SEQ)]
+    for name, heads in (("deepseek", DEEPSEEK_HEADS),
+                        ("llama4", LLAMA4_HEADS)):
+        cases += [(heads, f"{name}_causal", 2, s, True, 0, 0, s)
+                  for s in (1, 127, 129, 73)]
+        cases += [(heads, f"{name}_empty_rows", 2, 48, True, 8, -6, 37),
+                  (heads, f"{name}_window_tiles", 2, 200, True, 24, 0, 200),
+                  (heads, f"{name}_noncausal", 2, 129, False, 0, 0, 129)]
     return ([c + (None,) for c in cases]
             + [(SEAMLESS_HEADS, "group1_cross", 2, 129, False, 0, 0, 200, 200),
                (SEAMLESS_HEADS, "group1_cross_rev", 2, 200, False, 0, 0, 129,
@@ -1470,7 +1513,10 @@ def time_kernels(gen):
     embeddings + 32 tokens) and decode step (4 slots at ~556 of a
     576-entry cache), 64 over 8 heads of 128, fp32. train_mesh's rows:
     granite-moe-1b-a400m's flash forward with its log-sum-exp and its
-    backward at B = 8, S = 512 over 16/8 heads of 64 in bf16."""
+    backward at B = 8, S = 512 over 16/8 heads of 64 in bf16.
+    train_codeqwen's: the same at codeqwen1.5-7b's 32/32 heads of 128; and,
+    outside the line, the fp32 backward at head_dim 128 (the CUDA-core
+    instance) at its cross-check's (2, 256)."""
     lens, padded = served_prefill_lengths()
     plots = movie_rows()
     mid = [n + 12 for n in lens[:4]]
@@ -1530,6 +1576,11 @@ def time_kernels(gen):
              time_flash_bwd(gen, TRAIN_BATCH, TRAIN_SEQ, bf16,
                             heads=GRANITE_HEADS)]
     paths += ["train_mesh"] * 2
+    rows += [time_flash(gen, TRAIN_SEQ, bf16, heads=CODEQWEN_HEADS,
+                        b=TRAIN_BATCH, lse=True),
+             time_flash_bwd(gen, TRAIN_BATCH, TRAIN_SEQ, bf16,
+                            heads=CODEQWEN_HEADS)]
+    paths += ["train_codeqwen"] * 2
     for heads, path in ((DEEPSEEK_HEADS, "serve_deepseek"),
                         (LLAMA4_HEADS, "serve_llama4")):
         rows += [time_flash(gen, BIG_PROMPT, torch.float32, heads=heads,
@@ -1550,6 +1601,8 @@ def time_kernels(gen):
     time_ssd(gen, 2048)
     time_flash_bwd(gen, TRAIN_BATCH, TRAIN_SEQ, torch.float32)
     time_flash_bwd(gen, 16, 384, torch.bfloat16, heads=REWRITER_HEADS)
+    time_flash_bwd(gen, CROSS_BATCH, CROSS_SEQ, torch.float32,
+                   heads=CODEQWEN_HEADS)
     time_ssd_bwd(gen, *SSM_TRAIN_SHAPE, SSM_FULL, torch.float32)
     return rows
 
@@ -2104,7 +2157,8 @@ def train_launches(cfg, steps):
     return expect(**{k: v * cfg.n_layers * steps for k, v in per.items()})
 
 
-def phase_train(rows, phase="train", flags=TRAIN, ckpt=True):
+def phase_train(rows, phase="train", flags=TRAIN, ckpt=True, cfg=None,
+                peak_predicted=None):
     """``launch.train`` at full width with ``flags``: fp32 weights and
     AdamW moments, bf16 activations, each layer recomputed in the
     backward. train: qwen2-0.5b (24 layers), 12 steps of 8 x 512 tokens
@@ -2115,7 +2169,10 @@ def phase_train(rows, phase="train", flags=TRAIN, ckpt=True):
     Then two more steps from the final state under torch.profiler for the
     card's idle share. Without a checkpoint, and so no restart to show the
     step deterministic, one gradient from the final state and the next
-    batch computed twice: the same bits. Returns the final state, for
+    batch computed twice: the same bits. ``cfg``: a config built already
+    (train_codeqwen: full width cut in depth) for ``train.run``; with
+    ``peak_predicted`` ((lo, hi) GB) the peak is printed beside it and must
+    stay under the card's DEVICE_GB. Returns the final state, for
     train_restart."""
     import shutil
 
@@ -2128,7 +2185,7 @@ def phase_train(rows, phase="train", flags=TRAIN, ckpt=True):
     args = train_args(ckpt_dir, flags)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    out = train.run(args)
+    out = train.run(args, cfg=cfg)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2162,6 +2219,8 @@ def phase_train(rows, phase="train", flags=TRAIN, ckpt=True):
         same = all(torch.equal(x, y) for x, y in zip(first, gradient()))
         extra = {"gradient_bit_equal_twice": same}
         del first
+    if peak_predicted:
+        extra["peak_predicted_gb"] = list(peak_predicted)
     emit({"phase": phase, "flags": flags, "arch": cfg.name,
           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
           "params": sum(p.numel() for p in leaves(state["params"])),
@@ -2186,6 +2245,9 @@ def phase_train(rows, phase="train", flags=TRAIN, ckpt=True):
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0] and same):
         raise AssertionError(f"{phase}: losses {losses} not finite and "
                              f"falling, or a repeated gradient differs")
+    if peak_predicted and peak_gb >= DEVICE_GB:
+        raise AssertionError(f"{phase}: peak {peak_gb} GB, not under the "
+                             f"card's {DEVICE_GB}")
     set_launches(rows, counts, phase, *(k for k, v in want.items() if v))
     return state
 
@@ -3201,6 +3263,29 @@ def ssm_training_phases(rows):
                             HYBRID_CROSS)
 
 
+def codeqwen_training_phases(rows):
+    """train_codeqwen and cross_check_train_codeqwen, each followed by its
+    seconds: full-width codeqwen1.5-7b cut to CODEQWEN_TRAIN_LAYERS layers
+    through ``launch.train`` (bf16, the head_dim 128 backward on the tensor
+    cores), then one fp32 step cut to TRAIN_CUT layers card against CPU
+    (the CUDA-core fp32 instance)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    cfg = replace(get_config("codeqwen1.5-7b"), n_layers=CODEQWEN_TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    phase_train(rows, "train_codeqwen",
+                train_flags("codeqwen1.5-7b", (TRAIN_BATCH, TRAIN_SEQ)),
+                ckpt=False, cfg=cfg, peak_predicted=CODEQWEN_PEAK_PREDICTED)
+    release()
+    emit({"phase": "train_codeqwen", "phase_seconds":
+          time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    phase_cross_check_train("cross_check_train_codeqwen", "codeqwen1.5-7b")
+    emit({"phase": "cross_check_train_codeqwen", "phase_seconds":
+          time.perf_counter() - t0})
+
+
 def big_phases(rows):
     for arch in BIG_LAYERS:
         served = phase_serve_big(rows, arch)
@@ -3279,7 +3364,7 @@ def main():
     for phases in (qwen2_phases, ssm_phases, hybrid_phases, codeqwen_phases,
                    moe_phases, mla_phases, training_phases, encdec_phases,
                    phase_int8_decode, vlm_phases, ssm_training_phases,
-                   mesh_phases, big_phases):
+                   mesh_phases, codeqwen_training_phases, big_phases):
         phases(rows)
         release()
     phase_dryrun()

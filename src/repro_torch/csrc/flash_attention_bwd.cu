@@ -27,8 +27,8 @@
 // * Every product runs on the tensor cores through wgmma (sm_90a): bf16 as
 //   m64nNk16 with fp32 accumulators, fp32 as 3xTF32 (each operand split
 //   into its TF32 rounding hi and the rest lo, hi*hi + hi*lo + lo*hi), as
-//   the forward does. Every instance (bf16 and fp32 at head_dim 16, 32 and
-//   64) issues wgmma, in the kernels bwd_dq_wgmma and bwd_dkdv_wgmma.
+//   the forward does. Every instance but fp32 at head_dim 128 (below)
+//   issues wgmma, in the kernels bwd_dq_wgmma and bwd_dkdv_wgmma.
 // * S and dP (S^T and dP^T in the key pass) are mma_ss on tiles that are
 //   K-major as they lie (D contiguous), S committed first so that P's exps
 //   run while dP is on the tensor cores. P and dS go from the accumulator
@@ -71,8 +71,23 @@
 // * The next tile (K and V in the dQ pass, Q and dO with their rows' lse
 //   and Delta in the key pass) is loaded into registers while this one is
 //   multiplied, and stored (split in fp32) once the products have read the
-//   last; fp32 at head_dim 64 has no room in registers for it and copies
-//   each tile after its products (its key pass spills a little).
+//   last; fp32 at head_dim 64 and bf16 at 128 have no room in registers for
+//   it and copy each tile after its products (fp32 64's key pass spills a
+//   little).
+// * head_dim 128 (codeqwen1.5-7b, internvl2-76b, deepseek-67b,
+//   llama4-scout). bf16: a warpgroup's dK and dV of its 64 keys at 64 x 128
+//   fp32 would take 128 registers a thread beside S, dP and the P and dS
+//   fragments, past 255; so the key pass splits D, not the query tiles,
+//   across its two warpgroups: both walk every query tile of the block,
+//   staged once by all 256 threads, both form S^T and dP^T over the whole
+//   D (the same products twice), and warpgroup w adds columns 64 w.. of dV
+//   and dK (64 registers a thread for the two), read from the Q and dO
+//   tiles by a descriptor offset; no merge. The dQ pass keeps one
+//   warpgroup and its 64 x 128 accumulator. fp32: the 3xTF32 tiles do not
+//   fit (the key pass's K, V, Q and dO in two parts alone are 262,144
+//   bytes, past a block's 232,448), so fp32 at 128 runs bwd_dkdv_simt and
+//   bwd_dq_simt on the CUDA cores: every tile held once in fp32, its rows
+//   padded to 129 floats, the same masks, exps and fixed order of sums.
 // * Masks only in tiles cut by the diagonal, the window's edge, sk_valid
 //   or the last row; P with ex2.approx on scores pre-scaled by log2 e, as
 //   the forward computes it.
@@ -142,8 +157,9 @@ struct Tile {
   static constexpr int KR = 64 * sizeof(T) / 32; // k-steps over 64 rows
   // Whether a tile's next chunks wait in registers while this one is
   // multiplied: not for fp32 at head_dim 64 (64 registers a thread beside
-  // the accumulators and the TF32 fragments). Else NR chunks at a time.
-  static constexpr bool PREFETCH = !(F32 && D == 64);
+  // the accumulators and the TF32 fragments) nor at 128 (the dQ pass's
+  // 64-register accumulator). Else NR chunks at a time.
+  static constexpr bool PREFETCH = !(F32 && D == 64) && D < 128;
   static constexpr int NR = PREFETCH || NL < 4 ? NL : 4;
   static_assert(CPR >= 2, "two threads a row");
 };
@@ -530,27 +546,39 @@ __global__ void __launch_bounds__(128) bwd_dq_wgmma(Args a) {
 }
 
 // Shared memory of the dK/dV pass: K and V (each in its parts), then each
-// warpgroup's region: Q and dO tiles, in fp32 their transposes, and each
-// row's lse (base 2) and Delta side by side; at the end the warpgroups' dK
-// and dV meet in the warpgroups' regions.
+// warpgroup's region (SPLIT_D: one region the warpgroups share): Q and dO
+// tiles, in fp32 their transposes, and each row's lse (base 2) and Delta
+// side by side; at the end the warpgroups' dK and dV meet in the
+// warpgroups' regions (not SPLIT_D: each writes its own columns).
 template <typename T, int D>
 struct KV {
   using L = Tile<T, D>;
+  static constexpr bool SPLIT_D = !L::F32 && D == 128;  // warpgroups split D
   static constexpr int W = L::F32 && D == 64 ? 1 : 2;  // warpgroups
   static constexpr int THREADS = 128 * W;
+  static constexpr int DW = SPLIT_D ? D / W : D;       // a warpgroup's columns
+  static constexpr int STEP = SPLIT_D ? 1 : W;         // tiles a warpgroup skips
+  static constexpr int STAGE = SPLIT_D ? THREADS : 128;  // threads staging a tile
+  static constexpr int CS = STAGE / 64;                // a thread's chunk step
+  static constexpr int NQ = L::CPR / CS;               // chunks a thread stages
+  static constexpr int NR = L::PREFETCH || NQ < 4 ? NQ : 4;
   static constexpr int TILE = L::parts * L::QB;
   static constexpr int WO = 2 * TILE;                  // warpgroups' regions
   static constexpr int AUX = 2 * TILE + (L::F32 ? 2 * L::parts * L::TB : 0);
   static constexpr int WB = AUX + 128 * 4;             // a warpgroup's region
-  static constexpr int MERGE = (W - 1) * 128 * D * 4;
-  static constexpr size_t smem = WO + (W * WB > MERGE ? W * WB : MERGE);
+  static constexpr int REGIONS = SPLIT_D ? 1 : W;
+  static constexpr int MERGE = SPLIT_D ? 0 : (W - 1) * 128 * D * 4;
+  static constexpr size_t smem =
+      WO + (REGIONS * WB > MERGE ? REGIONS * WB : MERGE);
   static_assert(smem <= 232448, "a block's shared memory on an H100");
+  static_assert(L::CPR % CS == 0, "a thread's chunks cover the row");
 };
 
 // dK/dV pass. Grid (key tiles x Hkv x B): a block owns 64 keys of one KV
 // head and walks the packed query rows of its group that see them, W
-// warpgroups taking every W-th tile of 64 rows. The grid runs every (batch,
-// KV head)'s first key tiles (under the causal mask the most rows) first.
+// warpgroups taking every W-th tile of 64 rows (SPLIT_D: every tile, each
+// warpgroup its DW columns). The grid runs every (batch, KV head)'s first
+// key tiles (under the causal mask the most rows) first.
 template <typename T, int D>
 __global__ void __launch_bounds__(KV<T, D>::THREADS) bwd_dkdv_wgmma(Args a) {
   using L = Tile<T, D>;
@@ -561,7 +589,7 @@ __global__ void __launch_bounds__(KV<T, D>::THREADS) bwd_dkdv_wgmma(Args a) {
   const int warp = wt >> 5, lane = tid & 31;
   uint8_t* Ks = smem;
   uint8_t* Vs = smem + Z::TILE;
-  uint8_t* Ws = smem + Z::WO + wg * Z::WB;
+  uint8_t* Ws = smem + Z::WO + (Z::SPLIT_D ? 0 : wg) * Z::WB;
 
   const int heads = a.Hkv * a.B, hb = blockIdx.x % heads;
   const int kt = blockIdx.x / heads * BN;
@@ -573,7 +601,9 @@ __global__ void __launch_bounds__(KV<T, D>::THREADS) bwd_dkdv_wgmma(Args a) {
   if (a.window > 0)
     row_end = min(row_end, max(0, key_last + a.window - a.q_offset) * g);
   const int nt = row_end > row_begin ? (row_end - row_begin + BM - 1) / BM : 0;
-  const int niter = (nt + W - 1) / W;  // the same for every warpgroup
+  // the same for every warpgroup
+  const int niter = (nt + Z::STEP - 1) / Z::STEP;
+  const int first = Z::SPLIT_D ? 0 : wg;  // this warpgroup's first tile
 
   // K and V, every thread a share
   for (int idx = tid; idx < 64 * L::CPR; idx += Z::THREADS) {
@@ -587,12 +617,12 @@ __global__ void __launch_bounds__(KV<T, D>::THREADS) bwd_dkdv_wgmma(Args a) {
     store_chunk<T>(Vs, L::QB, vx, c, r);
   }
 
-  // This thread stages row lr of its warpgroup's tiles, chunks c0, c0 + 2..
-  // A row is valid for jt < nt and below rows; an invalid one reads nothing
-  // (zeros) and is masked.
-  const int lr = wt & 63, c0 = wt >> 6;
+  // This thread stages row lr of its warpgroup's tiles (SPLIT_D: of the
+  // block's), chunks c0, c0 + CS, ... A row is valid for jt < nt and below
+  // rows; an invalid one reads nothing (zeros) and is masked.
+  const int st = Z::SPLIT_D ? tid : wt, lr = st & 63, c0 = st >> 6;
   // through registers, fp32 split into TF32 parts and also transposed
-  uint4 qx[L::NR], ox[L::NR];
+  uint4 qx[Z::NR], ox[Z::NR];
   float lx = 0.f, dx = 0.f;
   auto load_q = [&](int jt, int i0) {
     const int pr = row_begin + jt * BM + lr;
@@ -603,9 +633,9 @@ __global__ void __launch_bounds__(KV<T, D>::THREADS) bwd_dkdv_wgmma(Args a) {
     const T* op = static_cast<const T*>(a.dout) + b * a.sdo_.b +
                   pos * a.sdo_.s + head * a.sdo_.h + c0 * E;
 #pragma unroll
-    for (int i = 0; i < L::NR; ++i) {
-      qx[i] = load16(qp + 2 * (i0 + i) * E, ok);
-      ox[i] = load16(op + 2 * (i0 + i) * E, ok);
+    for (int i = 0; i < Z::NR; ++i) {
+      qx[i] = load16(qp + Z::CS * (i0 + i) * E, ok);
+      ox[i] = load16(op + Z::CS * (i0 + i) * E, ok);
     }
     if (i0 == 0) {
       const long long idx = (static_cast<long long>(b) * a.Hq + head) * a.Sq + pos;
@@ -615,8 +645,8 @@ __global__ void __launch_bounds__(KV<T, D>::THREADS) bwd_dkdv_wgmma(Args a) {
   };
   auto store_q = [&](int i0) {
 #pragma unroll
-    for (int i = 0; i < L::NR; ++i) {
-      const int c = c0 + 2 * (i0 + i);
+    for (int i = 0; i < Z::NR; ++i) {
+      const int c = c0 + Z::CS * (i0 + i);
       store_chunk<T>(Ws, L::QB, qx[i], c, lr);
       store_chunk<T>(Ws + Z::TILE, L::QB, ox[i], c, lr);
       if constexpr (L::F32) {
@@ -629,14 +659,21 @@ __global__ void __launch_bounds__(KV<T, D>::THREADS) bwd_dkdv_wgmma(Args a) {
   };
   auto stage_q = [&](int jt) {
 #pragma unroll
-    for (int i0 = 0; i0 < L::NL; i0 += L::NR) {
+    for (int i0 = 0; i0 < Z::NQ; i0 += Z::NR) {
       if (!L::PREFETCH || i0 > 0) load_q(jt, i0);
       store_q(i0);
     }
   };
+  // the barrier of the threads that share a Q/dO region
+  auto region_sync = [&]() {
+    if constexpr (Z::SPLIT_D)
+      __syncthreads();
+    else
+      wg_sync(wg);
+  };
   if (niter > 0) {
-    if (L::PREFETCH) load_q(wg, 0);
-    stage_q(wg);
+    if (L::PREFETCH) load_q(first, 0);
+    stage_q(first);
   }
   fence_smem_to_async();
   __syncthreads();
@@ -654,14 +691,20 @@ __global__ void __launch_bounds__(KV<T, D>::THREADS) bwd_dkdv_wgmma(Args a) {
       L::F32 ? desc(Ws + 2 * Z::TILE + L::parts * L::TB, L::LBO_T)
              : desc(Ws + Z::TILE, 128, 64 * 16);
   const float* aux_s = reinterpret_cast<const float*>(Ws + Z::AUX);
-  float dk[D / 2], dv[D / 2];
+  // SPLIT_D: this warpgroup's columns of Q and dO as B operands, DW / 8
+  // chunks of 64 rows on
+  const int cols = Z::SPLIT_D ? wg * Z::DW : 0;
+  const uint64_t dqc = desc_at(dqn, cols * 128);
+  const uint64_t ddoc = desc_at(ddon, cols * 128);
+  constexpr int DW = Z::DW;
+  float dk[DW / 2], dv[DW / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  for (int i = 0; i < DW / 2; ++i) dk[i] = dv[i] = 0.f;
 
   for (int it = 0; it < niter; ++it) {
-    const int jt = wg + W * it;
+    const int jt = first + Z::STEP * it;
     const bool more = it + 1 < niter;
-    if (L::PREFETCH && more) load_q(jt + W, 0);
+    if (L::PREFETCH && more) load_q(jt + Z::STEP, 0);
 
     float s[32], dp[32];  // S^T and dP^T: keys by query rows
 #pragma unroll
@@ -727,60 +770,60 @@ __global__ void __launch_bounds__(KV<T, D>::THREADS) bwd_dkdv_wgmma(Args a) {
       // tiles (dV over 3,584 packed rows at the training shape), the sum
       // drifted past the fp32 tolerance; tile sums added in fp32 stay well
       // inside it.
-      float x[D / 2];
+      float x[DW / 2];
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) x[i] = 0.f;
-      pin<D / 2>(x);
+      for (int i = 0; i < DW / 2; ++i) x[i] = 0.f;
+      pin<DW / 2>(x);
       fence();
-      mma_rows<T, D>(x, ph, pl, ddon);
+      mma_rows<T, DW>(x, ph, pl, ddoc);
       commit();
       wait<0>();
-      pin<D / 2>(x);
+      pin<DW / 2>(x);
       pin<L::KR>(ph);
       pin<L::KR>(pl);
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) {
+      for (int i = 0; i < DW / 2; ++i) {
         dv[i] += x[i];
         x[i] = 0.f;
       }
       fragments<T>(dp, ph, pl);  // the TF32 parts of dS^T
-      pin<D / 2>(x);
+      pin<DW / 2>(x);
       fence();
-      mma_rows<T, D>(x, ph, pl, dqn);
+      mma_rows<T, DW>(x, ph, pl, dqc);
       commit();
       wait<0>();
-      pin<D / 2>(x);
+      pin<DW / 2>(x);
       pin<L::KR>(ph);
       pin<L::KR>(pl);
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) dk[i] += x[i];
+      for (int i = 0; i < DW / 2; ++i) dk[i] += x[i];
     } else {
-      pin<D / 2>(dv);
+      pin<DW / 2>(dv);
       fence();
-      mma_rows<T, D>(dv, ph, pl, ddon);
+      mma_rows<T, DW>(dv, ph, pl, ddoc);
       commit();
       uint32_t sh[L::KR][4], sl[L::KR][4];
       fragments<T>(dp, sh, sl);
-      pin<D / 2>(dk);
+      pin<DW / 2>(dk);
       fence();
-      mma_rows<T, D>(dk, sh, sl, dqn);
+      mma_rows<T, DW>(dk, sh, sl, dqc);
       commit();
       wait<0>();
-      pin<D / 2>(dk);
-      pin<D / 2>(dv);
+      pin<DW / 2>(dk);
+      pin<DW / 2>(dv);
       pin<L::KR>(ph);
       pin<L::KR>(sh);
     }
 
     if (more) {
-      wg_sync(wg);  // the warpgroup's products have read its tile
-      stage_q(jt + W);
+      region_sync();  // the products have read the tile
+      stage_q(jt + Z::STEP);
       fence_smem_to_async();
-      wg_sync(wg);
+      region_sync();
     }
   }
 
-  if constexpr (W > 1) {
+  if constexpr (W > 1 && !Z::SPLIT_D) {
     // warpgroups 1.. hand dK and dV to warpgroup 0, thread by thread (the
     // same keys and columns), which adds them in warpgroup order
     float* xs = reinterpret_cast<float*>(smem + Z::WO);
@@ -813,14 +856,314 @@ __global__ void __launch_bounds__(KV<T, D>::THREADS) bwd_dkdv_wgmma(Args a) {
     T* pk = static_cast<T*>(a.dk) + b * a.sdk_.b + key * a.sdk_.s +
             hk * a.sdk_.h;
     T* pv = static_cast<T*>(a.dv) + b * a.sdv_.b + key * a.sdv_.s +
-            hk * a.sdv_.h;
+            hk * a.sdv_.h + cols;
+    pk += cols;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
+    for (int i = 0; i < DW / 8; ++i) {
       store_pair(pk + 8 * i + 2 * t, dk[4 * i + 2 * half] * a.scale,
                  dk[4 * i + 2 * half + 1] * a.scale);
       store_pair(pv + 8 * i + 2 * t, dv[4 * i + 2 * half],
                  dv[4 * i + 2 * half + 1]);
     }
+  }
+}
+
+// fp32 at head_dim 128 on the CUDA cores: the two passes of the tensor-core
+// kernels, each tile held once in fp32, its rows SP floats apart (a column
+// read by the 32 lanes of a warp on 32 rows meets 32 banks), 256 threads a
+// block. The masks, exps and the order of every sum are fixed, so the
+// result is the same bits on every run.
+constexpr int SD = 128;     // head_dim
+constexpr int SP = SD + 1;  // a tile row's stride, floats
+constexpr int SQ = 32;      // packed query rows a tile of the dK/dV pass
+
+// Rows [0, n) of an [n][SP] tile from the fp32 rows src(r) (nullptr:
+// zeros), by the block's 256 threads, 16 bytes a load.
+template <typename F>
+__device__ __forceinline__ void stage_rows(float* tile, int n, F src) {
+  for (int idx = threadIdx.x; idx < n * (SD / 4); idx += 256) {
+    const int r = idx / (SD / 4), c = idx % (SD / 4);
+    const float* p = src(r);
+    const float4 x = p ? __ldg(reinterpret_cast<const float4*>(p) + c)
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+    float* t = tile + r * SP + 4 * c;
+    t[0] = x.x;
+    t[1] = x.y;
+    t[2] = x.z;
+    t[3] = x.w;
+  }
+}
+
+// Packed query row pr of KV head hk's group: its fp32 row of a (B, Sq, Hq,
+// D) tensor with strides ``st``.
+__device__ __forceinline__ const float* qrow(const Args& a, const void* base,
+                                             const Str& st, int b, int hk,
+                                             int pr) {
+  return static_cast<const float*>(base) + b * st.b + (pr / a.g) * st.s +
+         (hk * a.g + pr % a.g) * st.h;
+}
+
+// The (B, Hq, Sq) index of packed query row pr's lse and Delta.
+__device__ __forceinline__ long long row_index(const Args& a, int b, int hk,
+                                               int pr) {
+  return (static_cast<long long>(b) * a.Hq + hk * a.g + pr % a.g) * a.Sq +
+         pr / a.g;
+}
+
+// Shared memory of the CUDA-core dK/dV pass: K, V, Q and dO tiles, P^T and
+// dS^T (keys by rows), each row's lse (base 2) and Delta.
+constexpr size_t SIMT_KV_SMEM =
+    (2 * BN * SP + 2 * SQ * SP + 2 * BN * (SQ + 1) + 2 * SQ) * sizeof(float);
+
+// dK/dV pass on the CUDA cores. Grid as bwd_dkdv_wgmma's: a block owns 64
+// keys of one KV head and walks the packed query rows that see them, SQ at
+// a time. Thread (warp w, lane l): S^T and dP^T of keys 8 w.. against row
+// l, then dK and dV of keys 8 w.. at columns l + 32 j.
+__global__ void __launch_bounds__(256) bwd_dkdv_simt(Args a) {
+  extern __shared__ __align__(16) float fs[];
+  float* Ks = fs;
+  float* Vs = Ks + BN * SP;
+  float* Qs = Vs + BN * SP;
+  float* dOs = Qs + SQ * SP;
+  float* Ps = dOs + SQ * SP;
+  float* dSs = Ps + BN * (SQ + 1);
+  float* lse_s = dSs + BN * (SQ + 1);
+  float* dl_s = lse_s + SQ;
+
+  const int heads = a.Hkv * a.B, hb = blockIdx.x % heads;
+  const int kt = blockIdx.x / heads * BN;
+  const int hk = hb % a.Hkv, b = hb / a.Hkv, g = a.g;
+  const int key_last = min(kt + BN, a.sk_valid) - 1;
+  int row_begin = 0, row_end = kt < a.sk_valid ? a.rows : 0;
+  if (a.causal) row_begin = max(0, kt - a.q_offset) * g;
+  if (a.window > 0)
+    row_end = min(row_end, max(0, key_last + a.window - a.q_offset) * g);
+  const int tid = threadIdx.x, lane = tid & 31, n0 = (tid >> 5) * 8;
+  const float sl2 = a.scale * LOG2E;
+
+  const float* k0 = static_cast<const float*>(a.k) + b * a.sk_.b +
+                    hk * a.sk_.h;
+  const float* v0 = static_cast<const float*>(a.v) + b * a.sv_.b +
+                    hk * a.sv_.h;
+  stage_rows(Ks, BN, [&](int r) {
+    return kt + r < a.Sk ? k0 + (kt + r) * a.sk_.s : nullptr;
+  });
+  stage_rows(Vs, BN, [&](int r) {
+    return kt + r < a.Sk ? v0 + (kt + r) * a.sv_.s : nullptr;
+  });
+
+  float dk[8][4], dv[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dk[i][j] = dv[i][j] = 0.f;
+
+  for (int r0 = row_begin; r0 < row_end; r0 += SQ) {
+    const int n_rows = min(SQ, row_end - r0);
+    __syncthreads();  // the last tile's reads are done
+    stage_rows(Qs, SQ, [&](int m) {
+      return m < n_rows ? qrow(a, a.q, a.sq_, b, hk, r0 + m) : nullptr;
+    });
+    stage_rows(dOs, SQ, [&](int m) {
+      return m < n_rows ? qrow(a, a.dout, a.sdo_, b, hk, r0 + m) : nullptr;
+    });
+    if (tid < SQ) {
+      const bool ok = tid < n_rows;
+      const long long idx = ok ? row_index(a, b, hk, r0 + tid) : 0;
+      lse_s[tid] = ok ? a.lse[idx] * LOG2E : 0.f;
+      dl_s[tid] = ok ? a.delta[idx] : 0.f;
+    }
+    __syncthreads();
+    {
+      float sv[8], dp[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) sv[i] = dp[i] = 0.f;
+      const float* qr = Qs + lane * SP;
+      const float* orow = dOs + lane * SP;
+      const float* kr = Ks + n0 * SP;
+      const float* vr = Vs + n0 * SP;
+#pragma unroll 4
+      for (int d = 0; d < SD; ++d) {
+        const float qv = qr[d], ov = orow[d];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          sv[i] = fmaf(kr[i * SP + d], qv, sv[i]);
+          dp[i] = fmaf(vr[i * SP + d], ov, dp[i]);
+        }
+      }
+      const bool ok = lane < n_rows;
+      const int pos = (r0 + lane) / g + a.q_offset;
+      const float l2 = lse_s[lane], dl = dl_s[lane];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int n = n0 + i;
+        const float pv = ok && visible(a, pos, kt + n)
+                             ? ex2(fmaf(sv[i], sl2, -l2))
+                             : 0.f;
+        Ps[n * (SQ + 1) + lane] = pv;
+        dSs[n * (SQ + 1) + lane] = pv * (dp[i] - dl);
+      }
+    }
+    __syncthreads();
+    for (int m = 0; m < n_rows; ++m) {
+      float o[4], q[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        o[j] = dOs[m * SP + lane + 32 * j];
+        q[j] = Qs[m * SP + lane + 32 * j];
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float pv = Ps[(n0 + i) * (SQ + 1) + m];
+        const float ds = dSs[(n0 + i) * (SQ + 1) + m];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          dv[i][j] = fmaf(pv, o[j], dv[i][j]);
+          dk[i][j] = fmaf(ds, q[j], dk[i][j]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int key = kt + n0 + i;
+    if (key >= a.Sk) continue;
+    float* pk = static_cast<float*>(a.dk) + b * a.sdk_.b + key * a.sdk_.s +
+                hk * a.sdk_.h;
+    float* pv = static_cast<float*>(a.dv) + b * a.sdv_.b + key * a.sdv_.s +
+                hk * a.sdv_.h;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      pk[lane + 32 * j] = dk[i][j] * a.scale;
+      pv[lane + 32 * j] = dv[i][j];
+    }
+  }
+}
+
+// Shared memory of the CUDA-core dQ pass: Q, dO, K and V tiles, dS (rows
+// by keys), each row's lse (base 2) and Delta.
+constexpr size_t SIMT_DQ_SMEM =
+    (2 * BM * SP + 2 * BN * SP + BM * (BN + 1) + 2 * BM) * sizeof(float);
+
+// dQ pass on the CUDA cores. Grid as bwd_dq_wgmma's: a block owns 64 packed
+// rows of one KV head's group and walks the key tiles they see. Thread
+// (warp w, lane l): S and dP of rows 8 w.. against keys l and l + 32, then
+// dQ of rows 8 w.. at columns l + 32 j.
+__global__ void __launch_bounds__(256) bwd_dq_simt(Args a) {
+  extern __shared__ __align__(16) float fs[];
+  float* Qs = fs;
+  float* dOs = Qs + BM * SP;
+  float* Ks = dOs + BM * SP;
+  float* Vs = Ks + BN * SP;
+  float* dSs = Vs + BN * SP;
+  float* lse_s = dSs + BM * (BN + 1);
+  float* dl_s = lse_s + BM;
+
+  const int heads = a.Hkv * a.B, hb = blockIdx.x % heads;
+  const int tile = (a.rows + BM - 1) / BM - 1 - blockIdx.x / heads;
+  const int hk = hb % a.Hkv, b = hb / a.Hkv, g = a.g;
+  const int r0 = tile * BM;
+  const int n_rows = min(BM, a.rows - r0);
+  const int pos_lo = r0 / g + a.q_offset;
+  const int pos_hi = (r0 + n_rows - 1) / g + a.q_offset;
+  const int k_end = a.causal ? min(a.sk_valid, pos_hi + 1) : a.sk_valid;
+  const int k_begin = a.window > 0 ? max(0, pos_lo - a.window + 1) : 0;
+  const int ntiles = k_end > k_begin ? (k_end - k_begin + BN - 1) / BN : 0;
+  const int tid = threadIdx.x, lane = tid & 31, m0 = (tid >> 5) * 8;
+  const float sl2 = a.scale * LOG2E;
+
+  stage_rows(Qs, BM, [&](int m) {
+    return m < n_rows ? qrow(a, a.q, a.sq_, b, hk, r0 + m) : nullptr;
+  });
+  stage_rows(dOs, BM, [&](int m) {
+    return m < n_rows ? qrow(a, a.dout, a.sdo_, b, hk, r0 + m) : nullptr;
+  });
+  if (tid < BM) {
+    const bool ok = tid < n_rows;
+    const long long idx = ok ? row_index(a, b, hk, r0 + tid) : 0;
+    lse_s[tid] = ok ? a.lse[idx] * LOG2E : 0.f;
+    dl_s[tid] = ok ? a.delta[idx] : 0.f;
+  }
+  const float* k0 = static_cast<const float*>(a.k) + b * a.sk_.b +
+                    hk * a.sk_.h;
+  const float* v0 = static_cast<const float*>(a.v) + b * a.sv_.b +
+                    hk * a.sv_.h;
+
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int jt = 0; jt < ntiles; ++jt) {
+    const int kt = k_begin + jt * BN;
+    const int n_keys = min(BN, k_end - kt);
+    __syncthreads();  // the last tile's reads are done
+    stage_rows(Ks, BN, [&](int r) {
+      return r < n_keys ? k0 + (kt + r) * a.sk_.s : nullptr;
+    });
+    stage_rows(Vs, BN, [&](int r) {
+      return r < n_keys ? v0 + (kt + r) * a.sv_.s : nullptr;
+    });
+    __syncthreads();
+    {
+      float sv[8][2], dp[8][2];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) sv[i][0] = sv[i][1] = dp[i][0] = dp[i][1] = 0.f;
+      const float* qr = Qs + m0 * SP;
+      const float* orow = dOs + m0 * SP;
+#pragma unroll 4
+      for (int d = 0; d < SD; ++d) {
+        const float ka = Ks[lane * SP + d], kb = Ks[(lane + 32) * SP + d];
+        const float va = Vs[lane * SP + d], vb = Vs[(lane + 32) * SP + d];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float qv = qr[i * SP + d], ov = orow[i * SP + d];
+          sv[i][0] = fmaf(qv, ka, sv[i][0]);
+          sv[i][1] = fmaf(qv, kb, sv[i][1]);
+          dp[i][0] = fmaf(ov, va, dp[i][0]);
+          dp[i][1] = fmaf(ov, vb, dp[i][1]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int m = m0 + i;
+        const bool ok = m < n_rows;
+        const int pos = (r0 + m) / g + a.q_offset;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int n = lane + 32 * j;
+          const float pv = ok && visible(a, pos, kt + n)
+                               ? ex2(fmaf(sv[i][j], sl2, -lse_s[m]))
+                               : 0.f;
+          dSs[m * (BN + 1) + n] = pv * (dp[i][j] - dl_s[m]);
+        }
+      }
+    }
+    __syncthreads();
+    for (int n = 0; n < n_keys; ++n) {
+      float kv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kv[j] = Ks[n * SP + lane + 32 * j];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float ds = dSs[(m0 + i) * (BN + 1) + n];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ds, kv[j], acc[i][j]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + i;
+    if (m >= n_rows) continue;
+    const int pr = r0 + m;
+    float* p = static_cast<float*>(a.dq) + b * a.sdq_.b + (pr / g) * a.sdq_.s +
+               (hk * g + pr % g) * a.sdq_.h;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) p[lane + 32 * j] = acc[i][j] * a.scale;
   }
 }
 
@@ -861,11 +1204,25 @@ Side& side() {
 
 template <typename T, int D>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
+  // the passes on the tensor cores, or fp32 at head_dim 128 on the CUDA
+  // cores
+  void (*dkdv)(Args);
+  void (*dq)(Args);
+  size_t dkdv_smem, dq_smem;
+  int dkdv_threads, dq_threads;
+  if constexpr (std::is_same<T, float>::value && D == SD) {
+    dkdv = bwd_dkdv_simt, dq = bwd_dq_simt;
+    dkdv_smem = SIMT_KV_SMEM, dq_smem = SIMT_DQ_SMEM;
+    dkdv_threads = dq_threads = 256;
+  } else {
+    dkdv = bwd_dkdv_wgmma<T, D>, dq = bwd_dq_wgmma<T, D>;
+    dkdv_smem = KV<T, D>::smem, dq_smem = DQ<T, D>::smem;
+    dkdv_threads = KV<T, D>::THREADS, dq_threads = 128;
+  }
   static bool configured = false;  // the attributes are set once per instance
   if (!configured) {
-    cudaError_t err = allow_smem(bwd_dq_wgmma<T, D>, DQ<T, D>::smem);
-    if (err == cudaSuccess)
-      err = allow_smem(bwd_dkdv_wgmma<T, D>, KV<T, D>::smem);
+    cudaError_t err = allow_smem(dq, dq_smem);
+    if (err == cudaSuccess) err = allow_smem(dkdv, dkdv_smem);
     if (err != cudaSuccess) return err;
     configured = true;
   }
@@ -883,11 +1240,11 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   if (err == cudaSuccess) err = cudaStreamWaitEvent(sd.stream, sd.fork, 0);
   if (err != cudaSuccess) return err;
   const dim3 grid_k((a.Sk + BN - 1) / BN * a.Hkv * a.B);
-  bwd_dkdv_wgmma<T, D><<<grid_k, KV<T, D>::THREADS, KV<T, D>::smem, stream>>>(a);
+  dkdv<<<grid_k, dkdv_threads, dkdv_smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 grid_q((a.rows + BM - 1) / BM * a.Hkv * a.B);
-  bwd_dq_wgmma<T, D><<<grid_q, 128, DQ<T, D>::smem, sd.stream>>>(a);
+  dq<<<grid_q, dq_threads, dq_smem, sd.stream>>>(a);
   err = cudaGetLastError();
   if (err == cudaSuccess) err = cudaEventRecord(sd.join, sd.stream);
   if (err == cudaSuccess) err = cudaStreamWaitEvent(stream, sd.join, 0);
@@ -900,6 +1257,7 @@ cudaError_t by_dim(int D, const Args& a, cudaStream_t stream) {
     case 16: return launch<T, 16>(a, stream);
     case 32: return launch<T, 32>(a, stream);
     case 64: return launch<T, 64>(a, stream);
+    case 128: return launch<T, 128>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }

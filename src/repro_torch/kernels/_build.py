@@ -32,6 +32,8 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -127,21 +129,26 @@ def count_launch(stats: dict) -> None:
 
 def is_fake(t) -> bool:
     """Whether ``t`` is a fake tensor (shapes and dtypes, no storage)."""
-    from torch._subclasses.fake_tensor import FakeTensor
     return isinstance(t, FakeTensor)
 
 
 OP_BYTES: dict = {}
 
 
+def direct(t) -> bool:
+    """Whether a kernel op on ``t`` may skip the dispatcher: ``t`` real and
+    no dispatch mode active, so nothing but the card would see the launch
+    (serving's eager calls, which would pay the dispatcher's host time on
+    every launch)."""
+    return _get_current_dispatch_mode() is None and not isinstance(
+        t, FakeTensor)
+
+
 def call(op, impl, *args):
     """One kernel op: its CUDA implementation ``impl`` called directly
-    where nothing but the card would see it (real tensors, no dispatch
-    mode active: serving's eager calls, which pay the dispatcher's host
-    time on every launch), else through the dispatcher (``op``: fake
+    where ``direct(args[0])``, else through the dispatcher (``op``: fake
     tensors, a trace's counter)."""
-    from torch.utils._python_dispatch import _get_current_dispatch_mode
-    if _get_current_dispatch_mode() is None and not is_fake(args[0]):
+    if direct(args[0]):
         return impl(*args)
     return op(*args)
 

@@ -27,12 +27,19 @@ card's name and power limit.
 
 ``--pairs N`` runs N pairs of turns, A B then B A in turn (A, B, B, A,
 A, B, ...), and the summary adds, per number, each pair's B - A and their
-median; ``--host-only`` times only the wrappers' host time a call;
+median; ``--host-only`` times only the host time a call: the wrappers',
+the attention calls through ``kernels.ops`` as the models make them, and
+each piece of a call alone ("part ...": the fake-tensor test, the
+dispatch-mode test of ``_build.call``, an empty log-sum-exp tensor,
+decode's lengths built as ``ops`` built them, flash's input checks);
 ``--serve ARCH,...`` times, in place of the kernels, each arch served at
 full width as ``chip_smoke.py``'s serve phases serve it (8 requests, 4
 slots, 24 new tokens; ``launch.serve.serve_tokens``): new tok/s, prefill
 and decode seconds of the second of two runs in the turn (the first
-builds the kernels and warms the allocator).
+builds the kernels and warms the allocator). ``--profile`` (with
+``--serve``) runs that second run under ``cProfile`` and adds its 30
+functions of most host time of their own, with their calls and µs a
+decode tick.
 """
 from __future__ import annotations
 
@@ -54,6 +61,8 @@ DECODE = ((160, (101, 75, 79, 83)), (4096, tuple(range(128, 4097, 128))))
 
 # --host-only: no device times (``cuda_ms`` returns None)
 HOST_ONLY = False
+# --profile: the second serve run of a turn under cProfile
+PROFILE = False
 # --serve: chip_smoke.py's serve flags, after --arch
 SERVE_FLAGS = ["--no-reduced", "--requests", "8", "--slots", "4",
                "--max-len", "160", "--max-new", "24", "--device", "cuda"]
@@ -99,6 +108,7 @@ def one_turn(root):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
     from repro_torch.kernels import similarity as sim
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator("cuda").manual_seed(0)
@@ -120,6 +130,8 @@ def one_turn(root):
             if s == 96:
                 out[name + " host_us"] = host_us(
                     lambda: fa.flash_attention(q, k, v, **kw))
+                out[name + " ops host_us"] = host_us(
+                    lambda: ops.flash_attention(q, k, v))
     for dtype in (torch.float32, torch.bfloat16):
         for m in (16, 250, 4096):
             x = torch.randn(m, 256, generator=gen, device="cuda")
@@ -132,7 +144,9 @@ def one_turn(root):
                     lambda: sim.cosine_matrix(a, a))
     time_decode(out, gen)
     time_ssd(out, gen)
-    if not HOST_ONLY:
+    if HOST_ONLY:
+        time_host_parts(out, gen)
+    else:
         time_ssd_bwd(out, gen)
         time_backward(out, gen)
         time_rowwise(out, gen)
@@ -148,13 +162,32 @@ def serve_turn(root, archs):
         args = serve.build_parser().parse_args(["--arch", arch]
                                                + SERVE_FLAGS)
         serve.serve_tokens(args)
-        finished, engine, seconds = serve.serve_tokens(args)
+        if PROFILE:
+            import cProfile
+            prof = cProfile.Profile()
+            finished, engine, seconds = prof.runcall(serve.serve_tokens,
+                                                     args)
+            out[f"serve {arch} profile"] = top_functions(
+                prof, engine.stats["decode_steps"])
+        else:
+            finished, engine, seconds = serve.serve_tokens(args)
         new = sum(len(r.output_ids) for r in finished.values())
         out[f"serve {arch} tok_per_s"] = new / seconds
         for key in ("prefill_s", "decode_s"):
             out[f"serve {arch} {key}"] = engine.stats[key]
         del engine
     return out
+
+
+def top_functions(prof, ticks, n=30):
+    """The ``n`` functions of most host time of their own in a cProfile
+    run: [file:line:name, calls a tick, µs of their own a tick]."""
+    import pstats
+    stats = pstats.Stats(prof).stats
+    top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:n]
+    ticks = max(1, ticks)
+    return [[f"{os.path.basename(f)}:{line}:{name}", nc / ticks,
+             tt / ticks * 1e6] for (f, line, name), (_, nc, tt, _, _) in top]
 
 
 def time_backward(out, gen):
@@ -211,6 +244,7 @@ def time_decode(out, gen):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import ops
     hq, hkv, d = HEADS
     for s, cache_len in DECODE:
         b = len(cache_len)
@@ -231,6 +265,40 @@ def time_decode(out, gen):
         if s == 160:
             out[name + " host_us"] = host_us(
                 lambda: dec.decode_attention(q, kc, vc, lens))
+            out[name + " ops host_us"] = host_us(
+                lambda: ops.decode_attention(q, kc, vc, lens))
+
+
+def time_host_parts(out, gen, calls=20000):
+    """Host µs a call of each piece of a serving call alone, at the serve
+    shapes: ``_build.is_fake``, the dispatch-mode test, ``_build.call``
+    around a call that does nothing, an empty (0,) fp32 tensor (what the
+    flash forward's op returned for no log-sum-exp), decode's (B,) int32
+    lengths built from a tick's as ``ops`` built them on every call, and
+    the flash wrapper's input checks."""
+    import torch
+    from torch.utils._python_dispatch import _get_current_dispatch_mode
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    hq, hkv, d = HEADS
+    q = torch.randn(1, 96, hq, d, generator=gen, device="cuda")
+    k = torch.randn(1, 96, hkv, d, generator=gen, device="cuda")
+    lens = torch.tensor(DECODE[0][1], dtype=torch.int32, device="cuda")
+
+    def nothing(*args):
+        return None
+    parts = {
+        "is_fake": lambda: _build.is_fake(q),
+        "dispatch_mode": _get_current_dispatch_mode,
+        "call": lambda: _build.call(None, nothing, q),
+        "empty_lse": lambda: q.new_empty((0,), dtype=torch.float32),
+        "decode_lens": lambda: torch.as_tensor(
+            lens, dtype=torch.int32, device=q.device).reshape(-1).expand(
+                lens.shape[0]).contiguous(),
+        "flash_checks": lambda: fa._check_inputs(q, k, k),
+    }
+    for name, fn in parts.items():
+        out[f"part {name} host_us"] = host_us(fn, calls=calls)
 
 
 def time_ssd(out, gen):
@@ -271,7 +339,7 @@ def time_ssd_bwd(out, gen):
 
 
 def main():
-    global HOST_ONLY
+    global HOST_ONLY, PROFILE
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--a", help="first root")
     ap.add_argument("--b", help="second root")
@@ -283,8 +351,10 @@ def main():
     ap.add_argument("--serve", default="",
                     help="archs to serve, comma-separated, in place of "
                          "the kernels")
+    ap.add_argument("--profile", action="store_true",
+                    help="with --serve: the second run under cProfile")
     args = ap.parse_args()
-    HOST_ONLY = args.host_only
+    HOST_ONLY, PROFILE = args.host_only, args.profile
     if args.one:
         root = os.path.abspath(args.one)
         line = (serve_turn(root, args.serve.split(",")) if args.serve
@@ -305,6 +375,8 @@ def main():
                 cmd.append("--host-only")
             if args.serve:
                 cmd += ["--serve", args.serve]
+            if args.profile:
+                cmd.append("--profile")
             proc = subprocess.run(cmd, capture_output=True, text=True,
                                   check=True)
             line = json.loads(proc.stdout.strip().splitlines()[-1])
@@ -317,7 +389,8 @@ def main():
     summary = {"card": smi, "pairs": args.pairs}
     for tag, turns in by_root.items():
         summary[tag] = {key: sum(t[key] for t in turns) / len(turns)
-                        for key in turns[0] if key != "root"}
+                        for key, value in turns[0].items()
+                        if isinstance(value, (int, float))}
         summary[tag]["root"] = turns[0]["root"]
     if args.pairs > 2:
         diffs = {key: sorted(b[key] - a[key] for a, b in

@@ -38,9 +38,10 @@ bwd_stats = {"launches": 0}
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # qwen2-0.5b reduced (16), the rewriter's model (32), most archs (64),
-# codeqwen1.5-7b (128; forward only: its training needs more than a card)
+# codeqwen1.5-7b, internvl2-76b, deepseek-67b and llama4-scout (128); the
+# backward takes them all
 HEAD_DIMS = (16, 32, 64, 128)
-BWD_HEAD_DIMS = (16, 32, 64)
+BWD_HEAD_DIMS = (16, 32, 64, 128)
 
 
 @functools.lru_cache(maxsize=None)
@@ -137,36 +138,46 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
     graph: ``attention`` is the differentiable entry point. One launch of
     ``torch.ops.repro_torch.flash_attention_fwd``."""
     _check_inputs(q, k, v)
-    sk_valid = _sk_valid(sk_valid, k.shape[1])
-    scale = float(q.shape[3] ** -0.5 if scale is None else scale)
-    out, lse = _build.call(
-        torch.ops.repro_torch.flash_attention_fwd, _fwd_impl, q, k, v,
-        bool(causal), int(window), int(q_offset), sk_valid, scale,
-        bool(return_lse))
+    args = (q, k, v, bool(causal), int(window), int(q_offset),
+            _sk_valid(sk_valid, k.shape[1]),
+            float(q.shape[3] ** -0.5 if scale is None else scale))
+    if not return_lse and _build.direct(q):
+        return _launch_fwd(*args, None)  # serving: no log-sum-exp buffer
+    out, lse = _build.call(torch.ops.repro_torch.flash_attention_fwd,
+                           _fwd_impl, *args, bool(return_lse))
     return (out, lse) if return_lse else out
 
 
-def _fwd_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-            window: int, q_offset: int, sk_valid: int, scale: float,
-            return_lse: bool) -> tuple[torch.Tensor, torch.Tensor]:
-    out, lse = _fwd_fake(q, k, v, causal, window, q_offset, sk_valid, scale,
-                         return_lse)
+def _launch_fwd(q, k, v, causal, window, q_offset, sk_valid, scale, lse):
+    """The forward kernel into a new output; each row's log-sum-exp into
+    ``lse`` where one is given."""
+    out = q.new_empty(q.shape)
     if out.numel() == 0:
-        return out, lse
+        return out
     b, sq, hq, d = q.shape
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    lse.data_ptr() if return_lse else None,
+                    None if lse is None else lse.data_ptr(),
                     DTYPES[q.dtype], b, sq, hq, k.shape[2], d, strides,
                     int(causal), window, q_offset, sk_valid, scale, stream)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error "
                            f"{err}")
     _build.count_launch(stats)
-    return out, lse
+    return out
+
+
+def _fwd_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            window: int, q_offset: int, sk_valid: int, scale: float,
+            return_lse: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    b, sq, hq, _ = q.shape
+    lse = q.new_empty((b, hq, sq) if return_lse else (0,),
+                      dtype=torch.float32)
+    return _launch_fwd(q, k, v, causal, window, q_offset, sk_valid, scale,
+                       lse if return_lse else None), lse
 
 
 _fwd_op = torch.library.custom_op("repro_torch::flash_attention_fwd",
@@ -210,13 +221,14 @@ def flash_attention_backward(q, k, v, out, dout, lse, *, causal=True,
     ``out``, the output's gradient ``dout`` and the forward's ``lse``; the
     same masks and scale as the forward. CUDA tensors; q, k, v, out and
     dout of one dtype (float32 or bfloat16), lse fp32 (B, Hq, Sq). Returns
-    new tensors in q's dtype, shaped like q, k and v. Head_dim 16, 32 or 64:
-    128 (codeqwen1.5-7b) trains only across cards. One call is one launch of
+    new tensors in q's dtype, shaped like q, k and v. Head_dim 16, 32, 64 or
+    128. One call is one launch of
     ``torch.ops.repro_torch.flash_attention_bwd``, which runs three kernels:
     each row's Delta = rowsum(dO out), then dK and dV (summed over each KV
     head's group) on the current stream beside dQ on a second stream that
-    the current one waits for; the two on the tensor cores. ``out`` and
-    ``dout`` rows that do not start 16-byte aligned are copied first."""
+    the current one waits for; the two on the tensor cores, but for fp32 at
+    head_dim 128 on the CUDA cores. ``out`` and ``dout`` rows that do not
+    start 16-byte aligned are copied first."""
     _check_inputs(q, k, v)
     b, sq, hq, d = q.shape
     if d not in BWD_HEAD_DIMS:

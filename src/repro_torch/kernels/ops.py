@@ -70,8 +70,14 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0):
 def _decode(q, k_cache, v_cache, cache_len, *, window):
     if not q.is_cuda:
         return dec_mod.plain(q, k_cache, v_cache, cache_len, window=window)
-    lens = torch.as_tensor(cache_len, dtype=torch.int32, device=q.device)
-    lens = lens.reshape(-1).expand(q.shape[0]).contiguous()
+    lens = cache_len
+    # the engine's tick passes (B,) int32 lengths on the card, taken as
+    # they are; anything else is made so
+    if not (isinstance(lens, torch.Tensor) and lens.dtype == torch.int32
+            and lens.shape == (q.shape[0],) and lens.device == q.device
+            and lens.is_contiguous()):
+        lens = torch.as_tensor(cache_len, dtype=torch.int32, device=q.device)
+        lens = lens.reshape(-1).expand(q.shape[0]).contiguous()
     return dec_mod.decode_attention(q, k_cache, v_cache, lens, window=window)
 
 

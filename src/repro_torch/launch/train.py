@@ -14,15 +14,16 @@ embeddings as long as its tokens, as in the reference), and a VLM config
 ``--arch mamba2-1.3b`` and ``--arch hymba-1.5b`` train the SSM and the
 hybrid at full width on one card (the scan's backward kernel, and for
 hymba the flash backward with its window of 1024). What one card's 80 GB
-hold at full width: qwen2-0.5b, mamba2-1.3b, hymba-1.5b,
-granite-moe-1b-a400m and seamless-m4t-large-v2; the larger configs
+hold at full width and depth: qwen2-0.5b, mamba2-1.3b, hymba-1.5b,
+granite-moe-1b-a400m and seamless-m4t-large-v2. The larger configs
 (codeqwen1.5-7b, minicpm3-4b, deepseek-67b, internvl2-76b,
-llama4-scout-17b-a16e) train only ``--reduced``: at full width they wait
-for more than one card and for the dense layers executed sharded across
-cards, which the reference only compiles (its dry-run); the port's mesh
-(``launch.mesh``, ``distributed.sharding``) places a state and runs the
-MoE's shard_map path, but its train step refuses a split leaf. The
-batches are the pipeline's synthetic ones, uniform random tokens, as the
+llama4-scout-17b-a16e) need more than one card at full depth, which the
+reference only compiles (its dry-run); the port's mesh (``launch.mesh``,
+``distributed.sharding``) places their state and its train step trains
+split leaves, and ``launch.dryrun`` traces their steps on the production
+meshes. One card trains them ``--reduced``, or at full width cut in depth
+(``run(args, cfg=...)`` with a config of fewer layers: codeqwen1.5-7b at 4
+of its 32 layers). The batches are the pipeline's synthetic ones, uniform random tokens, as the
 reference's are: nothing in them can be learnt, so the loss stays near
 ln(vocab). ``--corpus movie|estate|game`` feeds the pipeline's
 text source instead (``TokenPipeline(documents=...)``: a dataset's longest
@@ -90,9 +91,10 @@ def synthetic_batch_fn(cfg, batch: int, seq: int, seed: int = 0,
 def build_parser():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2-0.5b",
-                    help="a config of configs.ARCH_IDS; at full width one "
-                         "card trains qwen2-0.5b, mamba2-1.3b, hymba-1.5b, "
-                         "granite-moe-1b-a400m and seamless-m4t-large-v2")
+                    help="a config of configs.ARCH_IDS; at full width and "
+                         "depth one card trains qwen2-0.5b, mamba2-1.3b, "
+                         "hymba-1.5b, granite-moe-1b-a400m and "
+                         "seamless-m4t-large-v2")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=4)
@@ -112,16 +114,19 @@ def build_parser():
     return ap
 
 
-def run(args, fail_at=None):
+def run(args, fail_at=None, cfg=None):
     """Build the model, optimizer and supervisor from ``args`` and train.
     With ``fail_at`` (steps), failures are injected after those steps and
     the supervisor restarts from the last checkpoint (before any, from the
-    initial state built anew) until the run ends. Returns {"cfg", "state", "log", "seconds", "restarts", "straggler",
-    "train_step", "batch_fn"}; "seconds" is the run's wall, the supervisor's
-    build of the initial state included."""
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = reduce_cfg(cfg)
+    initial state built anew) until the run ends. ``cfg``: a config built
+    already (a full-width one cut in depth) in place of ``--arch`` and
+    ``--reduced``'s. Returns {"cfg", "state", "log", "seconds", "restarts",
+    "straggler", "train_step", "batch_fn"}; "seconds" is the run's wall,
+    the supervisor's build of the initial state included."""
+    if cfg is None:
+        cfg = get_config(args.arch)
+        if args.reduced:
+            cfg = reduce_cfg(cfg)
     bundle = registry.build(cfg)
     print(f"[train] arch={cfg.name} params={cfg.param_count()/1e6:.1f}M "
           f"steps={args.steps} batch={args.batch}x{args.seq} "

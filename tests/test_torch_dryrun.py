@@ -198,6 +198,11 @@ FLASH_CASES = [  # (b, sq, sk, heads, causal, dtype, lse)
     (1, 96, 96, (14, 2, 64), True, torch.float32, False),
     (4, 32, 4096, (16, 16, 64), False, torch.float32, False),
     (16, 384, 384, (4, 2, 32), True, torch.float32, True),
+    # head_dim 128: codeqwen1.5-7b's training shape, deepseek-67b's 64/8
+    # heads, llama4-scout's 40/8 (a group of 5) non-causal
+    (8, 512, 512, (32, 32, 128), True, torch.bfloat16, True),
+    (2, 129, 129, (64, 8, 128), True, torch.float32, True),
+    (2, 73, 73, (40, 8, 128), False, torch.bfloat16, True),
 ]
 
 
@@ -237,6 +242,18 @@ def test_flash_ops_fake_outputs_and_costs(b, sq, sk, heads, causal, dtype,
             assert rl_flops(bwd, *bargs) == 10 * d * hq * pairs
             assert _build.OP_BYTES[bwd](*bargs) == \
                 b * sq * (4 * hq + 4 * hkv) * d * es + 4 * b * hq * sq
+
+
+@pytest.mark.parametrize("d", [8, 96])
+def test_flash_backward_refuses_an_unsupported_head_dim(d):
+    """A head_dim the kernels are not built for raises before any launch,
+    on fake tensors as on the card."""
+    assert fa.BWD_HEAD_DIMS == (16, 32, 64, 128)
+    with fake_mode():
+        q, k = empty(2, 16, 4, d), empty(2, 16, 2, d)
+        lse = empty(2, 4, 16)
+        with pytest.raises(ValueError, match=f"head_dim {d}"):
+            fa.flash_attention_backward(q, k, k, q, q, lse)
 
 
 def rl_flops(op, *args):
@@ -364,6 +381,19 @@ def test_an_op_without_a_fake_implementation_raises_on_fake_tensors():
         x = empty(4)
         with pytest.raises(Exception, match="fake|Meta|meta"):
             torch.ops.repro_torch_test.nofake(x)
+
+
+def test_kernel_ops_skip_the_dispatcher_only_for_real_tensors_outside_modes():
+    """``_build.direct``: a real tensor with no dispatch mode active goes
+    straight to the kernel (serving); a fake tensor, or any tensor under a
+    mode (a trace's counter), goes through the op."""
+    x = torch.zeros(2)
+    assert _build.direct(x)
+    with fake_mode():
+        assert not _build.direct(empty(2))
+    with rl.RankCounter():
+        assert not _build.direct(x)
+    assert _build.direct(x)
 
 
 def test_a_trace_counts_launches_in_its_own_record():

@@ -57,8 +57,12 @@ from torch_parity import (flatten_params, model_pair, random_tokens,  # noqa: E4
 LIMIT_S = 60
 LOSS_RTOL = 1e-5
 GRAD_TOL = 1e-4
+# each a reduced config, at the default width or (arch, d_model):
+# codeqwen1.5-7b as tests/test_torch_codeqwen.py reduces it, d_model 512,
+# 4/4 heads of 128 with the QKV bias (the width the backward kernel's 128
+# instances serve on the card; the default width gives heads of 16)
 ARCHS = ["qwen2-0.5b", "granite-moe-1b-a400m", "mamba2-1.3b", "hymba-1.5b",
-         "minicpm3-4b", "llama4-scout-17b-a16e"]
+         "minicpm3-4b", "llama4-scout-17b-a16e", ("codeqwen1.5-7b", 512)]
 
 
 @pytest.fixture(autouse=True)
@@ -78,9 +82,16 @@ def _one_thread():
     torch.set_num_threads(threads)
 
 
-@pytest.fixture(scope="module", params=ARCHS)
+def _arch_id(arch):
+    return arch if isinstance(arch, str) else f"{arch[0]}-d{arch[1]}"
+
+
+@pytest.fixture(scope="module", params=ARCHS, ids=_arch_id)
 def pair(request):
-    return model_pair(request.param)
+    if isinstance(request.param, str):
+        return model_pair(request.param)
+    arch, width = request.param
+    return model_pair(arch, d_model=width)
 
 
 def flat_torch(tree, prefix=()):
@@ -158,6 +169,26 @@ def test_loss_and_gradients_match_jax(pair, remat):
     assert float(loss.detach()) == pytest.approx(float(jloss), rel=LOSS_RTOL)
     assert_leaves_close(dict(zip(names, grads)), flatten_params(jgrads),
                         GRAD_TOL, ZERO_LEAVES.get(cfg.name, ()))
+
+
+def test_train_launcher_takes_a_built_config_on_cpu(tmp_path):
+    """``launch.train.run(args, cfg=...)`` trains the config it is given
+    (what the smoke does with codeqwen1.5-7b cut in depth), not ``--arch``'s:
+    here reduced codeqwen at head_dim 128 cut to one layer."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import train
+    cfg = replace(reduced(get_config("codeqwen1.5-7b"), d_model=512),
+                  n_layers=1)
+    args = train.build_parser().parse_args(
+        ["--device", "cpu", "--steps", "2", "--batch", "2", "--seq", "16",
+         "--ckpt-every", "100", "--ckpt-dir", str(tmp_path)])
+    out = train.run(args, cfg=cfg)
+    assert out["cfg"] is cfg
+    assert out["state"]["params"]["layers"]["attn"]["q"]["w"].shape == \
+        (1, 512, 4, 128)
+    assert all(np.isfinite(e["loss"]) for e in out["log"])
 
 
 @pytest.mark.parametrize("heads", [(4, 2, 32), (14, 2, 64)])
@@ -496,6 +527,16 @@ BWD_CASES = [((14, 2, 64), 8, 512, True, 0, 0, 0),
              ((14, 2, 64), 2, 73, True, 0, 0, 0),
              ((4, 2, 32), 2, 200, True, 24, 0, 0),
              ((14, 2, 64), 2, 200, True, 24, 0, 0)]
+# head_dim 128: codeqwen1.5-7b's 32/32 at the training shape, deepseek-67b's
+# 64/8 and llama4-scout's 40/8 (a group of 5) at S = 1, ragged 73 and 129,
+# rows with no key, a window across key tiles, non-causal
+BWD_CASES += [((32, 32, 128), 8, 512, True, 0, 0, 0)]
+BWD_CASES += [(heads, 2, s, causal, window, q_offset, sk_valid)
+              for heads in ((64, 8, 128), (40, 8, 128))
+              for s, causal, window, q_offset, sk_valid in (
+                  (1, True, 0, 0, 0), (73, True, 0, 0, 0),
+                  (129, True, 0, 0, 0), (48, True, 8, -6, 37),
+                  (200, True, 24, 0, 0), (129, False, 0, 0, 0))]
 
 
 @pytest.mark.gpu
@@ -527,7 +568,9 @@ def test_backward_kernel_matches_plain_on_card(cuda, dtype, case):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", [("bfloat16", (14, 2, 64), 8, 512),
-                                  ("float32", (4, 2, 32), 16, 384)])
+                                  ("float32", (4, 2, 32), 16, 384),
+                                  ("bfloat16", (32, 32, 128), 8, 512),
+                                  ("float32", (64, 8, 128), 2, 256)])
 def test_backward_kernel_is_deterministic_on_card(cuda, case):
     """Three launches on the same inputs at the training shapes give the
     same bits: no atomics, and the sums' order does not depend on which
