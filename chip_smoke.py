@@ -186,18 +186,22 @@ non-zero):
    layer and step), then the engine; cross_check_deepseek /
    cross_check_llama4 at 1 layer, card against CPU (logits 1e-3, argmax
    equal).
-21. dryrun (after the serve_deepseek and serve_llama4 phases, in a process
-   of its own): ``launch.dryrun`` traces qwen2-0.5b's and codeqwen1.5-7b's
-   train_4k, qwen2-0.5b's prefill_32k and decode_32k and mamba2-1.3b's
-   long_500k and hymba-1.5b's decode_32k on the single-pod mesh (a fake
-   process group of 256 ranks),
-   granite-moe-1b-a400m's train_4k on the two-pod one (512), and
-   qwen2-0.5b's long_500k skip: every record ``ok``, one line each with
-   the dominant roofline term, the step time, the bytes a device against
-   the card's 80 GB and the link bytes by kind. Then the train and
-   train_mesh phases' own cells at a (1, 1) mesh: the launches a step they
-   predict must equal the measured ones; each predicted peak is printed
-   beside the measured one.
+21. dryrun (after the serve_deepseek and serve_llama4 phases, each cell in
+   a process of its own, all started together): ``launch.dryrun`` traces
+   qwen2-0.5b's and codeqwen1.5-7b's train_4k, qwen2-0.5b's prefill_32k
+   and decode_32k and mamba2-1.3b's long_500k and hymba-1.5b's
+   decode_32k on the single-pod mesh (a fake process group of 256
+   ranks),
+   granite-moe-1b-a400m's train_4k on both (its MoE through the split
+   gather path, ``moe_impl_ran`` "gather"), and qwen2-0.5b's long_500k
+   skip: every record ``ok``, one line each with the dominant roofline
+   term, the step time, the bytes a device against the card's 80 GB and
+   the link bytes by kind. Then the train and train_mesh phases' own
+   cells at a (1, 1) mesh: the launches a step they predict must equal
+   the measured ones; each predicted peak is printed beside the measured
+   one. (train_mesh_gather has no such cell: a one-rank train step traced
+   by the dry-run computes on the local tensors, the unsplit gather
+   path.)
 22. train_codeqwen (after train_mesh, before serve_deepseek):
    full-width codeqwen1.5-7b (d_model 4096, 32/32 heads of 128, d_ff
    13440, vocab 92416) cut to 4 of its 32 layers (1.686B parameters),
@@ -218,6 +222,26 @@ non-zero):
    the same bits; and times the forward (with its log-sum-exp) and the
    backward at codeqwen's training shape in bf16 (the kernels line), and
    the fp32 backward at (2, 256).
+23. train_mesh, cross_check_train_mesh, train_mesh_gather (after
+   train_hybrid, before train_codeqwen): full-width granite-moe-1b-a400m
+   on a one-rank NCCL mesh, its state placed by the train-mode rules.
+   train_mesh and its cross-check run the MoE's shard_map path
+   (``moe_ctx`` {"impl": "shardmap"}): 8 steps, a checkpoint restored
+   onto the mesh, remesh, ``compressed_psum``; one fp32 step card against
+   CPU. train_mesh_gather runs the split gather path, as a mesh of more
+   ranks does: no ``moe_ctx``, the loss and gradients on the DTensor
+   leaves under ``activation_sharding``, so each MoE layer runs
+   ``ffn.moe_forward_gather_split`` on its blocks (one global capacity,
+   the counts table gathered, the slots reduce-scattered and the
+   products all-gathered over the data axis): its first step's loss
+   bit-equal to the unplaced gather path's on the same card and every
+   gradient leaf within GATHER_GRAD_TOL of its largest |value|, granite's
+   first MoE layer alone bit-equal to the unsplit one (output and every
+   gradient, assignments dropped), then MESH_GATHER_STEPS such steps (the
+   gradients reduced to their leaves' placements, AdamW on the
+   DTensors), losses finite and falling, the launches exactly
+   ``train_launches``, the collectives exactly
+   ``gather_mesh_collectives``, seconds a step and the peak.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the rest
@@ -367,8 +391,9 @@ def train_flags(arch, shape):
             str(shape[0]), "--seq", str(shape[1]), "--corpus", "movie",
             "--ckpt-every", "1000"]
 
-# train_mesh: granite-moe-1b-a400m at full width through the shard_map MoE
-# on a (1, 1) mesh over a one-rank NCCL group, MESH_STEPS steps of
+# train_mesh: granite-moe-1b-a400m at full width through the MoE's
+# shard_map path on a (1, 1) mesh over a one-rank NCCL group, MESH_STEPS
+# steps of
 # TRAIN_BATCH x TRAIN_SEQ, a checkpoint (16 GB: fp32 params and moments)
 # after MESH_CKPT_AT steps restored onto the mesh; the card-vs-CPU step cut
 # to MESH_CUT layers at (CROSS_BATCH, CROSS_SEQ). The process group's
@@ -376,6 +401,15 @@ def train_flags(arch, shape):
 MESH_ARCH, MESH_STEPS, MESH_CKPT_AT, MESH_CUT = ("granite-moe-1b-a400m", 8,
                                                  4, 2)
 MESH_STORE = os.path.join(ROOT, "build", "mesh_store")
+# train_mesh_gather: the same model, mesh and batch on the DTensor leaves
+# with no moe_ctx, so through the MoE's split gather path,
+# MESH_GATHER_STEPS steps. Its first gradients against the unplaced step's,
+# each leaf to GATHER_GRAD_TOL of its largest |value|: the DTensor forms of
+# the loss's logsumexp (by its parts) and of the tied unembedding round
+# otherwise, and the bf16 activations carry that through (2^-8 = 3.9e-3 a
+# rounding; 5.3e-3 at most measured on the card, NVIDIA H100 80GB HBM3);
+# the MoE layer alone is held bit for bit.
+MESH_GATHER_STEPS, GATHER_GRAD_TOL = 4, 1e-2
 
 # serve_deepseek / serve_llama4: at full width, cut in depth to what one
 # card holds with room for the run (BIG_LAYERS: deepseek-67b ~2.8 GB fp32 a
@@ -387,14 +421,17 @@ MESH_STORE = os.path.join(ROOT, "build", "mesh_store")
 BIG_LAYERS = {"deepseek-67b": 4, "llama4-scout-17b-a16e": 2}
 # dryrun: cells of launch.dryrun traced on the card over fake process
 # groups of 256 (single) and 512 (multi) ranks, one line each; then the
-# smoke's own training cells (train: qwen2-0.5b, train_mesh: granite through
-# the shard_map MoE) traced at a (1, 1) mesh at their batch and sequence,
-# whose predicted launches a step must equal the phases' measured ones
+# smoke's own training cells (train: qwen2-0.5b; train_mesh: granite through
+# the MoE's shard_map path) traced at a (1, 1) mesh at their batch and
+# sequence, whose predicted launches a step must equal the phases' measured
+# ones. The granite cells on the production meshes run its split gather
+# path.
 DRYRUN_CELLS = (("qwen2-0.5b", "train_4k", "single"),
                 ("codeqwen1.5-7b", "train_4k", "single"),
                 ("qwen2-0.5b", "prefill_32k", "single"),
                 ("qwen2-0.5b", "decode_32k", "single"),
                 ("qwen2-0.5b", "long_500k", "single"),
+                ("granite-moe-1b-a400m", "train_4k", "single"),
                 ("granite-moe-1b-a400m", "train_4k", "multi"),
                 ("mamba2-1.3b", "long_500k", "single"),
                 ("hymba-1.5b", "decode_32k", "single"))
@@ -1511,9 +1548,10 @@ def time_kernels(gen):
     qwen2's decode over the dequantized int8 cache (int8_decode: 4 slots,
     64 prompt tokens and 24 steps); internvl2-76b's prefill (256 prefix
     embeddings + 32 tokens) and decode step (4 slots at ~556 of a
-    576-entry cache), 64 over 8 heads of 128, fp32. train_mesh's rows:
-    granite-moe-1b-a400m's flash forward with its log-sum-exp and its
-    backward at B = 8, S = 512 over 16/8 heads of 64 in bf16.
+    576-entry cache), 64 over 8 heads of 128, fp32. train_mesh's rows, and
+    train_mesh_gather's at the same shapes: granite-moe-1b-a400m's flash
+    forward with its log-sum-exp and its backward at B = 8, S = 512 over
+    16/8 heads of 64 in bf16.
     train_codeqwen's: the same at codeqwen1.5-7b's 32/32 heads of 128; and,
     outside the line, the fp32 backward at head_dim 128 (the CUDA-core
     instance) at its cross-check's (2, 256)."""
@@ -1576,6 +1614,11 @@ def time_kernels(gen):
              time_flash_bwd(gen, TRAIN_BATCH, TRAIN_SEQ, bf16,
                             heads=GRANITE_HEADS)]
     paths += ["train_mesh"] * 2
+    rows += [time_flash(gen, TRAIN_SEQ, bf16, heads=GRANITE_HEADS,
+                        b=TRAIN_BATCH, lse=True),
+             time_flash_bwd(gen, TRAIN_BATCH, TRAIN_SEQ, bf16,
+                            heads=GRANITE_HEADS)]
+    paths += ["train_mesh_gather"] * 2
     rows += [time_flash(gen, TRAIN_SEQ, bf16, heads=CODEQWEN_HEADS,
                         b=TRAIN_BATCH, lse=True),
              time_flash_bwd(gen, TRAIN_BATCH, TRAIN_SEQ, bf16,
@@ -2952,14 +2995,34 @@ def one_rank_group(backend):
 
 
 def mesh_collectives(cfg, steps):
-    """The all-reduces of ``steps`` training steps through the shard_map
-    MoE under remat, by mesh axis. Per MoE layer and step: over model, the
-    output's sum in the forward (remat's recompute stops at the layer's
-    last saved tensor, before the sum) and the partial gradients of x and
-    of the router in the backward; over data, the gradients of the router
-    and of the three expert stacks (and of a shared expert's three)."""
+    """The all-reduces of ``steps`` training steps through the MoE's
+    shard_map path under remat, by mesh axis. Per MoE layer and step:
+    over model, the output's sum in the forward (remat's recompute stops
+    at the layer's last saved tensor, before the sum) and the partial
+    gradients of x and of the router in the backward; over data, the
+    gradients of the router and of the three expert stacks (and of a
+    shared expert's three)."""
     n = cfg.n_layers * steps
     return {"model": 3 * n,
+            "data": (4 + (3 if cfg.moe.shared_expert_ff else 0)) * n}
+
+
+def gather_mesh_collectives(cfg, steps):
+    """The collectives of ``steps`` training steps through the MoE's split
+    gather path on the DTensor leaves of a one-rank mesh under remat, by
+    kind and mesh axis (the MoE's own; DTensor's are not counted). Per
+    MoE layer and step, over data (the token axis): the counts table's and
+    the products' all-gathers in the forward and remat's recompute (which
+    stops after the products' return to the tokens, before the sum) and
+    the gradients of the slots and their weights in the backward (6); the
+    slots' and their weights' reduce-scatters in both forwards and the
+    products' gradient in the backward (5); the all-reduces of the
+    router's and the three expert stacks' gradients (and a shared
+    expert's three). Over model (the expert axis): the output's sum and
+    the partial gradients of x and of the router (3)."""
+    n = cfg.n_layers * steps
+    return {"all_gather:data": 6 * n, "reduce_scatter:data": 5 * n,
+            "model": 3 * n,
             "data": (4 + (3 if cfg.moe.shared_expert_ff else 0)) * n}
 
 
@@ -2974,8 +3037,9 @@ def local_tree(tree, device=None):
 
 
 def phase_train_mesh(rows):
-    """Full-width granite-moe-1b-a400m trained through the shard_map MoE on
-    a (data 1, model 1) mesh over a one-rank NCCL group: the train state
+    """Full-width granite-moe-1b-a400m trained through the MoE's shard_map
+    path (``moe_ctx`` {"impl": "shardmap"}) on a (data 1, model 1) mesh
+    over a one-rank NCCL group: the train state
     placed by the train-mode rules, MESH_STEPS steps of TRAIN_BATCH x
     TRAIN_SEQ movie-plot tokens (fp32 weights and AdamW moments, bf16
     activations, remat), a checkpoint with the state's logical axes after
@@ -3130,9 +3194,207 @@ def phase_train_mesh(rows):
                  "flash_attention_bwd")
 
 
+def moe_layer_bit_check(cfg, params, tokens, mesh, rules):
+    """Granite's first MoE layer (its weights from the placed ``params``)
+    on the bf16 embedding rows of ``tokens`` (repeated tokens route alike,
+    so that experts overflow): on DTensors placed by the train rules
+    (``ffn.moe_forward`` with no ``moe_ctx``: ``_on_blocks`` ->
+    ``moe_forward_gather_split``) and on the local tensors
+    (``moe_forward_gather``), the output and the gradients of x and of
+    every weight for a seeded cotangent. Returns (how many of those are
+    bit-equal, how many there are, the assignments the unsplit dispatch
+    drops)."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import ffn
+    local = {k: {n: t.to_local()[0].detach().clone() for n, t in v.items()}
+             for k, v in params["layers"]["ffn"].items()}
+    placed = shd.place(local, shd.sharding_for_tree(
+        local, ffn.moe_axes(cfg), rules, mesh))
+    table = params["embed"]["embedding"].to_local().detach()
+    x = table[tokens].to(torch.bfloat16)
+    shape = tuple(x.shape)
+    ct = torch.randn(shape, generator=torch.Generator(x.device).manual_seed(1),
+                     device=x.device).to(torch.bfloat16)
+    act = shd.Sharding(mesh, shd.spec_for(shape, ("batch", "seq",
+                                                   "embed_act"), rules,
+                                          mesh))
+
+    def run(p, xx, cc):
+        ws = leaves(p)
+        for w in ws:
+            w.requires_grad_(True)
+        xx.requires_grad_(True)
+        y = ffn.moe_forward(p, xx, cfg)
+        return [y] + list(torch.autograd.grad((y * cc).sum(), [xx] + ws))
+
+    with shd.activation_sharding(mesh, rules):
+        split = [t.full_tensor() for t in run(placed, act.place(x),
+                                              act.place(ct))]
+    whole = run(local, x.clone(), ct)
+    _, experts = ffn.route(local["router"], x.reshape(-1, cfg.d_model),
+                           cfg.moe)
+    loads = torch.bincount(experts.reshape(-1),
+                           minlength=cfg.moe.num_experts)
+    dropped = int((loads - ffn.capacity(x.shape[0] * x.shape[1], cfg.moe))
+                  .clamp_min(0).sum())
+    return (sum(torch.equal(a, b) for a, b in zip(split, whole)),
+            len(whole), dropped)
+
+
+def phase_train_mesh_gather(rows):
+    """Full-width granite-moe-1b-a400m trained through the MoE's split
+    gather path on the (data 1, model 1) mesh over a one-rank NCCL group,
+    the train state placed by the train-mode rules (DTensor leaves), at
+    TRAIN_BATCH x TRAIN_SEQ movie-plot tokens (fp32 weights and AdamW
+    moments, bf16 activations, remat). ``train_loop``'s step on a one-rank
+    mesh computes on the local tensors, so this phase runs the operations
+    of its step on a mesh of more ranks instead: with no ``moe_ctx``, the
+    loss and its gradients on the DTensor leaves inside
+    ``activation_sharding`` (each MoE layer through
+    ``ffn.moe_forward_gather_split`` on its blocks, via ``_on_blocks``),
+    the gradients reduced to their leaves' placements, AdamW on the
+    DTensors. First the loss and every gradient leaf of the initial
+    params on the first batch, so and by the unplaced gather path (the
+    local tensors, no mesh): the loss bit-equal, each leaf within
+    GATHER_GRAD_TOL of its largest |value|; and the first MoE layer alone
+    on both (``moe_layer_bit_check``): bit-equal, with assignments
+    dropped. Then MESH_GATHER_STEPS steps:
+    launches exactly ``train_launches``, collectives exactly
+    ``gather_mesh_collectives``, losses finite and falling; seconds a step
+    and the peak (from after the comparison's tensors are freed)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import registry
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training import train_loop
+    cfg = get_config(MESH_ARCH)
+    bundle = registry.build(cfg)
+    axes = train_loop.state_axes(bundle.param_axes())
+    opt_cfg = opt_mod.AdamWConfig(lr=3e-4, warmup_steps=10,
+                                  total_steps=MESH_GATHER_STEPS)
+    t_phase = time.perf_counter()
+    with one_rank_group("nccl"):
+        mesh = make_host_mesh()
+        rules = shd.make_rules(cfg, mesh, "train")
+        batch_fn = train.synthetic_batch_fn(
+            cfg, TRAIN_BATCH, TRAIN_SEQ,
+            documents=train.corpus_documents("movie"))
+
+        def placed_batch(i):
+            batch = batch_fn(i)
+            return shd.place(batch, shd.batch_sharding(batch, rules, mesh))
+
+        def loss_and_grads(params, batch):
+            """The loss (local) and the gradients reduced to the leaves'
+            placements."""
+            for p in leaves(params):
+                p.requires_grad_(True)
+            with shd.activation_sharding(mesh, rules):
+                loss = bundle.loss_fn(params, batch, remat=True)
+                grads = train_loop.reduce_grads(
+                    train_loop.grad_tree(loss, params), params)
+            return loss.to_local().detach(), grads
+
+        def step_fn(state, batch):
+            loss, grads = loss_and_grads(state["params"], batch)
+            with implicit_replication():
+                params, opt_state, metrics = opt_mod.apply_updates(
+                    opt_cfg, state["params"], grads, state["opt"])
+            metrics["loss"] = loss
+            return {"params": params, "opt": opt_state}, metrics
+
+        state = train_loop.init_train_state(
+            bundle, torch.Generator("cuda").manual_seed(0))
+        state = shd.place(state, shd.sharding_for_tree(state, axes, rules,
+                                                        mesh))
+        loss, grads = loss_and_grads(state["params"], placed_batch(0))
+        split = (loss, [g.to_local() for g in leaves(grads)])
+        del loss, grads
+        local = local_tree(state["params"])
+        for p in leaves(local):
+            p.requires_grad_(True)
+        loss = bundle.loss_fn(local, batch_fn(0), remat=True)
+        unplaced = (loss.detach(), leaves(train_loop.grad_tree(loss, local)))
+        del loss, local
+        loss_same = torch.equal(split[0], unplaced[0])
+        same = [torch.equal(a, b) for a, b in zip(split[1], unplaced[1])]
+        # each leaf's largest difference over its largest |value|
+        grad_diff = [float((a.float() - b.float()).abs().max()
+                           / b.float().abs().max().clamp_min(1e-30))
+                     for a, b in zip(split[1], unplaced[1])]
+        first_loss = float(split[0])
+        del split, unplaced
+        release()
+        layer_same, layer_n, layer_dropped = moe_layer_bit_check(
+            cfg, state["params"], batch_fn(0)["tokens"], mesh, rules)
+        release()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        shd.reset_collective_counts()
+        losses, secs = [], []
+        t0 = time.perf_counter()
+        for i in range(MESH_GATHER_STEPS):
+            t1 = time.perf_counter()
+            state, metrics = step_fn(state, placed_batch(i))
+            losses.append(float(metrics["loss"]))
+            secs.append(time.perf_counter() - t1)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts, colls = ops.launch_counts(), shd.collective_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        placements = str(state["params"]["layers"]["ffn"]["gate"]["w"]
+                         .placements)
+        del state
+    want = train_launches(cfg, MESH_GATHER_STEPS)
+    want_colls = gather_mesh_collectives(cfg, MESH_GATHER_STEPS)
+    median = float(np.median(secs))
+    emit({"phase": "train_mesh_gather", "arch": cfg.name,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "params": cfg.param_count(),
+          "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+          "backend": "nccl", "moe_path": "moe_forward_gather_split",
+          "expert_gate_placements": placements,
+          "batch": [TRAIN_BATCH, TRAIN_SEQ], "steps": MESH_GATHER_STEPS,
+          "first_loss": first_loss, "first_loss_bit_equal": loss_same,
+          "first_grad_leaves_bit_equal": sum(same), "leaves": len(same),
+          "first_grad_diff_of_max": grad_diff,
+          "moe_layer_bit_equal": layer_same, "moe_layer_tensors": layer_n,
+          "moe_layer_dropped": layer_dropped,
+          "seconds": seconds, "step_s": secs, "median_step_s": median,
+          "tok_per_s_median_step": TRAIN_BATCH * TRAIN_SEQ / median,
+          "loss_first": losses[0], "loss_last": losses[-1],
+          "losses": losses, "peak_memory_gb": peak_gb, "launches": counts,
+          "collectives": colls, "collectives_expected": want_colls,
+          "phase_seconds": time.perf_counter() - t_phase})
+    if counts != want or colls != want_colls:
+        raise AssertionError(f"train_mesh_gather: launches {counts} "
+                             f"(expected {want}) or collectives {colls} "
+                             f"(expected {want_colls})")
+    if not (loss_same and max(grad_diff) <= GATHER_GRAD_TOL
+            and layer_same == layer_n and layer_dropped):
+        raise AssertionError(f"train_mesh_gather: the first step's loss "
+                             f"(bit-equal: {loss_same}), its gradients "
+                             f"({max(grad_diff)} of a leaf's max) or the "
+                             f"MoE layer "
+                             f"({layer_same} of {layer_n} bit-equal, "
+                             f"{layer_dropped} dropped) differs from the "
+                             f"unplaced gather path's")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"train_mesh_gather: losses {losses} not "
+                             f"finite and falling")
+    set_launches(rows, counts, "train_mesh_gather", "flash_attention",
+                 "flash_attention_bwd")
+
+
 def phase_cross_check_train_mesh():
     """One fp32 training step of granite-moe-1b-a400m at full width cut to
-    MESH_CUT layers through the shard_map MoE at a (1, 1) mesh, on the card
+    MESH_CUT layers through the MoE's shard_map path at a (1, 1) mesh, on
+    the card
     (a CUDA mesh: NCCL) and on the CPU (a CPU mesh: gloo) of one group
     (``cross_check_step``'s tolerances)."""
     from dataclasses import replace
@@ -3157,24 +3419,71 @@ def phase_cross_check_train_mesh():
 
 DRYRUN_SCRIPT = """
 import json, sys
-from repro_torch.configs import InputShape, get_config
+from repro_torch.configs import InputShape
 from repro_torch.launch import dryrun
-cells, cross, batch, seq = json.loads(sys.argv[1])
-for arch, shape, mesh in cells:
+job = json.loads(sys.argv[1])
+if job[0] == "cell":
+    _, arch, shape, mesh = job
     rec = dryrun.run_cell(arch, shape, multi_pod=mesh == "multi")
-    print(json.dumps(rec), flush=True)
-for phase, (arch, moe) in cross.items():
+else:
+    _, phase, arch, moe, batch, seq = job
     shape = InputShape(f"{phase}_{batch}x{seq}", seq, batch, "train")
     rec = dryrun.run_cell(arch, shape, multi_pod=False, moe_impl=moe,
                           mesh_shape=(1, 1))
     rec["phase"] = phase
-    print(json.dumps(rec), flush=True)
+print(json.dumps(rec), flush=True)
 """
+DRYRUN_JOBS = os.path.join(ROOT, "build", "dryrun_jobs")
+
+
+def run_dryrun_jobs(jobs, timeout=600):
+    """Each job of ``DRYRUN_SCRIPT`` in a process of its own, all started
+    together (a trace is one core's work; the card's host has eight), their
+    output in files under the git-ignored build/. Returns (each job's
+    record or None, each failed job's exit code and stderr tail); every
+    process is ended before it returns."""
+    import shutil
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    shutil.rmtree(DRYRUN_JOBS, ignore_errors=True)
+    os.makedirs(DRYRUN_JOBS)
+    procs, files = [], []
+    try:
+        for i, job in enumerate(jobs):
+            out = open(os.path.join(DRYRUN_JOBS, f"{i}.out"), "w+")
+            err = open(os.path.join(DRYRUN_JOBS, f"{i}.err"), "w+")
+            files += [out, err]
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", DRYRUN_SCRIPT, json.dumps(job)],
+                env=env, cwd=ROOT, stdout=out, stderr=err, text=True))
+        deadline = time.perf_counter() + timeout
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+        recs, errors = [], []
+        for i, p in enumerate(procs):
+            out, err = files[2 * i], files[2 * i + 1]
+            out.seek(0)
+            err.seek(0)
+            lines = [line for line in out.read().splitlines()
+                     if line.startswith("{")]
+            recs.append(json.loads(lines[-1]) if lines else None)
+            if p.returncode:
+                errors.append({"job": jobs[i], "returncode": p.returncode,
+                               "stderr_tail": err.read()[-1500:]})
+        return recs, errors
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in files:
+            f.close()
+        shutil.rmtree(DRYRUN_JOBS, ignore_errors=True)
 
 
 def phase_dryrun():
-    """``launch.dryrun`` on the card, in a process of its own (its fake
-    default group cannot live beside an NCCL one): DRYRUN_CELLS on the
+    """``launch.dryrun`` on the card, each cell in a process of its own
+    (its fake default group cannot live beside an NCCL one; the processes
+    run together): DRYRUN_CELLS on the
     production meshes over fake groups of 256 and 512 ranks, each record
     ``ok`` (long_500k of a full-attention arch: the reference's skip), one
     line each with the dominant term, the step time, the bytes a device
@@ -3184,15 +3493,13 @@ def phase_dryrun():
     train and train_mesh phases' measured launches over their steps; the
     predicted bytes a device are printed beside each phase's measured
     peak."""
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    arg = json.dumps([DRYRUN_CELLS, DRYRUN_CROSS, TRAIN_BATCH, TRAIN_SEQ])
+    jobs = [["cell", *cell] for cell in DRYRUN_CELLS] + [
+        ["cross", phase, arch, moe, TRAIN_BATCH, TRAIN_SEQ]
+        for phase, (arch, moe) in DRYRUN_CROSS.items()]
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", DRYRUN_SCRIPT, arg],
-                          env=env, cwd=ROOT, capture_output=True, text=True,
-                          timeout=600)
+    recs, errors = run_dryrun_jobs(jobs)
     seconds = time.perf_counter() - t0
-    recs = [json.loads(line) for line in proc.stdout.splitlines()
-            if line.startswith("{")]
+    recs = [r for r in recs if r is not None]
     failures = []
     for rec in recs:
         line = {"phase": "dryrun", "cell": f"{rec['arch']}__{rec['shape']}__"
@@ -3236,18 +3543,18 @@ def phase_dryrun():
                                     f"measured {measured}")
         emit(line)
     emit({"phase": "dryrun", "seconds": seconds, "records": len(recs),
-          "returncode": proc.returncode,
-          "stderr_tail": proc.stderr[-1500:] if proc.returncode else ""})
-    want = len(DRYRUN_CELLS) + len(DRYRUN_CROSS)
-    if proc.returncode or len(recs) != want or failures:
-        raise AssertionError(f"dryrun: {len(recs)} of {want} records, "
-                             f"failures {failures}, exit {proc.returncode}")
+          "processes": len(jobs), "errors": errors})
+    if errors or len(recs) != len(jobs) or failures:
+        raise AssertionError(f"dryrun: {len(recs)} of {len(jobs)} records, "
+                             f"failures {failures}, errors {errors}")
 
 
 def mesh_phases(rows):
     phase_train_mesh(rows)
     release()
     phase_cross_check_train_mesh()
+    release()
+    phase_train_mesh_gather(rows)
 
 
 def ssm_training_phases(rows):

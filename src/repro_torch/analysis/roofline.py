@@ -5,7 +5,7 @@ The reference reads a compiled HLO module (``parse_hlo``); torch compiles
 none, so the port counts the ops one rank runs eagerly: ``RankCounter``, a
 ``TorchDispatchMode`` under the DTensor layer, sees each rank-local op
 (matmuls, the kernel ops of ``kernels``, elementwise ops, the functional
-collectives DTensor inserts, the c10d collectives of the shard_map MoE) on
+collectives DTensor inserts, the c10d collectives of the MoE on a mesh) on
 local shapes, over real or fake tensors, and records per op:
 
 * FLOPs, from torch's flop counter's formulas
@@ -68,8 +68,8 @@ _KIND_FACTOR = {
 }
 
 # the collective ops a rank's trace meets, by kind: the functional ones
-# DTensor inserts, and the c10d ones ``distributed.sharding.all_reduce``
-# issues
+# DTensor inserts, and the c10d ones that ``distributed.sharding``'s
+# ``all_reduce``, ``all_gather`` and ``reduce_scatter`` run
 _COLLECTIVES = {
     "_c10d_functional.all_reduce": "all-reduce",
     "_c10d_functional.all_reduce_": "all-reduce",

@@ -20,8 +20,10 @@ placements), ``jax.device_put(arr, sharding)`` is ``Sharding.place``
 (``distribute_tensor``), and ``psum`` over a mesh axis is an all-reduce on
 that axis's process group (``all_reduce``, which counts its calls by axis).
 ``copy_to``, ``reduce_from`` and ``shard_of`` carry those collectives
-through autograd for the MoE's shard_map counterpart
-(``models.ffn.moe_forward_shardmap``).
+through autograd for the MoE on a mesh (``models.ffn.moe_forward_shardmap``
+and ``moe_forward_gather_split``), and ``scatter_sum`` and
+``gather_blocks`` a reduce-scatter and an all-gather along a dim split
+over mesh axes (the split gather path's slots).
 
 Modes:
   train  FSDP (embed dim over `data`) x TP (heads/mlp/vocab/expert over
@@ -588,7 +590,9 @@ _COUNTS: dict = {}
 
 
 def collective_counts() -> dict:
-    """All-reduces since the last reset, by mesh axis name."""
+    """Collectives since the last reset: all-reduces by mesh axis name,
+    all-gathers and reduce-scatters by ``"all_gather:<axis>"`` and
+    ``"reduce_scatter:<axis>"``."""
     with _COUNT_LOCK:
         return dict(_COUNTS)
 
@@ -598,15 +602,92 @@ def reset_collective_counts() -> None:
         _COUNTS.clear()
 
 
+def _count(key):
+    with _COUNT_LOCK:
+        _COUNTS[key] = _COUNTS.get(key, 0) + 1
+
+
 def all_reduce(t, mesh, axes):
     """``psum`` over each mesh axis of ``axes`` (a name or a tuple), in
     place on ``t``, which is returned; one counted all-reduce per axis,
     whatever its size."""
     for ax in (axes,) if isinstance(axes, str) else axes:
         dist.all_reduce(t, group=mesh.get_group(ax))
-        with _COUNT_LOCK:
-            _COUNTS[ax] = _COUNTS.get(ax, 0) + 1
+        _count(ax)
     return t
+
+
+def _axes(axes) -> tuple:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def all_gather(t, mesh, axes, dim: int = 0):
+    """The blocks of a tensor split along ``dim`` over the mesh axes
+    ``axes`` (the earlier axis major, as DTensor splits a dim over several
+    mesh dims), joined in their order: one counted all-gather per axis,
+    the inner axis first. No gradient flows through it."""
+    for ax in reversed(_axes(axes)):
+        group = mesh.get_group(ax)
+        parts = [torch.empty_like(t) for _ in range(group.size())]
+        dist.all_gather(parts, t.contiguous(), group=group)
+        t = torch.cat(parts, dim)
+        _count(f"all_gather:{ax}")
+    return t
+
+
+def reduce_scatter(t, mesh, axes, dim: int = 0):
+    """``t`` summed over the mesh axes ``axes``, each rank keeping its
+    block along ``dim`` (the earlier axis major; the axes' sizes must
+    divide the dim): one counted reduce-scatter per axis, the outer axis
+    first. No gradient flows through it."""
+    for ax in _axes(axes):
+        group = mesh.get_group(ax)
+        n = group.size()
+        if t.shape[dim] % n:
+            raise ValueError(f"a dim of {t.shape[dim]} does not split over "
+                             f"{ax}={n}")
+        parts = [c.contiguous() for c in t.chunk(n, dim)]
+        t = torch.empty_like(parts[0])
+        dist.reduce_scatter(t, parts, group=group)
+        _count(f"reduce_scatter:{ax}")
+    return t
+
+
+class _ScatterSum(torch.autograd.Function):
+    """``reduce_scatter`` forward; its transpose, ``all_gather`` of the
+    gradient, backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return reduce_scatter(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.mesh, ctx.axes, ctx.dim), None, None, None
+
+
+class _GatherBlocks(torch.autograd.Function):
+    """``all_gather`` forward; its transpose, ``reduce_scatter`` of the
+    gradient, backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return all_gather(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (reduce_scatter(g, ctx.mesh, ctx.axes, ctx.dim), None, None,
+                None)
+
+
+def scatter_sum(x, mesh, axes, dim: int = 0):
+    return _ScatterSum.apply(x, mesh, _axes(axes), dim)
+
+
+def gather_blocks(x, mesh, axes, dim: int = 0):
+    return _GatherBlocks.apply(x, mesh, _axes(axes), dim)
 
 
 class _CopyTo(torch.autograd.Function):

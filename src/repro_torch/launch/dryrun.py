@@ -18,10 +18,19 @@ and nothing runs on a device. This process is the mesh's last rank, the
 busiest one (``analysis.roofline``).
 
 Each record keeps the reference's keys; ``trace_s`` replaces ``lower_s``
-and ``compile_s``. A MoE's ``moe_impl_ran`` says which path ran: a layer
-on DTensors runs the shard_map path whatever ``--moe-impl`` asks (the
-gather path's global dispatch has no split form), so ``gather`` runs only
-in training at one rank. ``memory_analysis`` holds the local shard bytes of the
+and ``compile_s``. A MoE's ``moe_impl_ran`` says which path ran, which is
+the one ``--moe-impl`` asks for in every kind of cell: ``gather`` (the
+default) runs the gather path split over the ranks
+(``ffn.moe_forward_gather_split``: one global capacity, the reference's
+function; a one-rank train step computes on the local tensors, so there
+the unsplit one), ``shardmap`` the shard_map path, in training as the
+reference's and, beyond it, in the prefill and decode cells (the
+reference's serve the gather path alone). ``moe_slot_transport`` holds the
+split gather path's own all-gathers and reduce-scatters (its counts
+table, slots and products; a part of ``collectives``): whole (E / ep, C,
+d) buffers, of which a rank fills about 1 / n, so this link term is the
+port's transport and not the reference's cost (GSPMD moves the rows by
+all-to-alls). ``memory_analysis`` holds the local shard bytes of the
 state or params, the cache and the batch (``argument_size_in_bytes``), of
 the outputs (``output_size_in_bytes``; those written in place into an
 argument, a decode's cache, are ``alias_size_in_bytes``), and the peak of
@@ -136,11 +145,12 @@ def build_cell(cfg, shape, mesh, *, moe_impl="gather", microbatches=1,
     batch = shd.place(_empty_like(specs, device),
                       shd.batch_sharding(specs, rules, mesh))
 
+    moe_ctx, moe_kw = None, {}
+    if cfg.moe is not None and moe_impl == "shardmap":
+        moe_ctx = {"impl": "shardmap", "mesh": mesh,
+                   "dp_axes": shd.dp_axes(mesh)}
+        moe_kw = {"moe_ctx": moe_ctx}
     if shape.kind == "train":
-        moe_ctx = None
-        if cfg.moe is not None and moe_impl == "shardmap":
-            moe_ctx = {"impl": "shardmap", "mesh": mesh,
-                       "dp_axes": shd.dp_axes(mesh)}
         step = train_loop.make_train_step(
             bundle, opt_mod.AdamWConfig(), dtype=torch.bfloat16, remat=True,
             moe_ctx=moe_ctx, microbatches=microbatches)
@@ -158,7 +168,7 @@ def build_cell(cfg, shape, mesh, *, moe_impl="gather", microbatches=1,
     if shape.kind == "prefill":
         def prefill(params, batch):
             return bundle.prefill(params, batch, max_len=None,
-                                  dtype=torch.bfloat16)
+                                  dtype=torch.bfloat16, **moe_kw)
         return prefill, (params, batch), rules
 
     kv = {"kv_dtype": torch.int8} if kv_int8 else {}
@@ -170,7 +180,8 @@ def build_cell(cfg, shape, mesh, *, moe_impl="gather", microbatches=1,
         rules, mesh))
 
     def decode(params, cache, token):
-        return bundle.decode_step(params, cache, token, dtype=torch.bfloat16)
+        return bundle.decode_step(params, cache, token, dtype=torch.bfloat16,
+                                  **moe_kw)
     return decode, (params, cache, batch["token"]), rules
 
 
@@ -217,6 +228,12 @@ def _locals(tree):
             if isinstance(t, torch.Tensor)]
 
 
+# the c10d all-gathers and reduce-scatters of ``sharding.all_gather`` and
+# ``reduce_scatter``, which the split gather MoE alone runs (its counts
+# table, its slots and their products)
+MOE_TRANSPORT_OPS = ("c10d.allgather_", "c10d.reduce_scatter_")
+
+
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
              moe_impl="gather", microbatches=1, save_trace=None,
              kv_int8=False, device="cuda", reduced=False, mesh_shape=None):
@@ -234,11 +251,8 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
            "moe_impl": moe_impl, "microbatches": microbatches,
            "kv_int8": kv_int8, "reduced": reduced, "ok": False}
     if cfg.moe is not None:
-        # what runs: a layer on DTensors (any split mesh, and serving on
-        # placed params) takes the shard_map path whatever was asked
-        rec["moe_impl_ran"] = ("gather" if moe_impl == "gather"
-                               and shape.kind == "train" and chips == 1
-                               else "shardmap")
+        # the path asked for runs in every kind of cell, split or not
+        rec["moe_impl_ran"] = moe_impl
     if name == "long_500k" and arch not in SUBQUADRATIC:
         rec.update(ok=True, skipped=True, skip_reason=SKIP_REASON)
         return rec
@@ -268,6 +282,13 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
             with open(save_trace, "w") as f:
                 json.dump(entries, f)
         rec.update(analyse(cfg, shape, chips, entries))
+        transport = rl.collective_stats([e for e in entries
+                                         if e["op"] in MOE_TRANSPORT_OPS])
+        if transport.counts:
+            rec["moe_slot_transport"] = {
+                "bytes_per_chip": transport.bytes_per_chip,
+                "bytes_by_kind": transport.bytes_by_kind,
+                "collective_s": transport.bytes_per_chip / rl.LINK_BW}
         rec["launches"] = counter.launches
         rec["largest_outputs"] = counter.largest()
         rec["bytes_by_op"] = counter.by_op()

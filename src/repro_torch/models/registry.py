@@ -69,13 +69,17 @@ def _build_decoder(cfg: ModelConfig) -> ModelBundle:
         return transformer.loss_fn(params, cfg, batch, dtype=dtype,
                                    remat=remat, moe_ctx=moe_ctx)
 
-    def prefill_fn(params, batch, max_len=None, *, dtype=torch.bfloat16):
+    def prefill_fn(params, batch, max_len=None, *, dtype=torch.bfloat16,
+                   moe_ctx=None):
         return transformer.prefill(params, cfg, batch["tokens"],
                                    prefix_embeds=batch.get("prefix_embeds"),
-                                   max_len=max_len, dtype=dtype)
+                                   max_len=max_len, dtype=dtype,
+                                   moe_ctx=moe_ctx)
 
-    def decode_fn(params, cache, token, *, dtype=torch.bfloat16):
-        return transformer.decode_step(params, cfg, cache, token, dtype=dtype)
+    def decode_fn(params, cache, token, *, dtype=torch.bfloat16,
+                  moe_ctx=None):
+        return transformer.decode_step(params, cfg, cache, token, dtype=dtype,
+                                       moe_ctx=moe_ctx)
 
     def init_cache(batch, max_len, dtype=torch.bfloat16, per_slot_pos=False,
                    kv_dtype=None, device="cuda"):

@@ -12,8 +12,11 @@ A Python loop over layers replaces ``lax.scan``; weights keep the stacked
 models are ``models.encdec``. Still refused (``NotImplementedError``): a
 hybrid without attention. ``moe_ctx={"impl": "shardmap", "mesh": mesh,
 "dp_axes": ...}`` runs the MoE through ``ffn.moe_forward_shardmap`` on a
-``DeviceMesh``, as the reference's does through ``shard_map``; a layer run
-split (DTensor activations) always runs it so (``ffn.moe_forward``).
+``DeviceMesh``, as the reference's does through ``shard_map``; without it
+the MoE is the gather path, split over the ranks where the layer runs
+split (DTensor activations) or a gather ``moe_ctx`` names a mesh
+(``ffn.moe_forward``). ``prefill`` and ``decode_step`` take ``moe_ctx``
+too (the reference's serve the gather path alone).
 
 Public surface (used by registry / launch / engine):
   init(cfg, generator=, device=,
@@ -251,10 +254,10 @@ def forward(params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
     them (the reference's ``jax.checkpoint`` with ``nothing_saveable``):
     autograd keeps each layer's input only, and the backward runs the
     layer's forward once more, attention kernel included (it stops at the
-    layer's last saved tensor, so not at the shard_map MoE's all-reduce
-    after it). ``moe_ctx``: {"impl": "shardmap", "mesh", "dp_axes"} for
-    the MoE through ``ffn.moe_forward_shardmap``; the gather path
-    otherwise."""
+    layer's last saved tensor, so not at the all-reduce that ends a MoE
+    on a mesh). ``moe_ctx``: the MoE's path (``ffn.moe_forward``):
+    {"impl": "shardmap", "mesh", "dp_axes"} for the shard_map path; the
+    gather path otherwise."""
     x = embed_inputs(params, cfg, tokens, prefix_embeds, dtype)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     windows = layer_windows(cfg)
@@ -356,14 +359,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def prefill(params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
-            max_len: Optional[int] = None, dtype=torch.bfloat16):
+            max_len: Optional[int] = None, dtype=torch.bfloat16,
+            moe_ctx=None):
     """Full-sequence forward that also builds the decode cache. Returns
     (logits of the last position (B, 1, V) f32, cache). With a prefix,
     ``pos`` is min(S_total + n_prefix, max_len), S_total counting the
     prefix already: the reference adds the prefix twice, and the port
     keeps that (decode then writes past zero rows, which it attends). Where
     that reaches max_len, the next ``decode_step`` fails on its write, which
-    the reference drops: give max_len >= S_total + n_prefix + new tokens."""
+    the reference drops: give max_len >= S_total + n_prefix + new tokens.
+    ``moe_ctx``: the MoE's path, as ``forward``'s."""
     x = embed_inputs(params, cfg, tokens, prefix_embeds, dtype)
     b, seq = x.shape[0], x.shape[1]
     max_len = max_len or seq
@@ -376,7 +381,7 @@ def prefill(params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
         x = _block_forward(cm.layer_params(params["layers"], i), x, cfg,
                            windows[i] if windows else 0, positions,
                            cache={k: v[i] for k, v in cache.items()
-                                  if k != "pos"})
+                                  if k != "pos"}, moe_ctx=moe_ctx)
     x = cm.rmsnorm(params["final_norm"], x, cfg.rms_eps)
     total = seq + (cfg.n_prefix_embeds if prefix_embeds is not None else 0)
     cache["pos"].fill_(min(total, max_len))
@@ -394,12 +399,13 @@ def _ssm_decode(p, h, cache, i, cfg):
 
 
 def decode_step(params, cfg: ModelConfig, cache, token, *,
-                dtype=torch.bfloat16):
+                dtype=torch.bfloat16, moe_ctx=None):
     """token: (B, 1) int. Writes each slot's new K/V (int8 cache: quantized,
     with its scales; MLA: its latent and rope key) and/or its new SSM state
     and conv tail into ``cache`` in place and advances ``cache["pos"]`` by
     one; a sliding layer attends to the last ``window`` entries only.
-    Returns (logits (B,1,V) f32, cache)."""
+    ``moe_ctx``: the MoE's path, as ``forward``'s. Returns (logits
+    (B,1,V) f32, cache)."""
     pos = cache["pos"]
     lens = pos + 1  # valid entries after this tick's write, for every layer
     x = shd.embedding(token, params["embed"]["embedding"]).to(dtype)
@@ -429,7 +435,7 @@ def decode_step(params, cfg: ModelConfig, cache, token, *,
             x = x + _ssm_decode(lp["ssm"], h, cache, i, cfg)
         if "ffn" in lp:
             h = cm.rmsnorm(lp["ffn_norm"], x, cfg.rms_eps)
-            x = x + _ffn(lp, h, cfg)
+            x = x + _ffn(lp, h, cfg, moe_ctx)
     x = cm.rmsnorm(params["final_norm"], x, cfg.rms_eps)
     cache["pos"] = lens
     return unembed(params, cfg, x), cache

@@ -21,8 +21,12 @@ Tolerances, each with its reason:
   (``sharding.contract``, ``ssm._sharded_core``) split as GSPMD's do but
   for the SSM's, 1.2% more a rank, and the MoE's, 0.1% more (the
   difference was measured, its op not traced further; the port's MoE runs
-  split through the shard_map path, whose local capacity at two model
-  ranks is the gather path's share of its slots).
+  split through the gather path, whose (E, C) slots are split as GSPMD
+  splits them: the experts over model, the slots over data);
+* the MoE cells under each ``moe_impl``: the path asked for runs; the
+  shard_map path's trace equal to what it was before the gather path ran
+  split (``SHARDMAP_TRACES``), the gather path's counts table and slots
+  of the sizes its capacity gives.
 """
 import json
 import os
@@ -46,7 +50,8 @@ from repro.models import registry as jregistry  # noqa: E402
 from repro_torch.analysis import recompute  # noqa: E402
 from repro_torch.analysis import roofline as rl  # noqa: E402
 from repro_torch.configs import (ARCH_IDS, SHAPES, SUBQUADRATIC,  # noqa: E402
-                                 cells, get_config, list_configs)
+                                 InputShape, cells, get_config,
+                                 list_configs)
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import decode_attention as dec  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -475,6 +480,119 @@ def test_split_cells_run_collectives_and_cost_less_a_rank(port):
             one["memory_analysis"]["argument_size_in_bytes"]
         assert four["roofline"]["dominant"] in ("compute", "memory",
                                                 "collective")
+
+
+# ---------------------------------------------------------------------------
+# The MoE cells under each moe_impl
+# ---------------------------------------------------------------------------
+
+MOE_KINDS = {"train": "train_4k", "prefill": "prefill_32k",
+             "decode": "decode_32k"}
+MOE_BATCH, MOE_SEQ, MOE_MESH = 4, 32, (2, 2)
+# reduced granite's cells at (2, 2) traced through the shard_map path
+# before the gather path ran split (then every split layer took it)
+SHARDMAP_TRACES = {
+    "train": {"dot_flops_per_device": 115605504.0, "collectives": {
+        "bytes_per_chip": 1170196.0,
+        "counts": {"all-gather": 55, "all-reduce": 54, "reduce-scatter": 17},
+        "bytes_by_kind": {"all-gather": 471808.0, "all-reduce": 635796.0,
+                          "reduce-scatter": 62592.0}},
+        "memory_analysis": {"argument_size_in_bytes": 470660,
+                            "output_size_in_bytes": 470416,
+                            "temp_size_in_bytes": 626552,
+                            "alias_size_in_bytes": 0},
+        "cost_analysis": {"flops": 115605504.0,
+                          "bytes accessed": 32692880.0}},
+    "prefill": {"dot_flops_per_device": 27459584.0, "collectives": {
+        "bytes_per_chip": 127488.0,
+        "counts": {"all-gather": 19, "all-reduce": 2},
+        "bytes_by_kind": {"all-gather": 111104.0, "all-reduce": 16384.0}},
+        "memory_analysis": {"argument_size_in_bytes": 157056,
+                            "output_size_in_bytes": 12292,
+                            "temp_size_in_bytes": 325632,
+                            "alias_size_in_bytes": 0},
+        "cost_analysis": {"flops": 27459584.0,
+                          "bytes accessed": 5385712.0}},
+    "decode": {"dot_flops_per_device": 919552.0, "collectives": {
+        "bytes_per_chip": 8448.0,
+        "counts": {"all-gather": 2, "all-reduce": 21},
+        "bytes_by_kind": {"all-gather": 512.0, "all-reduce": 7936.0}},
+        "memory_analysis": {"argument_size_in_bytes": 165004,
+                            "output_size_in_bytes": 10244,
+                            "temp_size_in_bytes": 9124,
+                            "alias_size_in_bytes": 8192},
+        "cost_analysis": {"flops": 919552.0, "bytes accessed": 431284.0}},
+}
+
+
+@pytest.fixture(scope="module")
+def moe_traces(tmp_path_factory):
+    """Reduced granite's train, prefill and decode cells at (2, 2) under
+    each ``moe_impl``: (record, per-op trace)."""
+    out = {}
+    tmp = tmp_path_factory.mktemp("moe_traces")
+    for impl in ("gather", "shardmap"):
+        for kind, name in MOE_KINDS.items():
+            path = str(tmp / f"{impl}-{kind}.json")
+            rec = dryrun.run_cell(
+                "granite-moe-1b-a400m",
+                InputShape(name, MOE_SEQ, MOE_BATCH, kind),
+                multi_pod=False, device="cpu", reduced=True,
+                mesh_shape=MOE_MESH, moe_impl=impl, save_trace=path)
+            with open(path) as f:
+                out[impl, kind] = (rec, json.load(f))
+    return out
+
+
+def c10d(entries, op, result_bytes):
+    """How many times the trace ran ``op`` with that result's bytes over a
+    group of 2."""
+    return sum(e["count"] for e in entries if e["op"] == op
+               and e["result_bytes"] == result_bytes and e["group"] == 2)
+
+
+@pytest.mark.parametrize("kind", MOE_KINDS)
+def test_moe_cells_run_the_moe_impl_asked_for(moe_traces, kind):
+    """``moe_impl_ran`` is what was asked, in every kind of cell. The
+    shard_map trace is what it was. The gather trace holds, per MoE layer
+    and forward (training runs each twice: remat's recompute), the
+    all-gather of the counts table (int32, B x n_seq x E, n_seq the
+    sequence's split: 2 under the ZeRO-3 prefill rules), the reduce-scatter
+    of the (E / 2, C, d) bf16 slot buffer to its (E / 2, C / 2, d) half
+    (C the global capacity of B x S tokens) and the experts' products over
+    that half, with two of its blocks' all-gathered back; the record's
+    ``moe_slot_transport`` holds those collectives' link bytes, a part of
+    the cell's."""
+    from repro_torch.models import ffn
+    cfg = dryrun.config_of("granite-moe-1b-a400m", reduced=True)
+    moe, d, layers = cfg.moe, cfg.d_model, cfg.n_layers
+    for impl in ("gather", "shardmap"):
+        rec, _ = moe_traces[impl, kind]
+        assert rec["ok"], rec.get("error")
+        assert rec["moe_impl"] == rec["moe_impl_ran"] == impl
+    rec, _ = moe_traces["shardmap", kind]
+    assert {k: rec[k] for k in SHARDMAP_TRACES[kind]} == \
+        SHARDMAP_TRACES[kind]
+    assert "moe_slot_transport" not in rec
+    rec, entries = moe_traces["gather", kind]
+    transport = rec["moe_slot_transport"]
+    assert set(transport["bytes_by_kind"]) == {"all-gather",
+                                               "reduce-scatter"}
+    assert 0 < transport["bytes_per_chip"] < \
+        rec["collectives"]["bytes_per_chip"]
+    seq = 1 if kind == "decode" else MOE_SEQ
+    n_seq = 2 if kind == "prefill" else 1
+    forwards = layers * (2 if kind == "train" else 1)
+    table = MOE_BATCH * n_seq * moe.num_experts * 4
+    assert c10d(entries, "c10d.allgather_", table) == forwards
+    cap = ffn.capacity(MOE_BATCH * seq, moe)
+    half = moe.num_experts // 2 * (cap // 2) * d * 2
+    assert c10d(entries, "c10d.reduce_scatter_", half) >= forwards
+    assert c10d(entries, "c10d.allgather_", 2 * half) >= forwards
+    products = [e for e in entries if e["op"] == "aten.bmm"
+                and e["flops"] == 2 * (moe.num_experts // 2) * (cap // 2)
+                * d * cfg.d_ff]
+    assert sum(e["count"] for e in products) >= 3 * forwards
 
 
 # ---------------------------------------------------------------------------

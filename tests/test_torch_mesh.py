@@ -1,6 +1,6 @@
 """The port's mesh against the JAX package's: logical axes, sharding rules,
-placements, restore onto a mesh, remesh, ``compressed_psum`` and the MoE
-through shard_map.
+placements, restore onto a mesh, remesh, ``compressed_psum``, the MoE
+through shard_map, and the MoE's gather path split over the ranks.
 
 The reference at a (1, 1) mesh runs in this process on its one CPU device;
 at real splits it runs in a process of its own with four forced host
@@ -22,11 +22,18 @@ Tolerances, each with its reason:
   orders);
 * reduced granite's loss with ``moe_ctx`` (two layers): 1e-5 relative;
   every gradient leaf within 1e-4 of its largest |value|, as
-  ``tests/test_torch_train.py`` holds the gather path.
+  ``tests/test_torch_train.py`` holds the gather path;
+* the split gather path against the reference's unsplit
+  ``moe_forward_gather``: as the shard_map MoE (one layer), and as
+  reduced granite's loss (the train step); the served logits within 1e-4
+  of their largest |value|. At one rank on a mesh it gives the unplaced
+  gather path's step bit for bit (the same operations on the same slots).
 
 The MoE cases run at the published capacity factor 1.25 with skewed rows,
-so that experts overflow: at one model rank the local capacity is twice
-the gather path's, and at four half of it.
+so that experts overflow: at one model rank the shard_map path's local
+capacity is twice the gather path's, and at four half of it; the gather
+path's capacity is global, so where the tokens are split the two paths
+drop different assignments.
 """
 import json
 import os
@@ -428,6 +435,61 @@ def test_train_step_on_a_one_rank_mesh(mesh):
         assert torch.equal(a.to_local(), b.detach())
 
 
+def test_loss_and_grads_on_one_rank_leaves_run_the_split_gather_path(mesh):
+    """Reduced granite at the published capacity factor 1.25, its params
+    placed by the train rules on the one-rank mesh, with no ``moe_ctx``:
+    the loss and every gradient on the DTensor leaves under
+    ``activation_sharding`` (each MoE layer through
+    ``ffn.moe_forward_gather_split`` on its blocks, as a split mesh runs
+    it) equal the unplaced gather path's bit for bit, where assignments
+    drop. The collectives of the MoE layers, per layer under remat: over
+    data, the counts table's and the products' all-gathers in the forward
+    and its recompute and the slots' two in the backward (6), the slots'
+    and their weights' reduce-scatters in both forwards and the products'
+    in the backward (5), and the all-reduces of the router's and the
+    three stacks' gradients (4); over model, the output's sum and the
+    partial gradients of x and the router (3)."""
+    from dataclasses import replace
+    from repro_torch.configs import reduced
+    cfg = reduced(get_config("granite-moe-1b-a400m"))
+    bundle = registry.build(replace(cfg, moe=replace(cfg.moe,
+                                                     capacity_factor=1.25)))
+    params = train_loop.init_train_state(
+        bundle, torch.Generator().manual_seed(0), device="cpu")["params"]
+    rules = shd.make_rules(bundle.cfg, mesh, "train")
+    placed = shd.place(params, shd.sharding_for_tree(
+        params, bundle.param_axes(), rules, mesh))
+    toks = torch.as_tensor(random_tokens(2, 32, seed=3))
+    batch = shd.place({"tokens": toks},
+                      shd.batch_sharding({"tokens": toks}, rules, mesh))
+    for p in opt_mod.leaves(placed):
+        p.requires_grad_(True)
+    drops = [0]
+    dispatch = workers.count_drops(ffn, drops)
+    shd.reset_collective_counts()
+    try:
+        with shd.activation_sharding(mesh, rules):
+            loss = bundle.loss_fn(placed, batch, remat=True)
+            grads = train_loop.reduce_grads(
+                train_loop.grad_tree(loss, placed), placed)
+    finally:
+        ffn.dispatch = dispatch
+    counts = shd.collective_counts()
+    want = bundle.loss_fn(params, {"tokens": toks}, remat=True)
+    want_grads = train_loop.grad_tree(want, params)
+    assert drops[0] > 0
+    assert isinstance(loss, DTensor)
+    assert torch.equal(loss.to_local(), want.detach())
+    layers = bundle.cfg.n_layers
+    assert counts == {"all_gather:data": 6 * layers,
+                      "reduce_scatter:data": 5 * layers,
+                      "model": 3 * layers, "data": 4 * layers}
+    for a, b, p in zip(opt_mod.leaves(grads), opt_mod.leaves(want_grads),
+                       opt_mod.leaves(placed)):
+        assert isinstance(a, DTensor) and a.placements == p.placements
+        assert torch.equal(a.to_local(), b)
+
+
 def test_constrain_is_identity_outside_its_context(mesh):
     x = torch.randn(4, 6)
     assert shd.constrain(x, ("batch", None)) is x
@@ -588,6 +650,103 @@ def test_loss_and_grads_with_moe_ctx_match_jax(mesh):
         assert np.abs(got - want).max() <= 1e-4 * scale, name
 
 
+def test_moe_gather_split_refuses_a_stack_it_cannot_place(mesh):
+    """As the shard_map path: expert weights that are not the whole stack
+    or its block raise, and so do experts that do not divide over the
+    expert axis."""
+    cfg = workers.moe_config("granite-moe-1b-a400m")
+    p = {"router": {"w": torch.zeros(64, 4)},
+         **{n: {"w": torch.zeros(2, 64, 64)} for n in ("gate", "up",
+                                                      "down")}}
+    with pytest.raises(ValueError, match="not the stack"):
+        ffn.moe_forward_gather_split(p, torch.zeros(1, 2, 64), cfg, mesh)
+    odd = workers.replace(cfg, moe=workers.replace(cfg.moe, num_experts=3))
+    with pytest.raises(ValueError, match="do not divide"):
+        ffn.moe_forward_gather_split(p, torch.zeros(1, 2, 64), odd,
+                                     FakeMeshRanks({"data": 1, "model": 2}))
+
+
+class FakeMeshRanks(FakeMesh):
+    """A ``FakeMesh`` that answers the local rank (0) on every axis."""
+
+    def get_local_rank(self, axis):
+        return 0
+
+
+GATHER_CASES = (((1, 2), "train"), ((2, 2), "train"), ((2, 1), "train"),
+                ((1, 2), "prefill"), ((2, 2), "prefill"))
+
+
+def gather_results(mesh_shape, ranks2, ranks4, key):
+    """Each rank's result ``key`` of the job at ``mesh_shape``: (1, 2) and
+    (2, 1) on the two ranks, (2, 2) on the four."""
+    if mesh_shape == (2, 1):
+        return [r[f"{key}_2x1"] for r in ranks2]
+    return [r[key] for r in (ranks2 if mesh_shape == (1, 2) else ranks4)]
+
+
+def gather_expected_counts(mode):
+    """The collectives of one forward and backward of a layer through the
+    split gather path, where the tokens are split over ``t`` and the
+    experts over ``e`` (train: data and model; the ZeRO-3 prefill: model
+    and data): over ``t`` the counts table's and the products' all-gathers
+    forward and the slots' and their weights' backward, the slots' and
+    their weights' reduce-scatters forward and the products' backward, and
+    the all-reduces of the router's and the three stacks' gradients; over
+    ``e`` the output's sum and the partial gradients of x and the router.
+    The shared expert runs on DTensors, whose collectives these do not
+    count."""
+    t, e = ("data", "model") if mode == "train" else ("model", "data")
+    return {f"all_gather:{t}": 4, f"reduce_scatter:{t}": 3, t: 4, e: 3}
+
+
+@pytest.mark.parametrize("mesh_shape,mode", GATHER_CASES,
+                         ids=lambda c: c if isinstance(c, str)
+                         else f"{c[0]}x{c[1]}")
+@pytest.mark.parametrize("arch", workers.MOE_ARCHS)
+def test_moe_gather_split_matches_reference(ref, ranks2, ranks4, arch,
+                                            mesh_shape, mode):
+    """One MoE layer placed by the train rules (the batch over data, the
+    experts over model) or the ZeRO-3 prefill rules (the sequence over
+    model, the experts over data) as gloo ranks, on DTensors with no
+    ``moe_ctx``, against the reference's unsplit ``moe_forward_gather`` of
+    the whole input at capacity factor 1.25 with skewed rows, which drop
+    assignments: the output and every gradient on every rank (the shard_map
+    MoE's tolerances), and the collectives. The shard_map path on the same
+    blocks computes another function wherever the tokens are split
+    (its capacity is local: at (2, 1) each data rank's half of the tokens
+    gets its own), so on a tree that runs it for every split layer these
+    cases fail; at (1, 2) under the train rules every rank holds every
+    token and its local capacity, C // 2 * 2, is C: there the two
+    agree."""
+    for outs in gather_results(mesh_shape, ranks2, ranks4, "gather"):
+        out = outs[(arch, mode)]
+        assert out["dropped"] > 0
+        assert "Shard" in out["x_placements"]
+        stack = "Shard(dim=0), Replicate()" if mode == "prefill" \
+            else "Shard(dim=1), Shard(dim=0)"
+        assert out["stack_placements"] == f"({stack})"
+        want = ref[f"{arch}/gather/y"]
+        np.testing.assert_allclose(out["y"], want, atol=1e-5, rtol=0)
+        grads = {"dx": (out["dx"], ref[f"{arch}/gather/dx"])}
+        for name in (k[2:] for k in out if k.startswith("g/")):
+            grads[name] = (out[f"g/{name}"], ref[f"{arch}/gather/g/{name}"])
+        assert {"router/w", "gate/w", "up/w", "down/w"} <= set(grads)
+        top = max(np.abs(w).max() for _, w in grads.values())
+        for name, (got, w) in grads.items():
+            assert got.shape == w.shape, name
+            if name in ZERO_LEAVES.get(arch, ()):
+                assert max(np.abs(got).max(), np.abs(w).max()) <= 1e-5 * top
+                continue
+            assert close(got, w, 1e-5), name
+        assert out["counts"] == gather_expected_counts(mode)
+        shardmap_err = np.abs(out["y_shardmap"] - want).max()
+        if mesh_shape == (1, 2) and mode == "train":
+            assert shardmap_err <= 1e-5
+        else:
+            assert shardmap_err > 1e-2
+
+
 SPLIT_ARCHS = ("qwen2-0.5b", "granite-moe-1b-a400m")
 
 
@@ -602,7 +761,8 @@ def close(got, want, tol):
 def test_train_step_on_split_leaves_matches_reference(ref, ranks2, ranks4,
                                                       arch, mesh_shape):
     """Reduced qwen2 and granite (its MoE at capacity factor 1.25 through
-    shard_map on both sides) with their state placed by the train rules at
+    shard_map on both sides, ``moe_ctx`` asking for it) with their state
+    placed by the train rules at
     (1, 2) and (2, 2) (heads, experts, the vocab and the MLP split over
     model; the embed dim over data), as gloo ranks, against the reference's
     compiled step at the same mesh:
@@ -668,6 +828,57 @@ def test_train_step_on_split_leaves_matches_reference(ref, ranks2, ranks4,
             assert "does not split" in msg
 
 
+@pytest.mark.parametrize("mesh_shape", ((1, 2), (2, 2), (2, 1)))
+def test_train_step_on_split_leaves_under_gather_matches_reference(
+        ref, ranks2, ranks4, mesh_shape):
+    """Reduced granite at capacity factor 1.25 with its state placed by
+    the train rules at (1, 2), (2, 2) and (2, 1) as gloo ranks, with no
+    ``moe_ctx`` (each MoE layer through the split gather path), against
+    the reference's compiled step at the same mesh with ``moe_ctx=None``
+    (GSPMD's gather path): the loss (1e-5 relative) and every gradient
+    leaf, gathered whole (within 1e-4 of its largest |value|); the train
+    step's loss (1e-5). Its layers drop assignments past the global
+    capacity."""
+    outs = gather_results(mesh_shape, ranks2, ranks4, "split_gather")
+    arch = "granite-moe-1b-a400m"
+    key = f"split_gather/{arch}/{mesh_shape[0]}x{mesh_shape[1]}"
+    want_loss = float(ref[f"{key}/loss"])
+    names = [k[len(f"{key}/g/"):] for k in ref.files
+             if k.startswith(f"{key}/g/")]
+    assert sum(got["dropped"] for got in outs) > 0
+    for got in outs:
+        assert abs(got["loss"] - want_loss) <= 1e-5 * abs(want_loss)
+        assert abs(got["step_loss"] - want_loss) <= 1e-5 * abs(want_loss)
+        assert len(names) == sum(k.startswith("g/") for k in got)
+        for leaf in names:
+            assert close(got[f"g/{leaf}"], ref[f"{key}/g/{leaf}"], 1e-4), \
+                leaf
+
+
+def test_prefill_and_decode_under_gather_match_reference(ref, ranks2):
+    """Reduced granite at capacity factor 1.25 on prompts of few distinct
+    tokens (so that its layers drop assignments) at (1, 2), as gloo ranks:
+    the prefill's and one decode step's logits on params placed by the
+    serve rules, and the prefill's by the ZeRO-3 prefill rules (the
+    sequence split over model), each MoE layer through the split gather
+    path, within 1e-4 of their largest |value| of the reference's unsplit
+    ones (fp32). The shard_map path's prefill on the sequence-split blocks
+    drops other assignments and misses by more."""
+    assert sum(r["serve_gather"]["dropped"] for r in ranks2) > 0
+    for r in ranks2:
+        got = r["serve_gather"]
+        assert got["serve/stack_placements"] == "(Replicate(), Shard(dim=1))"
+        assert got["prefill/stack_placements"] == \
+            "(Shard(dim=1), Replicate())"
+        for stage, want in (("serve/prefill", "prefill"),
+                            ("serve/decode", "decode"),
+                            ("prefill/prefill", "prefill")):
+            assert close(got[stage], ref[f"serve/granite125/{want}"],
+                         1e-4), stage
+        assert not close(got["prefill/shardmap"],
+                         ref["serve/granite125/prefill"], 1e-4)
+
+
 @pytest.mark.parametrize("split", ("kv_heads", "kv_seq"))
 def test_prefill_and_decode_on_a_split_cache_match_reference(ref, ranks2,
                                                              split):
@@ -691,7 +902,8 @@ def test_moe_prefill_with_experts_split_over_data_matches_reference(
         ref, ranks4):
     """Reduced granite's prefill at (2, 2) by the ZeRO-3 prefill rules (the
     expert stacks split over data, the sequence over model; each MoE layer
-    through the shard_map path with data as its expert axis), against the
+    through the shard_map path, which ``moe_ctx`` asks for, with data as
+    its expert axis), against the
     reference's unsplit prefill: the logits within 1e-4 of their largest
     |value| (fp32; the reduced capacity factor 8 drops nothing, so the two
     paths compute the same sum)."""
@@ -745,6 +957,31 @@ def test_moe_shardmap_on_card_matches_cpu(cuda, ref):
                 continue
             scale = max(np.abs(want[k]).max(), 1e-30)
             assert np.abs(got[k] - want[k]).max() <= 1e-5 * scale, k
+
+
+@pytest.mark.gpu
+def test_moe_gather_split_on_card_matches_cpu(cuda, ref):
+    """The split gather path at a (1, 1) mesh on the card (NCCL) against
+    its CPU run (gloo), fp32, forward and every gradient, at the
+    tolerances of the reference comparison; and the CPU run against the
+    reference's unsplit gather path."""
+    cpu_mesh = mesh_mod.make_host_mesh(device="cpu")
+    card_mesh = mesh_mod.make_host_mesh()
+    for arch in workers.MOE_ARCHS:
+        want = workers.moe_case(ref, arch, cpu_mesh, gather=True)
+        got = workers.moe_case(ref, arch, card_mesh, device=cuda,
+                               gather=True)
+        np.testing.assert_allclose(want["y"], ref[f"{arch}/gather/y"],
+                                   atol=1e-5, rtol=0)
+        np.testing.assert_allclose(got["y"], want["y"], atol=1e-5, rtol=0)
+        names = [k for k in want if k.startswith("g/")] + ["dx"]
+        top = max(np.abs(want[k]).max() for k in names)
+        for k in names:
+            if k[2:] in ZERO_LEAVES.get(arch, ()):
+                assert max(np.abs(got[k]).max(),
+                           np.abs(want[k]).max()) <= 1e-5 * top, k
+                continue
+            assert close(got[k], want[k], 1e-5), k
 
 
 @pytest.mark.gpu

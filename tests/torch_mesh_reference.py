@@ -13,7 +13,8 @@ process of its own. It writes ``OUT_DIR/reference.npz``:
   (data, model) mesh of ``MOE_MESHES`` the output of
   ``moe_forward_shardmap`` and ``jax.grad`` of ``sum(y * ct)`` for x and
   every weight (inside ``jax.set_mesh``, without which the gradient at more
-  than one device raises);
+  than one device raises); and, on one device, the output of the unsplit
+  ``moe_forward_gather`` and the same gradients (``<arch>/gather/...``);
 * ``compressed_psum`` inside ``shard_map`` over 2 and 4 devices, each
   device's input and result;
 * for reduced qwen2-0.5b and reduced granite-moe-1b-a400m (``SPLIT_ARCHS``;
@@ -24,11 +25,16 @@ process of its own. It writes ``OUT_DIR/reference.npz``:
   train rules, the mean loss of its two microbatches, and one AdamW update
   (``optimizer.apply_updates`` from a fresh state) of the weights by those
   gradients: the new weights, moments and gradient norm (``split/...``);
+  and for granite the loss and every gradient leaf of the same compiled
+  step with ``moe_ctx=None``, GSPMD's gather path, on a batch of few
+  distinct tokens, at each mesh of ``GATHER_MESHES`` (``split_gather/...``);
 * for reduced qwen2-0.5b with 2 KV heads and with 1 (``SERVE_KV``),
   ``PRNGKey(4)`` weights, a prompt's prefill logits at ``max_len`` and one
   decode step's (``serve/...``); for reduced granite-moe-1b-a400m,
   ``PRNGKey(4)`` weights and a prompt's prefill logits
-  (``serve/granite/...``);
+  (``serve/granite/...``), and at the published capacity factor 1.25
+  skewed prompt tokens' prefill logits at ``max_len`` and one decode
+  step's (``serve/granite125/...``);
 
 and ``OUT_DIR/indices.json``: for every config of ``ARCH_IDS`` at full
 width, every mode and every mesh of ``INDEX_MESHES``, each param and cache
@@ -63,6 +69,7 @@ PSUM_RANKS = (2, 4)
 PSUM_SHAPE = (3, 300)          # 900 values: three and a half blocks of 256
 SPLIT_ARCHS = ("qwen2-0.5b", "granite-moe-1b-a400m")
 SPLIT_MESHES = ((1, 2), (2, 2))
+GATHER_MESHES = SPLIT_MESHES + ((2, 1),)
 SPLIT_BATCH, SPLIT_SEQ = 4, 16
 SERVE_KV = {"kv_heads": 2, "kv_seq": 1}
 SERVE_BATCH, SERVE_PROMPT, SERVE_MAX_LEN = 2, 12, 16
@@ -110,6 +117,15 @@ def moe_cases(out):
         ct = np.random.default_rng(6).normal(size=x.shape).astype(np.float32)
         out[f"{arch}/x"], out[f"{arch}/ct"] = x, ct
         out.update(flat(vals, f"{arch}/p"))
+
+        def gather_loss(vals, x):
+            y = ffn.moe_forward_gather(cm.zip_params(vals, axes), x, cfg)
+            return jnp.sum(y * ct), y
+        (_, y), (gv, gx) = jax.jit(jax.value_and_grad(
+            gather_loss, argnums=(0, 1), has_aux=True))(vals, jnp.asarray(x))
+        out[f"{arch}/gather/y"] = np.asarray(y)
+        out[f"{arch}/gather/dx"] = np.asarray(gx)
+        out.update(flat(gv, f"{arch}/gather/g"))
         for shape in MOE_MESHES:
             mesh = mesh_of(shape)
 
@@ -191,6 +207,29 @@ def split_cases(out):
             out.update(flat(new_opt["m"], f"{key}/adamw/m"))
             out.update(flat(new_opt["v"], f"{key}/adamw/v"))
             out[f"{key}/adamw/grad_norm"] = np.asarray(metrics["grad_norm"])
+        if cfg.moe is None:
+            continue
+
+        def gather_loss(vals, toks):
+            return bundle.loss_fn(cm.zip_params(vals, axes),
+                                  {"tokens": toks}, dtype=jnp.float32,
+                                  remat=True, moe_ctx=None)
+        # few distinct tokens, so that the router overflows experts
+        few = np.random.default_rng(7).integers(
+            0, 3, (SPLIT_BATCH, SPLIT_SEQ), dtype=np.int32)
+        out[f"split_gather/{arch}/tokens"] = few
+        for shape in GATHER_MESHES:
+            mesh = mesh_of(shape)
+            rules = shd.make_rules(cfg, mesh, "train")
+            in_sh = (shd.sharding_for_tree(p, rules, mesh),
+                     shd.batch_sharding({"t": jax.ShapeDtypeStruct(
+                         few.shape, jnp.int32)}, rules, mesh)["t"])
+            with jax.set_mesh(mesh), shd.activation_sharding(mesh, rules):
+                lv, gv = jax.jit(jax.value_and_grad(gather_loss),
+                                 in_shardings=in_sh)(vals, jnp.asarray(few))
+            key = f"split_gather/{arch}/{shape[0]}x{shape[1]}"
+            out[f"{key}/loss"] = np.asarray(lv)
+            out.update(flat(gv, f"{key}/g"))
 
 
 def serve_cases(out):
@@ -204,6 +243,23 @@ def serve_cases(out):
     out.update(flat(cm.values(p), "serve/granite/p"))
     out["serve/granite/prompt"] = prompt
     out["serve/granite/prefill"] = np.asarray(logits)
+    cfg = split_config("granite-moe-1b-a400m")
+    bundle = registry.build(cfg)
+    p = bundle.init(jax.random.PRNGKey(4))
+    # few distinct tokens, so that the router overflows experts
+    prompt = np.random.default_rng(8).integers(
+        0, 3, (SERVE_BATCH, SERVE_PROMPT), dtype=np.int32)
+    token = np.random.default_rng(9).integers(
+        0, 3, (SERVE_BATCH, 1), dtype=np.int32)
+    logits, cache = bundle.prefill(p, {"tokens": jnp.asarray(prompt)},
+                                   max_len=SERVE_MAX_LEN, dtype=jnp.float32)
+    step, _ = bundle.decode_step(p, cache, jnp.asarray(token),
+                                 dtype=jnp.float32)
+    out.update(flat(cm.values(p), "serve/granite125/p"))
+    out["serve/granite125/prompt"], out["serve/granite125/token"] = \
+        prompt, token
+    out["serve/granite125/prefill"] = np.asarray(logits)
+    out["serve/granite125/decode"] = np.asarray(step)
     for name, kv in SERVE_KV.items():
         cfg = replace(reduced(get_config("qwen2-0.5b")), n_kv_heads=kv)
         bundle = registry.build(cfg)

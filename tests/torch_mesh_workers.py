@@ -7,13 +7,16 @@ a gloo group through a ``FileStore`` in ``out_dir``, runs ``JOBS[job]`` and
 writes what it returns to ``out_dir/<job>-<rank>.pt``; a rank that raises
 writes its traceback instead. Returns the ranks' results in rank order.
 The MoE cases read their weights and inputs from the JAX package's
-``ref_dir/reference.npz`` (``tests/torch_mesh_reference.py``).
+``ref_dir/reference.npz`` (``tests/torch_mesh_reference.py``). The cases
+that hold the shard_map path ask for it through ``moe_ctx``; the others
+run the MoE's default, the gather path split over the ranks.
 """
 import datetime
 import multiprocessing
 import os
 import traceback
 from dataclasses import replace
+from functools import partial
 
 import numpy as np
 import torch
@@ -47,10 +50,11 @@ def nest(flat):
     return tree
 
 
-def moe_case(ref, arch, mesh, device="cpu"):
-    """``moe_forward_shardmap`` on this rank's block of the reference's x
-    on ``device``, and the gradient of ``sum(y * ct)``, as numpy arrays,
-    with the all-reduces it made."""
+def moe_case(ref, arch, mesh, device="cpu", gather=False):
+    """``moe_forward_shardmap`` (``moe_forward_gather_split`` where
+    ``gather``) on this rank's block of the reference's x on ``device``,
+    and the gradient of ``sum(y * ct)``, as numpy arrays, with the
+    collectives it made."""
     from repro_torch.distributed import sharding as shd
     from repro_torch.models import ffn
     cfg = moe_config(arch)
@@ -65,8 +69,9 @@ def moe_case(ref, arch, mesh, device="cpu"):
                      requires_grad=True)
     ct = torch.tensor(ref[f"{arch}/ct"][rows], device=device)
     shd.reset_collective_counts()
-    y = ffn.moe_forward_shardmap(nest(flat), x, cfg, mesh,
-                                 dp_axes=("data",))
+    fn = ffn.moe_forward_gather_split if gather else partial(
+        ffn.moe_forward_shardmap, dp_axes=("data",))
+    y = fn(nest(flat), x, cfg, mesh)
     names = sorted(flat)
     grads = torch.autograd.grad((y * ct).sum(), [x] + [flat[k]
                                                        for k in names])
@@ -173,15 +178,174 @@ def split_config(arch):
     return replace(cfg, moe=replace(cfg.moe, capacity_factor=1.25))
 
 
+def gather_layer_case(ref, arch, mesh, mode):
+    """One MoE layer of the reference's weights on ``mesh``, placed by the
+    ``mode`` rules (train: the experts over model, the batch over data;
+    prefill: the ZeRO-3 rules, the experts over data, the sequence over
+    model), on DTensors with no ``moe_ctx``: its output and the gradients
+    of ``sum(y * ct)`` gathered whole, the collectives it made, its and
+    the input's placements, the assignments the reference's unsplit
+    dispatch drops, and the shard_map path's output on the same blocks."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import ffn
+    cfg = moe_config(arch)
+    rules = shd.make_rules(cfg, mesh, mode)
+    params = nest(moe_params(ref, arch))
+    placed = shd.place(params, shd.sharding_for_tree(
+        params, ffn.moe_axes(cfg), rules, mesh))
+    x_np = ref[f"{arch}/x"]
+    act = shd.Sharding(mesh, shd.spec_for(x_np.shape, ("batch", "seq",
+                                                       "embed_act"),
+                                          rules, mesh))
+    x = act.place(torch.tensor(x_np)).requires_grad_(True)
+    ct = act.place(torch.tensor(ref[f"{arch}/ct"]))
+    leaves_ = flat_tree(placed)
+    for v in leaves_.values():
+        v.requires_grad_(True)
+    shd.reset_collective_counts()
+    with shd.activation_sharding(mesh, rules):
+        y = ffn.moe_forward(placed, x, cfg)
+        names = sorted(leaves_)
+        grads = torch.autograd.grad((y * ct).sum(),
+                                    [x] + [leaves_[k] for k in names])
+    counts = shd.collective_counts()
+    with torch.no_grad(), shd.activation_sharding(mesh, rules):
+        y_sm = ffn.moe_forward(placed, x, cfg, {"impl": "shardmap"})
+    x2d = torch.tensor(x_np).reshape(-1, x_np.shape[-1])
+    _, experts = ffn.route({"w": torch.tensor(ref[f"{arch}/p/router/w"])},
+                           x2d, cfg.moe)
+    loads = torch.bincount(experts.reshape(-1),
+                           minlength=cfg.moe.num_experts)
+    cap = ffn.capacity(x2d.shape[0], cfg.moe)
+    out = {"y": y.full_tensor().detach().numpy(),
+           "dx": grads[0].full_tensor().numpy(),
+           "y_shardmap": y_sm.full_tensor().numpy(), "counts": counts,
+           "x_placements": str(x.placements),
+           "stack_placements": str(placed["gate"]["w"].placements),
+           "dropped": int((loads - cap).clamp_min(0).sum())}
+    out.update({f"g/{k}": g.full_tensor().numpy()
+                for k, g in zip(names, grads[1:])})
+    return out
+
+
+def gather_layer_job(ref_dir, model, modes):
+    from repro_torch.launch.mesh import make_host_mesh
+    ref = np.load(os.path.join(ref_dir, "reference.npz"))
+    mesh = make_host_mesh(model=model, device="cpu")
+    return {(arch, mode): gather_layer_case(ref, arch, mesh, mode)
+            for arch in MOE_ARCHS for mode in modes}
+
+
+def split_gather_job(ref_dir, model=2):
+    """Reduced granite's loss and every gradient leaf (gathered whole) at
+    the published capacity factor 1.25 on this group's (data, ``model``)
+    mesh, the state placed by the train rules, fp32, on the reference's
+    batch of few distinct tokens, with no ``moe_ctx``: each MoE layer
+    through the split gather path; the assignments it
+    dropped past the global capacity; and one train step's loss."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import ffn, registry
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training import train_loop
+    ref = np.load(os.path.join(ref_dir, "reference.npz"))
+    mesh = make_host_mesh(model=model, device="cpu")
+    arch = "granite-moe-1b-a400m"
+    cfg = split_config(arch)
+    bundle = registry.build(cfg)
+    params = ref_params(ref, f"split/{arch}")
+    rules = shd.make_rules(cfg, mesh, "train")
+    placed = shd.place(params, shd.sharding_for_tree(
+        params, bundle.param_axes(), rules, mesh))
+    toks = torch.tensor(ref[f"split_gather/{arch}/tokens"]).long()
+    batch = shd.place({"tokens": toks},
+                      shd.batch_sharding({"tokens": toks}, rules, mesh))
+    for p in opt_mod.leaves(placed):
+        p.requires_grad_(True)
+    drops = [0]
+    dispatch = count_drops(ffn, drops)
+    try:
+        with shd.activation_sharding(mesh, rules):
+            loss = bundle.loss_fn(placed, batch, dtype=torch.float32,
+                                  remat=True)
+            grads = train_loop.reduce_grads(
+                train_loop.grad_tree(loss, placed), placed)
+    finally:
+        ffn.dispatch = dispatch
+    res = {"loss": float(loss.full_tensor()), "dropped": drops[0]}
+    res.update({f"g/{k}": g.full_tensor().detach().numpy()
+                for k, g in flat_tree(grads).items()})
+    state = train_loop.init_train_state(bundle, device="cpu")
+    state["params"] = params
+    state = shd.place(state, shd.sharding_for_tree(
+        state, train_loop.state_axes(bundle.param_axes()), rules, mesh))
+    step = train_loop.make_train_step(bundle, opt_mod.AdamWConfig(),
+                                      dtype=torch.float32)
+    with shd.activation_sharding(mesh, rules):
+        _, metrics = step(state, batch)
+    res["step_loss"] = float(metrics["loss"].full_tensor())
+    return res
+
+
+def serve_gather_job(ref_dir):
+    """Reduced granite at the published capacity factor 1.25 on the
+    (1, 2) mesh: the prefill's logits at max_len 16 and one decode step's
+    on params placed by the serve rules (the experts and the cache's KV
+    heads split over model), and the prefill's by the ZeRO-3 prefill
+    rules (the sequence split over model), each MoE layer through the
+    split gather path, with the assignments it dropped; and that prefill
+    through the shard_map path."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import ffn, registry
+    ref = np.load(os.path.join(ref_dir, "reference.npz"))
+    mesh = make_host_mesh(model=2, device="cpu")
+    cfg = split_config("granite-moe-1b-a400m")
+    bundle = registry.build(cfg)
+    params = ref_params(ref, "serve/granite125")
+    prompt = torch.tensor(ref["serve/granite125/prompt"]).long()
+    token = torch.tensor(ref["serve/granite125/token"]).long()
+    out = {}
+    drops = [0]
+    for mode in ("serve", "prefill"):
+        rules = shd.make_rules(cfg, mesh, mode)
+        placed = shd.place(params, shd.sharding_for_tree(
+            params, bundle.param_axes(), rules, mesh))
+        with torch.no_grad(), shd.activation_sharding(mesh, rules):
+            dispatch = count_drops(ffn, drops)
+            try:
+                logits, cache = bundle.prefill(placed, {"tokens": prompt},
+                                               max_len=16,
+                                               dtype=torch.float32)
+                if mode == "serve":
+                    step, _ = bundle.decode_step(placed, cache, token,
+                                                 dtype=torch.float32)
+                    out["serve/decode"] = step.full_tensor().numpy()
+            finally:
+                ffn.dispatch = dispatch
+            out[f"{mode}/prefill"] = logits.full_tensor().numpy()
+            if mode == "prefill":
+                sm, _ = bundle.prefill(
+                    placed, {"tokens": prompt}, max_len=16,
+                    dtype=torch.float32, moe_ctx={"impl": "shardmap"})
+                out["prefill/shardmap"] = sm.full_tensor().numpy()
+        out[f"{mode}/stack_placements"] = str(
+            placed["layers"]["ffn"]["gate"]["w"].placements)
+    out["dropped"] = drops[0]
+    return out
+
+
 def count_drops(ffn, counter):
     """Wraps ``ffn.dispatch`` so that ``counter[0]`` adds the assignments
-    to real (not phantom) experts each dispatch drops."""
+    to real (not phantom) experts each dispatch drops (on a mesh, each
+    rank those to its own experts)."""
     dispatch = ffn.dispatch
 
-    def counted(experts, cap, num_experts, n_tokens):
-        out = dispatch(experts, cap, num_experts, n_tokens)
+    def counted(experts, cap, num_experts, n_tokens, *rest):
+        out = dispatch(experts, cap, num_experts, n_tokens, *rest)
         real = experts.reshape(-1) < num_experts - 1
-        counter[0] += int(((out[2] == num_experts * cap) & real).sum())
+        cols = out[0].shape[1]
+        counter[0] += int(((out[2] == num_experts * cols) & real).sum())
         return out
     ffn.dispatch = counted
     return dispatch
@@ -190,7 +354,7 @@ def count_drops(ffn, counter):
 def split_job(ref_dir):
     """The loss and every gradient leaf (gathered whole) of reduced qwen2
     and reduced granite (its MoE at capacity factor 1.25, through the
-    shard_map path, as every layer run split runs it) on this group's
+    shard_map path, which ``moe_ctx`` asks for) on this group's
     (data, model = 2) mesh, the state placed by the train rules so that the
     dense layers run split, fp32, with the assignments the MoE dropped;
     AdamW on the placed weights given the reference's gradients (its new
@@ -210,6 +374,7 @@ def split_job(ref_dir):
     mesh = make_host_mesh(model=2, device="cpu")
     data = shd.axis_sizes(mesh)["data"]
     out = {}
+    ctx = {"impl": "shardmap"}
     for arch in ("qwen2-0.5b", "granite-moe-1b-a400m"):
         cfg = split_config(arch)
         bundle = registry.build(cfg)
@@ -229,7 +394,7 @@ def split_job(ref_dir):
         try:
             with shd.activation_sharding(mesh, rules):
                 loss = bundle.loss_fn(placed, batch, dtype=torch.float32,
-                                      remat=True)
+                                      remat=True, moe_ctx=ctx)
                 grads = train_loop.reduce_grads(
                     train_loop.grad_tree(loss, placed), placed)
         finally:
@@ -259,7 +424,7 @@ def split_job(ref_dir):
             res.update({f"given/{part}/{k}": t.full_tensor().numpy()
                         for k, t in flat_tree(tree).items()})
         step = train_loop.make_train_step(bundle, opt_mod.AdamWConfig(),
-                                          dtype=torch.float32)
+                                          dtype=torch.float32, moe_ctx=ctx)
         with shd.activation_sharding(mesh, rules):
             new, metrics = step(state, batch)
         res["step_loss"] = float(metrics["loss"].full_tensor())
@@ -274,7 +439,8 @@ def split_job(ref_dir):
             res.update({f"step/{part}/{k}": t.full_tensor().detach().numpy()
                         for k, t in flat_tree(new["opt"][part]).items()})
         two = train_loop.make_train_step(bundle, opt_mod.AdamWConfig(),
-                                         dtype=torch.float32, microbatches=2)
+                                         dtype=torch.float32, microbatches=2,
+                                         moe_ctx=ctx)
         with shd.activation_sharding(mesh, rules):
             _, metrics = two(state, batch)
         res["microbatched_loss"] = float(metrics["loss"].full_tensor())
@@ -284,7 +450,7 @@ def split_job(ref_dir):
         for n in (3, 4) if data > 1 else (3,):
             bad = train_loop.make_train_step(
                 bundle, opt_mod.AdamWConfig(), dtype=torch.float32,
-                microbatches=n)
+                microbatches=n, moe_ctx=ctx)
             try:
                 with shd.activation_sharding(mesh, rules):
                     bad(state, batch)
@@ -343,8 +509,9 @@ def serve_job(ref_dir):
 def moe_prefill_job(ref_dir):
     """Reduced granite's prefill logits at max_len 16 on this group's
     (data = 2, model = 2) mesh by the ZeRO-3 prefill rules: the expert
-    stacks split over data, the sequence over model, so each layer's MoE
-    runs the shard_map path with data as its expert axis."""
+    stacks split over data, the sequence over model, each layer's MoE
+    through the shard_map path (``moe_ctx``) with data as its expert
+    axis."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.distributed import sharding as shd
     from repro_torch.launch.mesh import make_host_mesh
@@ -360,7 +527,8 @@ def moe_prefill_job(ref_dir):
     prompt = torch.tensor(ref["serve/granite/prompt"]).long()
     with torch.no_grad(), shd.activation_sharding(mesh, rules):
         logits, _ = bundle.prefill(placed, {"tokens": prompt}, max_len=16,
-                                   dtype=torch.float32)
+                                   dtype=torch.float32,
+                                   moe_ctx={"impl": "shardmap"})
     return {"prefill": logits.full_tensor().numpy(),
             "stack_placements": str(
                 placed["layers"]["ffn"]["gate"]["w"].placements)}
@@ -396,13 +564,24 @@ JOBS = {
     "ranks2": lambda ref_dir: {"moe": moe_job(ref_dir, 2),
                                "psum": psum_job(ref_dir),
                                "split": split_job(ref_dir),
-                               "serve": serve_job(ref_dir)},
+                               "serve": serve_job(ref_dir),
+                               "gather": gather_layer_job(
+                                   ref_dir, 2, ("train", "prefill")),
+                               "split_gather": split_gather_job(ref_dir),
+                               "gather_2x1": gather_layer_job(
+                                   ref_dir, 1, ("train",)),
+                               "split_gather_2x1": split_gather_job(
+                                   ref_dir, model=1),
+                               "serve_gather": serve_gather_job(ref_dir)},
     "ranks4": lambda ref_dir: {"moe_1x4": moe_job(ref_dir, 4),
                                "moe_2x2": moe_job(ref_dir, 2),
                                "psum": psum_job(ref_dir),
                                "remesh": remesh_job(),
                                "split": split_job(ref_dir),
-                               "moe_prefill": moe_prefill_job(ref_dir)},
+                               "moe_prefill": moe_prefill_job(ref_dir),
+                               "gather": gather_layer_job(
+                                   ref_dir, 2, ("train", "prefill")),
+                               "split_gather": split_gather_job(ref_dir)},
     "production": lambda ref_dir: production_job(),
 }
 
