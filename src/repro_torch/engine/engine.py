@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.data.tokenizer import ByteTokenizer
+from repro_torch.trace import span
 
 PREFILL_ALIGN = 16
 
@@ -46,7 +47,6 @@ class Request:
     prompt_ids: Optional[list] = None
     output_ids: Optional[list] = None
     slot: int = -1
-    prefill_s: float = 0.0
     submitted_s: float = 0.0
     started_s: float = 0.0      # slot insert (service start, not enqueue)
     done_s: float = 0.0
@@ -80,7 +80,8 @@ class GenerationEngine:
         self.active = np.zeros((n_slots,), bool)
         self.slot_req: List[Optional[Request]] = [None] * n_slots
         self.stats = {"decode_steps": 0, "prefills": 0, "occupancy_sum": 0.0,
-                      "decode_s": 0.0, "prefill_s": 0.0}
+                      "decode_s": 0.0, "prefill_s": 0.0,
+                      "queue_wait_s": 0.0, "queued": 0}
 
     def free_slots(self) -> List[int]:
         return [i for i in range(self.n_slots) if not self.active[i]]
@@ -88,32 +89,40 @@ class GenerationEngine:
     @torch.no_grad()
     def insert(self, req: Request, slot: int) -> Optional[Request]:
         """Prefill one request and copy it into its slot. Returns the request
-        if it finished at prefill (prompt fills the window)."""
+        if it finished at prefill (prompt fills the window). A request
+        submitted through the queue adds its wait there to
+        ``stats["queue_wait_s"]`` and counts in ``stats["queued"]``."""
         t0 = time.perf_counter()
         req.started_s = t0
+        if req.submitted_s:
+            self.stats["queue_wait_s"] += t0 - req.submitted_s
+            self.stats["queued"] += 1
         ids = self.tok.encode(req.prompt)[: self.max_len - 1]
         req.prompt_ids = ids
         req.output_ids = []
         req.slot = slot
         tokens = torch.as_tensor(self.tok.pad_batch([ids], align=PREFILL_ALIGN),
                                  device=self.device)
-        logits, cache1 = self.bundle.prefill(self.params, {"tokens": tokens},
-                                             max_len=self.max_len,
-                                             dtype=self.dtype)
-        # every leaf but pos has the slot (batch) axis at dim 1: K/V for
-        # GQA layers, ckv and krope for MLA ones, ssm_state and conv_buf for
-        # SSM layers, K/V and both SSM leaves for hybrid ones
-        for name, leaf in self.cache.items():
-            if name != "pos":
-                leaf[:, slot] = cache1[name][:, 0]
-        # prefill padded the prompt; the next position is len(ids)
-        self.cache["pos"][slot] = len(ids)
-        nxt = torch.argmax(logits[0, -1])
-        self.last_token[slot, 0] = nxt
-        req.output_ids.append(int(nxt))
+        with span("engine.prefill"):
+            logits, cache1 = self.bundle.prefill(
+                self.params, {"tokens": tokens}, max_len=self.max_len,
+                dtype=self.dtype)
+        with span("engine.slot_copy"):
+            # every leaf but pos has the slot (batch) axis at dim 1: K/V
+            # for GQA layers, ckv and krope for MLA ones, ssm_state and
+            # conv_buf for SSM layers, K/V and both SSM leaves for hybrid
+            # ones
+            for name, leaf in self.cache.items():
+                if name != "pos":
+                    leaf[:, slot] = cache1[name][:, 0]
+            # prefill padded the prompt; the next position is len(ids)
+            self.cache["pos"][slot] = len(ids)
+        with span("engine.first_token"):
+            nxt = torch.argmax(logits[0, -1])
+            self.last_token[slot, 0] = nxt
+            req.output_ids.append(int(nxt))
         self.stats["prefills"] += 1
-        req.prefill_s = time.perf_counter() - t0
-        self.stats["prefill_s"] += req.prefill_s
+        self.stats["prefill_s"] += time.perf_counter() - t0
         if (len(ids) + 1 >= self.max_len
                 or len(req.output_ids) >= req.max_new_tokens):
             req.done_s = time.perf_counter()
@@ -129,56 +138,67 @@ class GenerationEngine:
         ``generator`` (on the engine's device) draws the Gumbel noise of
         this tick's temperature sampling."""
         t0 = time.perf_counter()
-        logits, self.cache = self.bundle.decode_step(
-            self.params, self.cache, self.last_token, dtype=self.dtype)
-        # keep idle slots parked at position 0 (their writes are overwritten
-        # by the next insert; parking avoids pos growing past max_len)
-        active = torch.as_tensor(self.active, device=self.device)
-        pos = torch.where(active, self.cache["pos"],
-                          torch.zeros_like(self.cache["pos"]))
-        self.cache["pos"] = pos.clamp(max=self.max_len - 1)
+        with span("engine.decode"):
+            logits, self.cache = self.bundle.decode_step(
+                self.params, self.cache, self.last_token, dtype=self.dtype)
+        with span("engine.sample"):
+            # keep idle slots parked at position 0 (their writes are
+            # overwritten by the next insert; parking avoids pos growing
+            # past max_len)
+            active = torch.as_tensor(self.active, device=self.device)
+            pos = torch.where(active, self.cache["pos"],
+                              torch.zeros_like(self.cache["pos"]))
+            self.cache["pos"] = pos.clamp(max=self.max_len - 1)
 
-        last = logits[:, -1]
-        nxt = torch.argmax(last, dim=-1)
-        if generator is not None:
-            temps = np.array([self.slot_req[i].temperature
-                              if self.slot_req[i] else 0.0
-                              for i in range(self.n_slots)], np.float32)
-            if (temps > 0).any():
-                u = torch.rand(last.shape, generator=generator,
-                               device=last.device)
-                gumbel = -torch.log(-torch.log(
-                    u.clamp_min(torch.finfo(torch.float32).tiny)))
-                t = torch.as_tensor(temps, device=last.device)
-                samp = torch.argmax(
-                    last / t.clamp_min(1e-6)[:, None] + gumbel, dim=-1)
-                nxt = torch.where(t > 0, samp, nxt)
-        self.last_token = nxt[:, None]
-        nxt_host = nxt.cpu().numpy()
+            last = logits[:, -1]
+            nxt = torch.argmax(last, dim=-1)
+            if generator is not None:
+                temps = np.array([self.slot_req[i].temperature
+                                  if self.slot_req[i] else 0.0
+                                  for i in range(self.n_slots)], np.float32)
+                if (temps > 0).any():
+                    u = torch.rand(last.shape, generator=generator,
+                                   device=last.device)
+                    gumbel = -torch.log(-torch.log(
+                        u.clamp_min(torch.finfo(torch.float32).tiny)))
+                    t = torch.as_tensor(temps, device=last.device)
+                    samp = torch.argmax(
+                        last / t.clamp_min(1e-6)[:, None] + gumbel, dim=-1)
+                    nxt = torch.where(t > 0, samp, nxt)
+            self.last_token = nxt[:, None]
+        with span("engine.read_tokens"):
+            nxt_host = nxt.cpu().numpy()
         self.stats["decode_steps"] += 1
         self.stats["occupancy_sum"] += float(self.active.mean())
         self.stats["decode_s"] += time.perf_counter() - t0
 
         done: List[Request] = []
-        for i in range(self.n_slots):
-            req = self.slot_req[i]
-            if req is None or not self.active[i]:
-                continue
-            req.output_ids.append(int(nxt_host[i]))
-            eos = nxt_host[i] == self.tok.eos_id
-            full = len(req.output_ids) >= req.max_new_tokens
-            over = len(req.prompt_ids) + len(req.output_ids) >= self.max_len
-            if eos or full or over:
-                req.done_s = time.perf_counter()
-                self.active[i] = False
-                self.slot_req[i] = None
-                done.append(req)
+        with span("engine.retire"):
+            for i in range(self.n_slots):
+                req = self.slot_req[i]
+                if req is None or not self.active[i]:
+                    continue
+                req.output_ids.append(int(nxt_host[i]))
+                eos = nxt_host[i] == self.tok.eos_id
+                full = len(req.output_ids) >= req.max_new_tokens
+                over = (len(req.prompt_ids) + len(req.output_ids)
+                        >= self.max_len)
+                if eos or full or over:
+                    req.done_s = time.perf_counter()
+                    self.active[i] = False
+                    self.slot_req[i] = None
+                    done.append(req)
         return done
 
     @property
     def occupancy(self) -> float:
         n = max(1, self.stats["decode_steps"])
         return self.stats["occupancy_sum"] / n
+
+    @property
+    def queue_wait_s(self) -> float:
+        """The mean wait in the queue of the requests that had one."""
+        return self.stats["queue_wait_s"] / max(1, self.stats["queued"])
 
 
 class ContinuousBatcher:

@@ -24,7 +24,6 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-import time
 from typing import Any, Dict, List, Optional, Sequence
 
 from repro_torch.core import backends as bk
@@ -94,7 +93,6 @@ class TorchBackend:
     def run_values(self, op: plan_ir.Operator, values: Sequence[Any],
                    meter: Optional[bk.UsageMeter] = None,
                    batch_size: int = 1) -> List[Any]:
-        t0 = time.perf_counter()
         if op.kind == plan_ir.REDUCE:
             joined = "; ".join(str(v)[:60] for v in list(values)[:32])
             prompts = [render_prompt(op, joined)]
@@ -105,7 +103,6 @@ class TorchBackend:
         finished = self._collect(rids)
         raw = [finished[r].text for r in rids]
 
-        wall = time.perf_counter() - t0  # noqa: F841 — true batch wall
         tok_in = sum(cost_mod.text_tokens(p) for p in prompts)
         tok_out = sum(len(finished[r].output_ids or []) for r in rids)
         if meter is not None:

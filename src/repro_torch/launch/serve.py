@@ -213,7 +213,8 @@ def serve_query(args, table, cfg, engine, ctx):
     if res.cascade_stats is not None:
         print(f"[serve] cascade stats={res.cascade_stats}")
     print(f"[serve] engine stats={engine.stats} "
-          f"occupancy={engine.occupancy:.2f}")
+          f"occupancy={engine.occupancy:.2f} "
+          f"queue_wait={engine.queue_wait_s:.3f}s")
     return res
 
 
@@ -314,7 +315,8 @@ def serve_queries(args, table, cfg, engine, ctx):
           f"max={lats[-1]:.2f}s")
     print(f"[serve] server stats={stats}")
     print(f"[serve] engine stats={engine.stats} "
-          f"occupancy={engine.occupancy:.2f}")
+          f"occupancy={engine.occupancy:.2f} "
+          f"queue_wait={engine.queue_wait_s:.3f}s")
     return handles
 
 
@@ -430,6 +432,7 @@ def main(argv=None):
     print(f"[serve] {len(finished)} requests in {dt:.2f}s  "
           f"({new_toks / dt:,.1f} new tok/s)")
     print(f"[serve] occupancy={engine.occupancy:.2f}  "
+          f"queue_wait={engine.queue_wait_s:.3f}s  "
           f"p50={np.percentile(lats, 50):.2f}s "
           f"p99={np.percentile(lats, 99):.2f}s")
     print(f"[serve] stats={engine.stats}")

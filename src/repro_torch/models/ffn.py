@@ -38,6 +38,7 @@ from torch.distributed.tensor import DTensor
 
 from repro_torch.distributed import sharding as shd
 from repro_torch.models import common as cm
+from repro_torch.trace import backward_span, span
 
 
 def swiglu_init(generator, d_model, d_ff, *, lead=(), device="cuda",
@@ -219,10 +220,12 @@ def dispatch_compute_combine(p, x2d, weights, experts, cap, moe, *,
     e = p["gate"]["w"].shape[0]
     cols = cap if cols is None else cols
     layout = () if offsets is None else (offsets, cols)
-    slot_tok, slot_src, assign = dispatch(experts, cap, moe.num_experts,
-                                          x2d.shape[0], *layout)
-    slot_tok, slot_src = slot_tok[:e].reshape(-1), slot_src[:e].reshape(-1)
-    assign = assign.clamp(max=e * cols)         # phantom slots: dropped
+    with span("moe.dispatch"):
+        slot_tok, slot_src, assign = dispatch(experts, cap, moe.num_experts,
+                                              x2d.shape[0], *layout)
+        slot_tok = slot_tok[:e].reshape(-1)
+        slot_src = slot_src[:e].reshape(-1)
+        assign = assign.clamp(max=e * cols)     # phantom slots: dropped
     return _experts_at_slots(p, x2d, weights, slot_tok, slot_src, assign, e,
                              cols, mesh, token_axes)
 
@@ -239,34 +242,44 @@ def _experts_at_slots(p, x2d, weights, slot_tok, slot_src, assign, e, cap,
     Returns the (T, d) sum of each token's rows in order of its slots
     (of expert id; a dropped one adds the zero pad row last)."""
     t, d = x2d.shape
-    by_token = assign.view(t, -1).sort(dim=1)[0]
-    xs = _Rows.apply(x2d, slot_tok, by_token, True).view(e, cap, d)
-    # each slot's weight: a move of the (T * k, 1) weights into the slots
-    slot_w = _Rows.apply(weights.reshape(-1, 1), slot_src, assign[:, None],
-                         True).view(e, cap, 1)
-    if token_axes:
-        xs = shd.scatter_sum(xs, mesh, token_axes, 1)
-        slot_w = shd.scatter_sum(slot_w, mesh, token_axes, 1)
-    wg, wu, wd = (p[n]["w"].to(xs.dtype) for n in ("gate", "up", "down"))
-    h = F.silu(torch.bmm(xs, wg)) * torch.bmm(xs, wu)              # (E, C, ff)
-    out = torch.bmm(h, wd) * slot_w.to(xs.dtype)                  # (E, C, d)
-    if token_axes:
-        out = shd.gather_blocks(out, mesh, token_axes, 1)
-    return _Rows.apply(out.reshape(-1, d), slot_tok, by_token, False)
+    with span("moe.dispatch"):
+        by_token = assign.view(t, -1).sort(dim=1)[0]
+        xs = _Rows.apply(x2d, slot_tok, by_token, True).view(e, cap, d)
+        # each slot's weight: a move of the (T * k, 1) weights into the slots
+        slot_w = _Rows.apply(weights.reshape(-1, 1), slot_src,
+                             assign[:, None], True).view(e, cap, 1)
+        if token_axes:
+            xs = shd.scatter_sum(xs, mesh, token_axes, 1)
+            slot_w = shd.scatter_sum(slot_w, mesh, token_axes, 1)
+    with span("moe.experts"):
+        wg, wu, wd = (p[n]["w"].to(xs.dtype) for n in ("gate", "up", "down"))
+        h = F.silu(torch.bmm(xs, wg)) * torch.bmm(xs, wu)          # (E, C, ff)
+        out = torch.bmm(h, wd) * slot_w.to(xs.dtype)              # (E, C, d)
+    with span("moe.combine"):
+        if token_axes:
+            out = shd.gather_blocks(out, mesh, token_axes, 1)
+        return _Rows.apply(out.reshape(-1, d), slot_tok, by_token, False)
 
 
 def moe_forward_gather(p, x, cfg):
     """x: (B, S, d). Every row of x routes, pads included: they raise the
     token count and so the capacity, and sort after the real tokens of
-    their batch row in each expert's block."""
+    their batch row in each expert's block. Its backward is the span
+    ``moe.backward`` of a trace."""
+    return backward_span("moe.backward", _gather, x, p, cfg)
+
+
+def _gather(x, p, cfg):
     moe = cfg.moe
     b, s, d = x.shape
     x2d = x.reshape(b * s, d)
-    weights, experts = route(p["router"], x2d, moe)
+    with span("moe.route"):
+        weights, experts = route(p["router"], x2d, moe)
     y = dispatch_compute_combine(p, x2d, weights, experts,
                                  capacity(b * s, moe), moe)
     if "shared" in p:
-        y = y + swiglu(p["shared"], x2d)
+        with span("moe.experts"):
+            y = y + swiglu(p["shared"], x2d)
     return y.reshape(b, s, d)
 
 
@@ -337,7 +350,8 @@ def _on_mesh(p, x, cfg, mesh, token_axes, ep_axis):
     xr = shd.copy_to(x2d, mesh, ep_axis)
     router = {"w": shd.copy_to(p["router"]["w"], mesh,
                                token_axes + (ep_axis,))}
-    weights, experts = route(router, xr, moe)
+    with span("moe.route"):
+        weights, experts = route(router, xr, moe)
     lo = mesh.get_local_rank(ep_axis) * e_local
     local = {n: experts_w(n) for n in ("gate", "up", "down")}
 

@@ -49,6 +49,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.trace import span
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -198,25 +199,28 @@ def _block_forward(lp, x, cfg, window, positions, cache=None, moe_ctx=None):
     identity outside ``activation_sharding``)."""
     x = shd.constrain(x, ("batch", "seq", "embed_act"))
     if "attn" in lp:
-        h = cm.rmsnorm(lp["attn_norm"], x, cfg.rms_eps)
-        if cfg.attn_type == ATTN_MLA:
-            latent = None if cache is None else (cache["ckv"],
-                                                 cache["krope"])
-            a = attn.mla_forward(lp["attn"], h, cfg, positions=positions,
-                                 latent_out=latent)
-        else:
-            kv_out = None if cache is None else (cache["k"], cache["v"])
-            a = attn.gqa_forward(lp["attn"], h, cfg, positions=positions,
-                                 window=window, kv_out=kv_out)
-        if "ssm" in lp:
-            a = _mix(lp, a, _ssm_forward(lp["ssm"], h, cfg, cache), cfg)
-        x = x + a
+        with span("model.attn"):
+            h = cm.rmsnorm(lp["attn_norm"], x, cfg.rms_eps)
+            if cfg.attn_type == ATTN_MLA:
+                latent = None if cache is None else (cache["ckv"],
+                                                     cache["krope"])
+                a = attn.mla_forward(lp["attn"], h, cfg,
+                                     positions=positions, latent_out=latent)
+            else:
+                kv_out = None if cache is None else (cache["k"], cache["v"])
+                a = attn.gqa_forward(lp["attn"], h, cfg, positions=positions,
+                                     window=window, kv_out=kv_out)
+            if "ssm" in lp:
+                a = _mix(lp, a, _ssm_forward(lp["ssm"], h, cfg, cache), cfg)
+            x = x + a
     elif "ssm" in lp:
-        h = cm.rmsnorm(lp["ssm_norm"], x, cfg.rms_eps)
-        x = x + _ssm_forward(lp["ssm"], h, cfg, cache)
+        with span("model.ssm"):
+            h = cm.rmsnorm(lp["ssm_norm"], x, cfg.rms_eps)
+            x = x + _ssm_forward(lp["ssm"], h, cfg, cache)
     if "ffn" in lp:
-        h = cm.rmsnorm(lp["ffn_norm"], x, cfg.rms_eps)
-        x = x + _ffn(lp, h, cfg, moe_ctx)
+        with span("model.ffn"):
+            h = cm.rmsnorm(lp["ffn_norm"], x, cfg.rms_eps)
+            x = x + _ffn(lp, h, cfg, moe_ctx)
     return x
 
 
@@ -258,7 +262,8 @@ def forward(params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
     on a mesh). ``moe_ctx``: the MoE's path (``ffn.moe_forward``):
     {"impl": "shardmap", "mesh", "dp_axes"} for the shard_map path; the
     gather path otherwise."""
-    x = embed_inputs(params, cfg, tokens, prefix_embeds, dtype)
+    with span("model.embed"):
+        x = embed_inputs(params, cfg, tokens, prefix_embeds, dtype)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     windows = layer_windows(cfg)
     for i in range(cfg.n_layers):
@@ -267,8 +272,9 @@ def forward(params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
         x = (checkpoint(_block_forward, *args, use_reentrant=False,
                         context_fn=shd.checkpoint_contexts) if remat
              else _block_forward(*args))
-    x = cm.rmsnorm(params["final_norm"], x, cfg.rms_eps)
-    return unembed(params, cfg, x)
+    with span("model.head"):
+        x = cm.rmsnorm(params["final_norm"], x, cfg.rms_eps)
+        return unembed(params, cfg, x)
 
 
 def loss_fn(params, cfg: ModelConfig, batch, *, dtype=torch.bfloat16,
@@ -369,7 +375,8 @@ def prefill(params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
     that reaches max_len, the next ``decode_step`` fails on its write, which
     the reference drops: give max_len >= S_total + n_prefix + new tokens.
     ``moe_ctx``: the MoE's path, as ``forward``'s."""
-    x = embed_inputs(params, cfg, tokens, prefix_embeds, dtype)
+    with span("model.embed"):
+        x = embed_inputs(params, cfg, tokens, prefix_embeds, dtype)
     b, seq = x.shape[0], x.shape[1]
     max_len = max_len or seq
     cache = shd.zeros_tree(init_cache(cfg, b, max_len, dtype,
@@ -382,10 +389,11 @@ def prefill(params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
                            windows[i] if windows else 0, positions,
                            cache={k: v[i] for k, v in cache.items()
                                   if k != "pos"}, moe_ctx=moe_ctx)
-    x = cm.rmsnorm(params["final_norm"], x, cfg.rms_eps)
     total = seq + (cfg.n_prefix_embeds if prefix_embeds is not None else 0)
     cache["pos"].fill_(min(total, max_len))
-    return unembed(params, cfg, x[:, -1:]), cache
+    with span("model.head"):
+        x = cm.rmsnorm(params["final_norm"], x, cfg.rms_eps)
+        return unembed(params, cfg, x[:, -1:]), cache
 
 
 def _ssm_decode(p, h, cache, i, cfg):
@@ -408,34 +416,40 @@ def decode_step(params, cfg: ModelConfig, cache, token, *,
     (B,1,V) f32, cache)."""
     pos = cache["pos"]
     lens = pos + 1  # valid entries after this tick's write, for every layer
-    x = shd.embedding(token, params["embed"]["embedding"]).to(dtype)
+    with span("model.embed"):
+        x = shd.embedding(token, params["embed"]["embedding"]).to(dtype)
     windows = layer_windows(cfg)
     for i in range(cfg.n_layers):
         lp = cm.layer_params(params["layers"], i)
         if "attn" in lp:
-            h = cm.rmsnorm(lp["attn_norm"], x, cfg.rms_eps)
-            window = windows[i] if windows else 0
-            if cfg.attn_type == ATTN_MLA:
-                a = attn.mla_decode(lp["attn"], h, cache["ckv"][i],
-                                    cache["krope"][i], pos, cfg)
-            elif "k_scale" in cache:        # int8-quantized cache
-                a = attn.gqa_decode_q8(
-                    lp["attn"], h, cache["k"][i], cache["v"][i],
-                    cache["k_scale"][i], cache["v_scale"][i], pos, cfg,
-                    window=window, cache_len=lens)[0]
-            else:
-                a, _, _ = attn.gqa_decode(lp["attn"], h, cache["k"][i],
-                                          cache["v"][i], pos, cfg,
-                                          window=window, cache_len=lens)
-            if "ssm" in lp:
-                a = _mix(lp, a, _ssm_decode(lp["ssm"], h, cache, i, cfg), cfg)
-            x = x + a
+            with span("model.attn"):
+                h = cm.rmsnorm(lp["attn_norm"], x, cfg.rms_eps)
+                window = windows[i] if windows else 0
+                if cfg.attn_type == ATTN_MLA:
+                    a = attn.mla_decode(lp["attn"], h, cache["ckv"][i],
+                                        cache["krope"][i], pos, cfg)
+                elif "k_scale" in cache:        # int8-quantized cache
+                    a = attn.gqa_decode_q8(
+                        lp["attn"], h, cache["k"][i], cache["v"][i],
+                        cache["k_scale"][i], cache["v_scale"][i], pos, cfg,
+                        window=window, cache_len=lens)[0]
+                else:
+                    a, _, _ = attn.gqa_decode(lp["attn"], h, cache["k"][i],
+                                              cache["v"][i], pos, cfg,
+                                              window=window, cache_len=lens)
+                if "ssm" in lp:
+                    a = _mix(lp, a, _ssm_decode(lp["ssm"], h, cache, i, cfg),
+                             cfg)
+                x = x + a
         elif "ssm" in lp:
-            h = cm.rmsnorm(lp["ssm_norm"], x, cfg.rms_eps)
-            x = x + _ssm_decode(lp["ssm"], h, cache, i, cfg)
+            with span("model.ssm"):
+                h = cm.rmsnorm(lp["ssm_norm"], x, cfg.rms_eps)
+                x = x + _ssm_decode(lp["ssm"], h, cache, i, cfg)
         if "ffn" in lp:
-            h = cm.rmsnorm(lp["ffn_norm"], x, cfg.rms_eps)
-            x = x + _ffn(lp, h, cfg, moe_ctx)
-    x = cm.rmsnorm(params["final_norm"], x, cfg.rms_eps)
+            with span("model.ffn"):
+                h = cm.rmsnorm(lp["ffn_norm"], x, cfg.rms_eps)
+                x = x + _ffn(lp, h, cfg, moe_ctx)
     cache["pos"] = lens
-    return unembed(params, cfg, x), cache
+    with span("model.head"):
+        x = cm.rmsnorm(params["final_norm"], x, cfg.rms_eps)
+        return unembed(params, cfg, x), cache

@@ -15,6 +15,8 @@ import math
 
 import torch
 
+from repro_torch.trace import span
+
 
 @dataclasses.dataclass(frozen=True)
 class AdamWConfig:
@@ -73,28 +75,29 @@ def global_norm(tree):
 @torch.no_grad()
 def apply_updates(cfg: AdamWConfig, params, grads, opt_state):
     """Returns (new_params, new_opt_state, metrics). New params keep the
-    old ones' ``requires_grad``."""
-    step = opt_state["step"] + 1
-    lr = schedule(cfg, step)
-    gnorm = global_norm(grads)
-    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
-                        max=1.0)
-    b1c = 1 - cfg.b1 ** step.to(torch.float32)
-    b2c = 1 - cfg.b2 ** step.to(torch.float32)
+    old ones' ``requires_grad``. A trace records it as ``step.adamw``."""
+    with span("step.adamw"):
+        step = opt_state["step"] + 1
+        lr = schedule(cfg, step)
+        gnorm = global_norm(grads)
+        scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
+                            max=1.0)
+        b1c = 1 - cfg.b1 ** step.to(torch.float32)
+        b2c = 1 - cfg.b2 ** step.to(torch.float32)
 
-    def upd(p, g, m, v):
-        g = g.float() * scale
-        m2 = cfg.b1 * m + (1 - cfg.b1) * g
-        v2 = cfg.b2 * v + (1 - cfg.b2) * torch.square(g)
-        mhat = m2 / b1c
-        vhat = v2 / b2c
-        delta = mhat / (torch.sqrt(vhat) + cfg.eps)
-        newp = p - lr * (delta + cfg.weight_decay * p)
-        return newp.requires_grad_(p.requires_grad), m2, v2
+        def upd(p, g, m, v):
+            g = g.float() * scale
+            m2 = cfg.b1 * m + (1 - cfg.b1) * g
+            v2 = cfg.b2 * v + (1 - cfg.b2) * torch.square(g)
+            mhat = m2 / b1c
+            vhat = v2 / b2c
+            delta = mhat / (torch.sqrt(vhat) + cfg.eps)
+            newp = p - lr * (delta + cfg.weight_decay * p)
+            return newp.requires_grad_(p.requires_grad), m2, v2
 
-    out = tree_map(upd, params, grads, opt_state["m"], opt_state["v"])
-    new_state = {"m": _unzip(out, 1), "v": _unzip(out, 2), "step": step}
-    return _unzip(out, 0), new_state, {"grad_norm": gnorm, "lr": lr}
+        out = tree_map(upd, params, grads, opt_state["m"], opt_state["v"])
+        new_state = {"m": _unzip(out, 1), "v": _unzip(out, 2), "step": step}
+        return _unzip(out, 0), new_state, {"grad_norm": gnorm, "lr": lr}
 
 
 def _unzip(tree, i):

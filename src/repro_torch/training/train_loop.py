@@ -25,6 +25,7 @@ from torch.distributed.tensor.experimental import implicit_replication
 from repro_torch.distributed import sharding as shd
 from repro_torch.training import compression as comp_mod
 from repro_torch.training import optimizer as opt_mod
+from repro_torch.trace import span
 
 
 def init_train_state(bundle, generator: Optional[torch.Generator] = None,
@@ -126,9 +127,11 @@ def make_train_step(bundle, opt_cfg: opt_mod.AdamWConfig, *,
     on the mesh)."""
 
     def loss_and_grads(params, batch):
-        loss = bundle.loss_fn(params, batch, dtype=dtype, remat=remat,
-                              moe_ctx=moe_ctx)
-        return loss.detach(), grad_tree(loss, params)
+        with span("step.loss"):
+            loss = bundle.loss_fn(params, batch, dtype=dtype, remat=remat,
+                                  moe_ctx=moe_ctx)
+        with span("step.grad"):
+            return loss.detach(), grad_tree(loss, params)
 
     def grads_of(params, batch):
         if microbatches <= 1:
