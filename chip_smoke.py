@@ -1143,6 +1143,9 @@ KERNELS = {
     "ssd_scan_bwd": dict(
         route="cuda", source="src/repro_torch/csrc/ssd_scan_bwd.cu",
         replaces="src/repro/kernels/ssd_scan.py:69"),
+    "adamw": dict(
+        route="cuda", source="src/repro_torch/csrc/adamw.cu",
+        replaces="none: the reference's AdamW is jnp, fused by XLA"),
 }
 
 
@@ -1375,6 +1378,121 @@ def time_rowwise_cold(gen, m, copies=8):
     return line
 
 
+# AdamW's leaf sets, those of the benchmark's training cells
+# (bench/configs): codeqwen1.5-7b at its published 32/4 heads cut to 4 of
+# its 32 layers (1.569B parameters in 15 leaves), granite-moe-1b-a400m
+# whole (1.335B in 12)
+ADAMW_SETS = {"codeqwen.train.4k": ("codeqwen1.5-7b",
+                                    {"n_layers": 4, "n_kv_heads": 4}),
+              "granite.train.4k": ("granite-moe-1b-a400m", {})}
+
+
+def adamw_shapes(arch, fields):
+    """The parameter leaves' shapes of ``arch`` with ``fields`` replaced."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    cfg = replace(get_config(arch), **fields)
+    return [tuple(t.shape) for t in leaves(registry.build(cfg).init(
+        device="meta"))]
+
+
+def time_adamw(gen, cell, shapes):
+    """AdamW's two passes over fp32 leaves of ``shapes`` (``cell``'s leaf
+    set): the norm within 1e-6 of an fp64 sum and the same bits twice, the
+    update bit-equal to the plain version leaf by leaf; then device ms
+    (``queued_ms``, each call from an emptied cache, so that no allocation
+    waits on the card) of the step as ``apply_updates`` runs it (the norm, the
+    clip's 0-dim ops, the update), of each pass alone, of the plain version
+    (``plain_norm`` and ``plain`` a leaf: the chain the optimizer ran
+    before the kernels) and, as a yardstick only, of
+    ``torch.optim.AdamW(fused=True)``'s step on the same leaves (no clip;
+    its own order of operations; the port never calls it). The bound: 32
+    bytes a parameter over 3.35 TB/s (the norm's 4, the update's 28). Not a
+    row of the kernels line: no phase of the smoke trains these leaf
+    sets."""
+    import math
+
+    from repro_torch.kernels import adamw
+    n = sum(math.prod(s) for s in shapes)
+
+    def leaf_list(scale, positive=False):
+        flat = (torch.rand(n, generator=gen, device="cuda") if positive
+                else torch.randn(n, generator=gen, device="cuda")).mul_(scale)
+        return list(torch.split(flat, [math.prod(s) for s in shapes]))
+    ps, gs, ms, vs = (leaf_list(0.02), leaf_list(1e-3), leaf_list(1e-4),
+                      leaf_list(1e-7, positive=True))
+    ps, gs, ms, vs = ([t.view(s) for t, s in zip(ls, shapes)]
+                      for ls in (ps, gs, ms, vs))
+    kw = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+    step = torch.tensor(3.0, device="cuda")
+    lr = torch.tensor(9e-5, device="cuda")
+    b1c, b2c = 1 - kw["b1"] ** step, 1 - kw["b2"] ** step
+
+    def clip(norm):
+        return torch.clamp(1.0 / torch.clamp(norm, min=1e-9), max=1.0)
+    norm = adamw.global_norm(gs)
+    want = math.sqrt(sum(float(torch.sum(g.double() ** 2)) for g in gs))
+    norm_err = abs(float(norm) - want) / want
+    repeat = torch.equal(adamw.global_norm(gs), norm)
+    new = adamw.update(ps, gs, ms, vs, clip(norm), lr, b1c, b2c, **kw)
+    same = all(torch.equal(got, w) for i, leaf in enumerate(zip(ps, gs, ms,
+                                                                 vs))
+               for got, w in zip((new[0][i], new[1][i], new[2][i]),
+                                 adamw.plain(*leaf, clip(norm), lr, b1c,
+                                             b2c, **kw)))
+    del new
+    if not (norm_err <= 1e-6 and repeat and same):
+        raise AssertionError(f"adamw at {cell}: norm error {norm_err}, the "
+                             f"same bits twice {repeat}, update bit-equal "
+                             f"{same}")
+
+    def kernel_step():
+        adamw.update(ps, gs, ms, vs, clip(adamw.global_norm(gs)), lr, b1c,
+                     b2c, **kw)
+
+    def plain_step():
+        scale = clip(adamw.plain_norm(gs))
+        for leaf in zip(ps, gs, ms, vs):
+            adamw.plain(*leaf, scale, lr, b1c, b2c, **kw)
+    timed = {"ms": kernel_step, "norm_ms": lambda: adamw.global_norm(gs),
+             "update_ms": lambda: adamw.update(ps, gs, ms, vs, clip(norm),
+                                               lr, b1c, b2c, **kw),
+             "plain_ms": plain_step}
+    line = {"phase": "kernel_timing", "name": "adamw", **KERNELS["adamw"],
+            "path": cell, "shape": f"{n} parameters in {len(shapes)} "
+            f"leaves torch.float32", "norm_rel_err": norm_err,
+            "norm_same_bits_twice": repeat, "update_bit_equal": same}
+    params = [torch.nn.Parameter(p) for p in ps]
+    for p, g in zip(params, gs):
+        p.grad = g
+    fused = torch.optim.AdamW(params, lr=9e-5, betas=(kw["b1"], kw["b2"]),
+                              eps=kw["eps"], weight_decay=kw["weight_decay"],
+                              fused=True)
+    timed["library_ms"] = fused.step
+    for key, fn in timed.items():
+        torch.cuda.empty_cache()
+        # the chain (~300 launches a call) and the library's multi-tensor
+        # apply (one launch for each run of chunks) launch so many kernels
+        # that 20 calls queued would fill the card's launch queue, whose
+        # next launch waits on the card: two calls a window
+        many = key in ("plain_ms", "library_ms")
+        got = queued_ms(fn, reps=2 if many else 20)
+        if got is None:
+            raise AssertionError(f"adamw at {cell}: {key}'s calls wait on "
+                                 f"the card")
+        line[key], line["timer"] = got
+    line.update(library="torch.optim.AdamW(fused=True).step, no clip",
+                bound_ms=32 * n / PEAKS["bytes"] * 1e3, bound_by="bytes",
+                norm_bound_ms=4 * n / PEAKS["bytes"] * 1e3,
+                update_bound_ms=28 * n / PEAKS["bytes"] * 1e3)
+    emit(line)
+    del fused, params, ps, gs, ms, vs
+    torch.cuda.empty_cache()
+    return line
+
+
 def ssd_flops(s, heads):
     """The fewest FLOPs of an exact form of one sequence's scan: the chunked
     dual form at the chunk length L that needs least. Per chunk of l steps
@@ -1554,7 +1672,8 @@ def time_kernels(gen):
     16/8 heads of 64 in bf16.
     train_codeqwen's: the same at codeqwen1.5-7b's 32/32 heads of 128; and,
     outside the line, the fp32 backward at head_dim 128 (the CUDA-core
-    instance) at its cross-check's (2, 256)."""
+    instance) at its cross-check's (2, 256), and AdamW's two passes over
+    the benchmark's training cells' leaves (``time_adamw``)."""
     lens, padded = served_prefill_lengths()
     plots = movie_rows()
     mid = [n + 12 for n in lens[:4]]
@@ -1647,6 +1766,8 @@ def time_kernels(gen):
     time_flash_bwd(gen, CROSS_BATCH, CROSS_SEQ, torch.float32,
                    heads=CODEQWEN_HEADS)
     time_ssd_bwd(gen, *SSM_TRAIN_SHAPE, SSM_FULL, torch.float32)
+    for cell, (arch, fields) in ADAMW_SETS.items():
+        time_adamw(gen, cell, adamw_shapes(arch, fields))
     return rows
 
 
@@ -2176,7 +2297,8 @@ def phase_train_synthetic():
     losses = [e["loss"] for e in out["log"]]
     layers = out["cfg"].n_layers
     want = expect(flash_attention=2 * layers * TRAIN_STEPS,
-                  flash_attention_bwd=layers * TRAIN_STEPS)
+                  flash_attention_bwd=layers * TRAIN_STEPS,
+                  adamw=2 * TRAIN_STEPS)
     emit({"phase": "train_synthetic", "flags": flags,
           "seconds": out["seconds"], "losses": losses,
           "median_step_s": float(np.median([e["seconds"]
@@ -2187,17 +2309,21 @@ def phase_train_synthetic():
                              f"(expected {want}) or a loss not finite")
 
 
-def train_launches(cfg, steps):
+def train_launches(cfg, steps, updates=0):
     """The launches of ``steps`` training steps under remat: per layer and
     step, each kernel's forward twice (the forward and remat's recompute)
     and its backward once; flash for GQA attention, the scan for an SSM
-    mixer (a hybrid's layer has both); nothing else."""
+    mixer (a hybrid's layer has both); AdamW's two passes (the norm and the
+    update) for each of ``updates`` steps on card leaves whose mesh dims,
+    if any, have one rank (none where the step ends at the gradient);
+    nothing else."""
     per = {}
     if cfg.attn_type == "gqa":
         per.update(flash_attention=2, flash_attention_bwd=1)
     if cfg.ssm is not None:
         per.update(ssd_scan=2, ssd_scan_bwd=1)
-    return expect(**{k: v * cfg.n_layers * steps for k, v in per.items()})
+    return expect(**{k: v * cfg.n_layers * steps for k, v in per.items()},
+                  adamw=2 * updates)
 
 
 def phase_train(rows, phase="train", flags=TRAIN, ckpt=True, cfg=None,
@@ -2236,7 +2362,7 @@ def phase_train(rows, phase="train", flags=TRAIN, ckpt=True, cfg=None,
     losses = [e["loss"] for e in log]
     step_s = [e["seconds"] for e in log]
     tokens = args.batch * args.seq
-    want = train_launches(cfg, args.steps)
+    want = train_launches(cfg, args.steps, updates=args.steps)
 
     def two_steps():  # from the final state; the new states are dropped
         for i in range(2):
@@ -2307,8 +2433,9 @@ def phase_train_restart(reference):
     the uninterrupted run's, leaf by leaf: within RESTART_RTOL of each
     leaf's largest |value|, and whether bit-identical (every kernel of the
     step is deterministic: the flash backward has no atomics, the
-    embedding's gradient sorts). Launches: the 7 steps before the failure
-    and the 8 after the restore."""
+    embedding's gradient sorts, AdamW's norm adds in a fixed order).
+    Launches: the 7 steps before the failure and the 8 after the
+    restore."""
     import shutil
 
     from repro_torch.kernels import ops
@@ -2322,7 +2449,7 @@ def phase_train_restart(reference):
     ran = FAIL_AT + 1 + TRAIN_STEPS - resumed
     layers = out["cfg"].n_layers
     want = expect(flash_attention=2 * layers * ran,
-                  flash_attention_bwd=layers * ran)
+                  flash_attention_bwd=layers * ran, adamw=2 * ran)
     rel, same = 0.0, True
     for x, y in zip(leaves(out["state"]), leaves(reference)):
         x, y = x.detach().double(), y.detach().double()
@@ -2437,8 +2564,8 @@ def phase_train_rewriter(rows):
     backward kernels (no remat: one forward launch per layer and step),
     then scores rewrites as the LocalModelRewriter. Launches: the backward
     2 x steps; the forward 2 x (steps + accuracy evaluations + policy
-    calls); every rewrite the logical optimizer asked for scored by the
-    model (none fell back to a random pick)."""
+    calls); AdamW's two passes a step; every rewrite the logical optimizer
+    asked for scored by the model (none fell back to a random pick)."""
     from repro_torch.examples import train_rewriter
     from repro_torch.kernels import ops
     steps = REWRITER_STEPS
@@ -2452,7 +2579,7 @@ def phase_train_rewriter(rows):
     layers = train_rewriter.make_model()[0].n_layers
     want = expect(
         flash_attention=layers * (steps + evals + out["policy_calls"]),
-        flash_attention_bwd=layers * steps)
+        flash_attention_bwd=layers * steps, adamw=2 * steps)
     emit({"phase": "train_rewriter", "steps": steps, "seconds": seconds,
           "loss_first": out["losses"][0], "loss_last": out["losses"][-1],
           "initial_eval_acc": out["initial_eval_acc"],
@@ -2641,8 +2768,8 @@ def phase_train_encdec(rows):
     every loss finite and the last below the first. Launches per step: the
     flash forward once per encoder layer and twice per decoder layer, both
     again in the decoder's recompute; the backward once for each of those
-    attentions. Then two more steps under torch.profiler for the card's
-    idle share."""
+    attentions; AdamW's two passes. Then two more steps under
+    torch.profiler for the card's idle share."""
     import shutil
 
     from repro_torch.kernels import ops
@@ -2658,7 +2785,7 @@ def phase_train_encdec(rows):
     cfg, log, state = out["cfg"], out["log"], out["state"]
     L, E, steps = cfg.n_layers, cfg.n_encoder_layers, ENCDEC_TRAIN_STEPS
     want = expect(flash_attention=(E + 4 * L) * steps,
-                  flash_attention_bwd=(E + 2 * L) * steps)
+                  flash_attention_bwd=(E + 2 * L) * steps, adamw=2 * steps)
     losses = [e["loss"] for e in log]
     step_s = [e["seconds"] for e in log]
     tokens = ENCDEC_BATCH * TRAIN_SEQ
@@ -3152,8 +3279,9 @@ def phase_train_mesh(rows):
                 compression.compress_decompress(g))
         del local, grads, loss, restored
     shutil.rmtree(CKPT_ROOT, ignore_errors=True)
-    want = train_launches(cfg, MESH_STEPS)
-    want_b = train_launches(cfg, MESH_STEPS - step)
+    want = train_launches(cfg, MESH_STEPS, updates=MESH_STEPS)
+    want_b = train_launches(cfg, MESH_STEPS - step,
+                            updates=MESH_STEPS - step)
     want_colls = mesh_collectives(cfg, MESH_STEPS)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     median = float(np.median(secs))
@@ -3252,8 +3380,8 @@ def phase_train_mesh_gather(rows):
     loss and its gradients on the DTensor leaves inside
     ``activation_sharding`` (each MoE layer through
     ``ffn.moe_forward_gather_split`` on its blocks, via ``_on_blocks``),
-    the gradients reduced to their leaves' placements, AdamW on the
-    DTensors. First the loss and every gradient leaf of the initial
+    the gradients reduced to their leaves' placements, AdamW's kernels on
+    the DTensors' blocks. First the loss and every gradient leaf of the initial
     params on the first batch, so and by the unplaced gather path (the
     local tensors, no mesh): the loss bit-equal, each leaf within
     GATHER_GRAD_TOL of its largest |value|; and the first MoE layer alone
@@ -3350,7 +3478,7 @@ def phase_train_mesh_gather(rows):
         placements = str(state["params"]["layers"]["ffn"]["gate"]["w"]
                          .placements)
         del state
-    want = train_launches(cfg, MESH_GATHER_STEPS)
+    want = train_launches(cfg, MESH_GATHER_STEPS, updates=MESH_GATHER_STEPS)
     want_colls = gather_mesh_collectives(cfg, MESH_GATHER_STEPS)
     median = float(np.median(secs))
     emit({"phase": "train_mesh_gather", "arch": cfg.name,
@@ -3526,8 +3654,11 @@ def phase_dryrun():
             if got is None:
                 failures.append(f"{rec['phase']}: no measured run")
             else:
-                per_step = {k.replace("_fwd", ""): v
-                            for k, v in rec["launches"].items()}
+                per_step = {}
+                for k, v in rec["launches"].items():
+                    k = "adamw" if k.startswith("adamw_") else \
+                        k.replace("_fwd", "")
+                    per_step[k] = per_step.get(k, 0) + v
                 measured = {k: v // got["steps"]
                             for k, v in got["launches"].items() if v}
                 line.update(cross_check=rec["phase"],

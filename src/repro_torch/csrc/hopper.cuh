@@ -1,6 +1,6 @@
 // Hopper building blocks shared by the port's kernels (flash_attention.cu,
 // flash_attention_bwd.cu, similarity.cu, decode_attention.cu, ssd_scan.cu,
-// ssd_scan_bwd.cu): wgmma on operands staged
+// ssd_scan_bwd.cu, adamw.cu): wgmma on operands staged
 // in shared memory without swizzle, the fences around it, the split of an
 // fp32 value into two TF32 parts for 3xTF32 products, cluster barriers and
 // stores into another cluster block's shared memory, cp.async, and the

@@ -38,7 +38,7 @@ from torch.utils._python_dispatch import _get_current_dispatch_mode
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("flash_attention", "flash_attention_bwd", "decode_attention",
-           "similarity", "ssd_scan", "ssd_scan_bwd")
+           "similarity", "ssd_scan", "ssd_scan_bwd", "adamw")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -136,10 +136,12 @@ OP_BYTES: dict = {}
 
 
 def direct(t) -> bool:
-    """Whether a kernel op on ``t`` may skip the dispatcher: ``t`` real and
-    no dispatch mode active, so nothing but the card would see the launch
-    (serving's eager calls, which would pay the dispatcher's host time on
-    every launch)."""
+    """Whether a kernel op on ``t`` (of a list, its first tensor) may skip
+    the dispatcher: ``t`` real and no dispatch mode active, so nothing but
+    the card would see the launch (serving's eager calls, which would pay
+    the dispatcher's host time on every launch)."""
+    if isinstance(t, list):
+        t = t[0]
     return _get_current_dispatch_mode() is None and not isinstance(
         t, FakeTensor)
 

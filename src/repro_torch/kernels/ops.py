@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build, sharded
+from repro_torch.kernels import adamw as adamw_mod
 from repro_torch.kernels import decode_attention as dec_mod
 from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import similarity as sim_mod
@@ -29,7 +30,7 @@ _KERNELS = {"flash_attention": fa_mod.stats,
             "decode_attention": dec_mod.stats,
             "rowwise_cosine": sim_mod.stats,
             "cosine_matrix": sim_mod.matrix_stats, "ssd_scan": ssd_mod.stats,
-            "ssd_scan_bwd": ssd_mod.bwd_stats}
+            "ssd_scan_bwd": ssd_mod.bwd_stats, "adamw": adamw_mod.stats}
 
 
 def launch_counts() -> dict:

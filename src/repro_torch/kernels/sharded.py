@@ -23,6 +23,12 @@ heads); its sequence is gathered whole.
 A gradient comes back with the placements its rank holds: dK and dV of a
 sequence-split q are partial sums over that mesh dim, as are dB and dC of
 heads that share their group.
+
+AdamW's two passes (``adamw_norm``, ``adamw_update``) need no
+``local_map``: the update is elementwise, so each rank steps its blocks of
+the params, gradients and moments (placed alike) as they are, made dense,
+and the norm all-reduces its blocks' sums of squares over the mesh dims
+that split them.
 """
 from __future__ import annotations
 
@@ -213,3 +219,85 @@ def ssm_core(core, args, cfg, *, step):
     return local_map(local, out_placements=out_pl, in_placements=tuple(in_pl),
                      in_grad_placements=tuple(in_grad), device_mesh=mesh,
                      redistribute_inputs=True)(*args)
+
+
+def _block(t):
+    """A DTensor's local block, dense (a block its sharding left strided,
+    such as a tied embedding's transposed gradient, is copied), or the
+    tensor itself."""
+    if not isinstance(t, DTensor):
+        return t
+    b = t.to_local()
+    return b if b.is_contiguous() else b.clone(
+        memory_format=torch.contiguous_format)
+
+
+def _split_dims(t):
+    """The dims of more than one rank of a DTensor's mesh that split it;
+    a partial sum raises (a gradient is reduced to its leaf's placements
+    before AdamW)."""
+    if any(p.is_partial() for p in t.placements):
+        raise ValueError(f"AdamW takes no partial sums: {t.placements}")
+    return tuple(i for i, p in enumerate(t.placements)
+                 if isinstance(p, Shard) and t.device_mesh.size(i) > 1)
+
+
+def adamw_norm(grads, *, fn):
+    """The global norm of ``grads`` (tensors or DTensors) as a 0-dim fp32
+    tensor: ``fn`` (a list of plain tensors -> their fp64 sum of squares,
+    0-dim) on this rank's blocks, one call for the leaves split over the
+    same dims of more than one rank of a mesh, its sum all-reduced over
+    those dims; the calls' sums added in the leaves' order, then the root.
+    Plain tensors and leaves split over no such dim: one call, no
+    collective. Of DTensors the norm is replicated on the first one's
+    mesh."""
+    groups = {}
+    for g in grads:
+        key = (g.device_mesh, _split_dims(g)) if isinstance(g, DTensor) \
+            else (None, ())
+        groups.setdefault(key, []).append(_block(g))
+    total = None
+    for (mesh, dims), blocks in groups.items():
+        s = fn(blocks)
+        if dims:
+            s = DTensor.from_local(
+                s, mesh, [Partial() if i in dims else Replicate()
+                          for i in range(mesh.ndim)],
+                run_check=False).full_tensor()
+        total = s if total is None else total + s
+    norm = torch.sqrt(total).float()
+    mesh = next((g.device_mesh for g in grads if isinstance(g, DTensor)),
+                None)
+    if mesh is None:
+        return norm
+    return DTensor.from_local(norm, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def adamw_update(params, grads, m, v, scale, lr, b1c, b2c, *, fn, **kw):
+    """``fn(params, grads, m, v, scale, lr, b1c, b2c, **kw)`` -> (new params,
+    new m, new v) on this rank's blocks: the i-th gradient and moments
+    placed as the i-th param, the 0-dim scale, lr and bias corrections
+    tensors or replicated DTensors; each new leaf placed as its param.
+    Plain tensors: ``fn`` on them."""
+    for name, ts in (("grads", grads), ("m", m), ("v", v)):
+        for i, (t, p) in enumerate(zip(ts, params)):
+            if isinstance(t, DTensor) != isinstance(p, DTensor) or (
+                    isinstance(p, DTensor)
+                    and (t.device_mesh, t.placements)
+                    != (p.device_mesh, p.placements)):
+                raise ValueError(f"{name}[{i}] is not placed as its param")
+    for name, t in (("scale", scale), ("lr", lr), ("b1c", b1c),
+                    ("b2c", b2c)):
+        if isinstance(t, DTensor) and not all(p.is_replicate()
+                                              for p in t.placements):
+            raise ValueError(f"{name} must be replicated: {t.placements}")
+    new = fn(*([_block(t) for t in ts] for ts in (params, grads, m, v)),
+             *(_block(t) for t in (scale, lr, b1c, b2c)), **kw)
+
+    def placed(ts):
+        return [DTensor.from_local(t, p.device_mesh, p.placements,
+                                   run_check=False, shape=p.shape,
+                                   stride=p.stride())
+                if isinstance(p, DTensor) else t for t, p in zip(ts, params)]
+    return tuple(placed(ts) for ts in new)

@@ -6,7 +6,12 @@ bias-corrected ``m̂ / (√v̂ + eps)``, decoupled decay ``p − lr (δ + wd p)`
 ``torch.optim.AdamW`` orders its step differently. Trees are nested dicts of
 tensors; their leaves are visited in sorted key order, as ``jax.tree``
 visits a dict. ``apply_updates`` returns new tensors, as the reference
-does: the caller drops the old state.
+does: the caller drops the old state. On the card (real or fake tensors,
+DTensors included: each rank's blocks, ``kernels.sharded``) the norm and
+the update are the two passes of ``kernels.adamw``, which take fp32,
+contiguous leaves and raise on any others; a CPU tree takes the same step
+as a chain of PyTorch ops (``adamw.plain_norm``, ``adamw.plain``), the
+version the tests hold against the reference.
 """
 from __future__ import annotations
 
@@ -15,6 +20,7 @@ import math
 
 import torch
 
+from repro_torch.kernels import adamw, sharded
 from repro_torch.trace import span
 
 
@@ -68,8 +74,7 @@ def init_state(params):
 
 
 def global_norm(tree):
-    return torch.sqrt(sum(torch.sum(torch.square(l.float()))
-                          for l in leaves(tree)))
+    return adamw.plain_norm(leaves(tree))
 
 
 @torch.no_grad()
@@ -79,28 +84,29 @@ def apply_updates(cfg: AdamWConfig, params, grads, opt_state):
     with span("step.adamw"):
         step = opt_state["step"] + 1
         lr = schedule(cfg, step)
-        gnorm = global_norm(grads)
+        ps, gs, ms, vs = (leaves(t) for t in (params, grads, opt_state["m"],
+                                              opt_state["v"]))
+        chain = ps[0].device.type == "cpu"
+        gnorm = adamw.plain_norm(gs) if chain else sharded.adamw_norm(
+            gs, fn=adamw.sumsq)
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
         b1c = 1 - cfg.b1 ** step.to(torch.float32)
         b2c = 1 - cfg.b2 ** step.to(torch.float32)
+        kw = dict(b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
+                  weight_decay=cfg.weight_decay)
+        if chain:
+            new_p, new_m, new_v = zip(*(
+                adamw.plain(*leaf, scale, lr, b1c, b2c, **kw)
+                for leaf in zip(ps, gs, ms, vs)))
+        else:
+            new_p, new_m, new_v = sharded.adamw_update(
+                ps, gs, ms, vs, scale, lr, b1c, b2c, fn=adamw.update, **kw)
+        for q, p in zip(new_p, ps):
+            q.requires_grad_(p.requires_grad)
 
-        def upd(p, g, m, v):
-            g = g.float() * scale
-            m2 = cfg.b1 * m + (1 - cfg.b1) * g
-            v2 = cfg.b2 * v + (1 - cfg.b2) * torch.square(g)
-            mhat = m2 / b1c
-            vhat = v2 / b2c
-            delta = mhat / (torch.sqrt(vhat) + cfg.eps)
-            newp = p - lr * (delta + cfg.weight_decay * p)
-            return newp.requires_grad_(p.requires_grad), m2, v2
-
-        out = tree_map(upd, params, grads, opt_state["m"], opt_state["v"])
-        new_state = {"m": _unzip(out, 1), "v": _unzip(out, 2), "step": step}
-        return _unzip(out, 0), new_state, {"grad_norm": gnorm, "lr": lr}
-
-
-def _unzip(tree, i):
-    if isinstance(tree, dict):
-        return {k: _unzip(v, i) for k, v in tree.items()}
-    return tree[i]
+        def tree(new):
+            it = iter(new)
+            return tree_map(lambda _: next(it), params)
+        new_state = {"m": tree(new_m), "v": tree(new_v), "step": step}
+        return tree(new_p), new_state, {"grad_norm": gnorm, "lr": lr}

@@ -359,11 +359,12 @@ def test_ssd_ops_fake_outputs_and_costs(b, s, heads, dtype):
 
 
 OPS = ("flash_attention_fwd", "flash_attention_bwd", "decode_attention",
-       "rowwise_cosine", "cosine_matrix", "ssd_scan_fwd", "ssd_scan_bwd")
+       "rowwise_cosine", "cosine_matrix", "ssd_scan_fwd", "ssd_scan_bwd",
+       "adamw_sumsq", "adamw_update")
 
 
 def test_every_launch_is_an_op_that_refuses_the_cpu():
-    """The seven launches are ``repro_torch::`` ops with a CUDA
+    """The nine launches are ``repro_torch::`` ops with a CUDA
     implementation only: a CPU tensor that reaches one raises, nothing
     stands in for the kernel."""
     a = torch.zeros(4, 16)
@@ -373,6 +374,8 @@ def test_every_launch_is_an_op_that_refuses_the_cpu():
         torch.ops.repro_torch.cosine_matrix(a, a)
     with pytest.raises(NotImplementedError, match="CPU"):
         torch.ops.repro_torch.rowwise_cosine(a, a)
+    with pytest.raises(NotImplementedError, match="CPU"):
+        torch.ops.repro_torch.adamw_sumsq([a])
 
 
 def test_an_op_without_a_fake_implementation_raises_on_fake_tensors():

@@ -177,7 +177,8 @@ def test_cpu_path_launches_no_kernel():
                                    "flash_attention_bwd": 0,
                                    "decode_attention": 0,
                                    "rowwise_cosine": 0, "cosine_matrix": 0,
-                                   "ssd_scan": 0, "ssd_scan_bwd": 0}
+                                   "ssd_scan": 0, "ssd_scan_bwd": 0,
+                                   "adamw": 0}
 
 
 def test_launch_counts_are_exact_across_threads():

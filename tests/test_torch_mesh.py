@@ -924,6 +924,26 @@ def test_remesh_4x1_to_2x2(ranks4):
         assert res["split_leaves"] > 0
 
 
+def test_adamw_on_split_leaves_by_blocks(ranks4):
+    """AdamW on a reduced granite state split over (2, 2) gloo ranks through
+    ``kernels.sharded`` (the plain passes standing in for the kernels): the
+    norm all-reduced from the blocks' fp64 sums is the whole tree's on
+    every rank, within 1e-6 of the chain's fp32 one; each new leaf placed
+    as its param and bit-equal to the chain's on the DTensors; one norm
+    call a group of leaves split over the same mesh dims."""
+    for r in ranks4:
+        res = r["adamw"]
+        assert res["split_leaves"] > 0
+        assert abs(float(res["norm"]) - res["fp64_norm"]) <= \
+            1e-7 * res["fp64_norm"]
+        assert abs(float(res["norm"]) - float(res["chain_norm"])) <= \
+            1e-6 * res["fp64_norm"]
+        assert res["placed"] and res["bit_equal"]
+        assert sum(res["calls"]) == res["leaves"] and \
+            1 < len(res["calls"]) <= 4
+    assert len({float(r["adamw"]["norm"]) for r in ranks4}) == 1
+
+
 # ---------------------------------------------------------------------------
 # On the card
 # ---------------------------------------------------------------------------

@@ -12,6 +12,7 @@ that hold the shard_map path ask for it through ``moe_ctx``; the others
 run the MoE's default, the gather path split over the ranks.
 """
 import datetime
+import math
 import multiprocessing
 import os
 import traceback
@@ -158,6 +159,61 @@ def remesh_job():
         split += tuple(t.to_local().shape) != tuple(want.shape)
     return {"blocks": blocks_ok, "whole": whole_ok, "split_leaves": split,
             "leaves": len(leaves(state))}
+
+
+def adamw_job():
+    """A reduced granite train state placed on a (2, 2) mesh by the train
+    rules, with gradients of random values placed as the params: AdamW's
+    passes on each rank's blocks (``kernels.sharded``; the kernels' plain
+    versions stand in for them, which have no CPU mode) against the chain
+    on the DTensors. The norm and the new leaves, gathered whole; the
+    groups of leaves the norm pass was called on."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import adamw, sharded
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.training.optimizer import AdamWConfig, leaves, schedule
+    bundle, state, axes = tiny_state()
+    mesh = make_host_mesh(model=2, device="cpu")
+    rules = shd.make_rules(bundle.cfg, mesh, "train")
+    placed = shd.place(state, shd.sharding_for_tree(state, axes, rules,
+                                                    mesh))
+    ps = leaves(placed["params"])
+    gen = torch.Generator().manual_seed(3)
+    gs = [shd.from_whole(torch.randn(p.shape, generator=gen) * 1e-2,
+                         p.device_mesh, p.placements) for p in ps]
+    ms = leaves(placed["opt"]["m"])
+    vs = leaves(placed["opt"]["v"])
+    calls = []
+
+    def sumsq(blocks):
+        calls.append(len(blocks))
+        return sum(torch.sum(torch.square(b.double())) for b in blocks)
+
+    def update(ps, gs, ms, vs, *sc, **kw):
+        out = [adamw.plain(*leaf, *sc, **kw) for leaf in zip(ps, gs, ms, vs)]
+        return tuple([o[i] for o in out] for i in range(3))
+    cfg = AdamWConfig()
+    kw = dict(b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
+              weight_decay=cfg.weight_decay)
+    norm = sharded.adamw_norm(gs, fn=sumsq)
+    chain_norm = adamw.plain_norm(gs)
+    step = torch.tensor(2, dtype=torch.int32)
+    sc = (torch.tensor(0.5), schedule(cfg, step),
+          1 - cfg.b1 ** step.float(), 1 - cfg.b2 ** step.float())
+    new = sharded.adamw_update(ps, gs, ms, vs, *sc, fn=update, **kw)
+    want = [adamw.plain(*leaf, *sc, **kw) for leaf in zip(ps, gs, ms, vs)]
+    return {"norm": norm.full_tensor(), "chain_norm": chain_norm.full_tensor(),
+            "fp64_norm": math.sqrt(sum(float(torch.sum(
+                g.full_tensor().double() ** 2)) for g in gs)),
+            "placed": all(isinstance(t, type(p)) and t.placements ==
+                          p.placements for ts in new
+                          for t, p in zip(ts, ps)),
+            "bit_equal": all(torch.equal(t.full_tensor(), w[i].full_tensor())
+                             for i, ts in enumerate(new)
+                             for t, w in zip(ts, want)),
+            "split_leaves": sum(tuple(p.to_local().shape) != tuple(p.shape)
+                                for p in ps),
+            "calls": calls, "leaves": len(ps)}
 
 
 def ref_params(ref, prefix):
@@ -577,6 +633,7 @@ JOBS = {
                                "moe_2x2": moe_job(ref_dir, 2),
                                "psum": psum_job(ref_dir),
                                "remesh": remesh_job(),
+                               "adamw": adamw_job(),
                                "split": split_job(ref_dir),
                                "moe_prefill": moe_prefill_job(ref_dir),
                                "gather": gather_layer_job(
