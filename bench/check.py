@@ -1,5 +1,7 @@
 """How ``correct`` is decided: what the timed path produced, held against
-the plain reference (``bench/reference``) at the timed sizes.
+the plain reference of the configuration's architecture
+(``bench/reference/<reference>.py``, ``spec.reference``) at the timed
+sizes.
 
 Serving: for a seeded sample of the requests finished in the window, the
 program's logit rows (recorded as the engine produced them: the prefill's
@@ -35,9 +37,8 @@ import statistics
 
 import torch
 
-from bench import trafficgen, weights
+from bench import spec, trafficgen, weights
 from bench.reference import adamw
-from bench.reference import model as ref
 
 # the control: the reference in the nearest precision below the one the
 # configuration states, put in the program's place
@@ -80,6 +81,7 @@ def reference_rows(w: dict, cfg: dict, ids: list, out: list, align: int,
                    prec: str, device):
     """The reference's logit rows for each served token: the first from
     the padded prompt's last row, the rest from prompt + served tokens."""
+    ref = spec.reference(cfg)
     first = ref.forward(w, cfg, torch.tensor([padded(ids, align)],
                                              device=device), prec)[0, -1:]
     if len(out) == 1:
@@ -155,6 +157,7 @@ def train_reference(cfg: dict, mix: dict, seed: int, device, shapes: dict,
     batches: each step's loss, the first clipped gradient's leaf norms,
     each leaf's change over the three steps."""
     torch.backends.cuda.matmul.allow_tf32 = False
+    ref = spec.reference(cfg)
     w = weights.make(shapes, cfg["init"], seed, device)
     for t in w.values():
         t.requires_grad_(True)

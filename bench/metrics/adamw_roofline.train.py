@@ -14,22 +14,9 @@ BYTES_PER_PARAM = 32
 
 
 def params(cfg) -> int:
-    """The configuration's parameters: the embedding (counted once where
-    tied to the unembedding), per layer the projections with their biases,
-    the two norms' scales and the feed-forward (a MoE's router and every
-    expert), and the final norm's scale."""
-    d, h, kv, hd = flops.dims(cfg)
-    attn = d * hd * (2 * h + 2 * kv)
-    if cfg.get("attention_bias"):
-        attn += hd * (h + 2 * kv)
-    if "num_local_experts" in cfg:
-        e = cfg["num_local_experts"]
-        ffn = d * e + e * 3 * d * cfg["intermediate_size"]
-    else:
-        ffn = 3 * d * cfg["intermediate_size"]
-    embed = cfg["vocab_size"] * d * (1 if cfg.get("tie_word_embeddings")
-                                     else 2)
-    return cfg["num_hidden_layers"] * (attn + ffn + 2 * d) + embed + d
+    """The configuration's parameters, as its architecture counts them
+    (``flops.counts``)."""
+    return flops.counts(cfg)["params"]
 
 
 def read(run):

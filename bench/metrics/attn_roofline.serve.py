@@ -1,10 +1,12 @@
 """Kernels (``csrc/flash_attention.cu``, ``csrc/decode_attention.cu``
 through ``kernels/ops.py``): the attention kernels' share of their
 roofline in the serving window, the sum of each call's least time over
-the sum of their device time. A call's shape comes from the host's
-lengths: a prefill at its padded length, causal; a tick over each slot's
-valid cache rows (one for a parked slot). Least time and fp32's peak of
-495 TFLOP/s: ``bench/flops.py``. Moves ``serve_tok_s``."""
+the sum of their device time. Each prefill and tick makes one call in
+each of the architecture's attention layers (``flops.counts``); a call's
+shape comes from the host's lengths: a prefill at its padded length,
+causal; a tick over each slot's valid cache rows (one for a parked
+slot). Least time and fp32's peak of 495 TFLOP/s: ``bench/flops.py``.
+Moves ``serve_tok_s``."""
 from bench import flops
 
 KERNELS = ("flash_fwd", "decode_kernel")
@@ -16,7 +18,7 @@ def read(run):
     if trace is None or run.get("kind") != "serve" or not run["tick_lens"]:
         return None
     cfg, dtype = run["cfg"], run["mix"]["dtype"]
-    layers = cfg["num_hidden_layers"]
+    layers = flops.counts(cfg)["attn_layers"]
     device_us = sum(t - s for s, t, n in trace["device"]
                     if any(k in n for k in KERNELS))
     launched = sum(run["launches"].get(op, 0) for op in OPS)

@@ -20,19 +20,25 @@ MOE_FIELDS = {"num_local_experts": "num_experts",
               "num_experts_per_tok": "top_k",
               "capacity_factor": "capacity_factor"}
 # keys of a configuration file that the benchmark reads itself: the
-# source, the precisions, how it was cut, the weights' initialisation
+# source, the precisions, how it was cut, the weights' initialisation, the
+# reference of its architecture and where its further keys go
 BENCH_KEYS = {"arch", "source", "serve_dtype", "train_dtype", "master_dtype",
               "reduced_from", "deployment", "assumed", "departures",
-              "precision", "init"}
+              "precision", "init", "reference", "port_fields"}
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def model_config(cfg_json: dict):
     """The port's config of ``cfg_json["arch"]`` with every size the file
     states: the file is the configuration as it is run, so a key that maps
-    to no field of the port is refused."""
+    to no field of the port is refused. The keys of ``FIELDS`` and
+    ``MOE_FIELDS`` map themselves; the file's ``port_fields``,
+    {key: "field" or "group.field"}, maps any other key to a field of the
+    arch's config or of one of its groups (``"ssm.d_state"``)."""
     from repro_torch.configs import get_config
-    unknown = set(cfg_json) - set(FIELDS) - set(MOE_FIELDS) - BENCH_KEYS
+    paths = cfg_json.get("port_fields", {})
+    unknown = (set(cfg_json) - set(FIELDS) - set(MOE_FIELDS) - BENCH_KEYS
+               - set(paths))
     if unknown:
         raise KeyError(f"configuration keys the port does not take: "
                        f"{sorted(unknown)}")
@@ -41,7 +47,29 @@ def model_config(cfg_json: dict):
     moe = {MOE_FIELDS[k]: v for k, v in cfg_json.items() if k in MOE_FIELDS}
     if moe:
         kw["moe"] = dataclasses.replace(base.moe, **moe)
-    return dataclasses.replace(base, **kw)
+    run = dataclasses.replace(base, **kw)
+    for key, path in paths.items():
+        if key in cfg_json:
+            run = _set_field(run, path, cfg_json[key], key)
+    return run
+
+
+def _set_field(config, path: str, value, key: str):
+    """``config`` with the field at ``path`` (dots into nested dataclasses)
+    set to ``value``, a JSON list as a tuple."""
+    head, _, rest = path.partition(".")
+    if head not in {f.name for f in dataclasses.fields(config)}:
+        raise KeyError(f"port_fields: {key!r} -> {path!r}: "
+                       f"{type(config).__name__} has no field {head!r}")
+    if rest:
+        group = getattr(config, head)
+        if group is None:
+            raise KeyError(f"port_fields: {key!r} -> {path!r}: the arch's "
+                           f"config has no {head!r} group (it is None)")
+        value = _set_field(group, rest, value, key)
+    elif isinstance(value, list):
+        value = tuple(value)
+    return dataclasses.replace(config, **{head: value})
 
 
 def build(cfg_json: dict):

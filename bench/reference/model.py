@@ -12,6 +12,8 @@ its place among its expert's assignments, in (token, k) order, is below the
 capacity max(8, ceil8(int(T k / E * capacity_factor))); dropped assignments
 add nothing.
 
+``counts``: the architecture's counts (``bench/reference/__init__.py``).
+
 Every product runs through ``mm`` in the precision asked for: ``fp32``
 (exact fp32 products; TF32 is switched off), or with both operands
 rounded first to ``tf32`` or ``fp8`` (one scale per operand:
@@ -200,3 +202,49 @@ def loss(w, cfg, tokens, prec="fp32", remat=True):
         logits, -1, labels[..., None])[..., 0]
     return nll.mean()
 
+
+def dims(cfg):
+    d, h = cfg["hidden_size"], cfg["num_attention_heads"]
+    return d, h, cfg["num_key_value_heads"], cfg.get("head_dim") or d // h
+
+
+def layer_matmul_params(cfg) -> int:
+    """One layer's parameters that a token meets in products: the
+    projections, and the feed-forward (a MoE's router and top-k experts)."""
+    d, h, kv, hd = dims(cfg)
+    attn = d * hd * (2 * h + 2 * kv)
+    if "num_local_experts" in cfg:
+        ffn = (d * cfg["num_local_experts"]
+               + cfg["num_experts_per_tok"] * 3 * d * cfg["intermediate_size"])
+    else:
+        ffn = 3 * d * cfg["intermediate_size"]
+    return attn + ffn
+
+
+def params(cfg) -> int:
+    """The configuration's parameters: the embedding (counted once where
+    tied to the unembedding), per layer the projections with their biases,
+    the two norms' scales and the feed-forward (a MoE's router and every
+    expert), and the final norm's scale."""
+    d, h, kv, hd = dims(cfg)
+    attn = d * hd * (2 * h + 2 * kv)
+    if cfg.get("attention_bias"):
+        attn += hd * (h + 2 * kv)
+    if "num_local_experts" in cfg:
+        e = cfg["num_local_experts"]
+        ffn = d * e + e * 3 * d * cfg["intermediate_size"]
+    else:
+        ffn = 3 * d * cfg["intermediate_size"]
+    embed = cfg["vocab_size"] * d * (1 if cfg.get("tie_word_embeddings")
+                                     else 2)
+    return cfg["num_hidden_layers"] * (attn + ffn + 2 * d) + embed + d
+
+
+def counts(cfg) -> dict:
+    """Every layer is GQA attention and a SwiGLU or MoE feed-forward."""
+    _, h, kv, hd = dims(cfg)
+    layers = cfg["num_hidden_layers"]
+    return {"matmul_params": layers * layer_matmul_params(cfg),
+            "params": params(cfg), "attn_layers": layers, "heads": h,
+            "kv_heads": kv, "qk_head_dim": hd, "v_head_dim": hd,
+            "mixer_flops": 0}

@@ -1,9 +1,11 @@
 """Finds a cell's files by name: ``BENCHMARK.json`` names the cell, its
 configuration and traffic; each lives in a file of its own under
-``bench/``, so a later change adds a cell, a mix or a metric by adding
-files and entries, never by editing one."""
+``bench/``, so a later change adds a cell, a mix, a metric or the
+reference of a new architecture by adding files and entries, never by
+editing one."""
 from __future__ import annotations
 
+import functools
 import importlib.util
 import json
 from pathlib import Path
@@ -16,9 +18,18 @@ def _json(path: Path):
         return json.load(f)
 
 
+class Config(dict):
+    """A configuration file's keys, and ``root``, the root it was read
+    from: its reference is found there."""
+
+    def __init__(self, keys: dict, root: Path = ROOT):
+        super().__init__(keys)
+        self.root = Path(root)
+
+
 def load_cell(name: str, root: Path = ROOT) -> dict:
     """The cell ``name``: its workload entry, its configuration (the file
-    ``BENCHMARK.json`` names), its traffic mix
+    ``BENCHMARK.json`` names, a ``Config`` of this root), its traffic mix
     (``bench/traffic/<traffic>.json``, with the trace of calls it names
     read in), its correctness limits
     (``bench/limits/<cell>.json``), and the end-to-end and per-layer
@@ -42,18 +53,34 @@ def load_cell(name: str, root: Path = ROOT) -> dict:
                  if (name in m["workloads"] if "workloads" in m
                      else m["moves"] in reported)]
     return {"name": name, "root": root, "workload": w,
-            "config": _json(root / cfg_entry["file"]),
+            "config": Config(_json(root / cfg_entry["file"]), root),
             "traffic": traffic,
             "limits": _json(root / "bench" / "limits" / f"{name}.json"),
             "end_to_end": e2e, "per_layer": per_layer}
 
 
-def metric_reader(name: str, root: Path = ROOT):
-    """The module ``bench/metrics/<name>.py``: its ``read(run)`` returns
-    the metric's value, or None where the run holds nothing to read."""
-    path = Path(root) / "bench" / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(
-        "bench_metric_" + name.replace(".", "_").replace("-", "_"), path)
+@functools.lru_cache(maxsize=None)
+def _module(path: Path, prefix: str):
+    name = prefix + path.stem.replace(".", "_").replace("-", "_")
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def metric_reader(name: str, root: Path = ROOT):
+    """The module ``bench/metrics/<name>.py``: its ``read(run)`` returns
+    the metric's value, or None where the run holds nothing to read."""
+    return _module(Path(root) / "bench" / "metrics" / f"{name}.py",
+                   "bench_metric_")
+
+
+def reference(cfg: dict):
+    """The plain reference of the configuration's architecture: the module
+    ``bench/reference/<cfg["reference"]>.py`` (``model`` where the file
+    names none) under the root the configuration was read from
+    (``spec.ROOT`` for a plain dict). ``bench/reference/__init__.py``
+    states what it exports."""
+    path = (Path(getattr(cfg, "root", ROOT)) / "bench" / "reference"
+            / f"{cfg.get('reference', 'model')}.py")
+    return _module(path, "bench_reference_")

@@ -1,6 +1,7 @@
 """BENCHMARK.json as the benchmark's contract has it, and each
 configuration file as the program runs it: the port's config with every
-size the file states; a key the port cannot take is refused."""
+size the file states, its ``port_fields`` included; a key the port cannot
+take is refused; its architecture has its reference."""
 import json
 import re
 
@@ -39,6 +40,9 @@ def test_every_cell_has_its_files_and_metrics(work):
         assert m["moves"] in e2e
         assert hasattr(spec.metric_reader(m["name"]), "read")
     assert cell["limits"]
+    ref = spec.reference(cell["config"])
+    assert all(callable(getattr(ref, f, None))
+               for f in ("forward", "loss", "counts"))
 
 
 @pytest.mark.parametrize("entry", BENCH["configs"],
@@ -53,9 +57,17 @@ def test_config_file_is_the_port_config_as_run(entry):
     for key, field in program.MOE_FIELDS.items():
         if key in cfg:
             assert getattr(run.moe, field) == cfg[key], key
+    for key, path in cfg.get("port_fields", {}).items():
+        value = run
+        for name in path.split("."):
+            value = getattr(value, name)
+        want = cfg[key]
+        assert value == (tuple(want) if isinstance(want, list) else want), key
     assert set(cfg["reduced_from"]) == set(entry["reduced"])
+    mapped = {**program.FIELDS, **program.MOE_FIELDS,
+              **cfg.get("port_fields", {})}
     for key in cfg["reduced_from"]:
-        assert key in program.FIELDS and key in cfg
+        assert key in mapped and key in cfg
 
 
 @pytest.mark.parametrize("key", ["state_size", "conv_kernel"])

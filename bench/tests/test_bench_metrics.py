@@ -4,6 +4,7 @@ import pytest
 
 from bench import flops, spec
 from bench import tracing as tr
+from bench.reference import model
 
 CFG = spec._json(spec.ROOT / "bench" / "configs" / "codeqwen1.5-7b.json")
 MIX = dict(spec._json(spec.ROOT / "bench" / "traffic" / "train_4k.json"),
@@ -47,7 +48,7 @@ def test_serve_mfu_counts_prefills_and_active_rows():
             + flops.tick_flops(CFG, [70, 130]) + flops.tick_flops(CFG, [71]))
     assert read("serve_mfu", run) == pytest.approx(
         100 * want / 2.0 / 495e12)
-    layer = flops.layer_matmul_params(CFG)
+    layer = model.layer_matmul_params(CFG)
     # q and o of 32 heads, k and v of 4, each of 128
     assert layer == 4096 * 128 * (2 * 32 + 2 * 4) + 3 * 4096 * 13440
     assert flops.tick_flops(CFG, [5]) == pytest.approx(
@@ -69,7 +70,7 @@ def test_train_mfu_and_other_ms():
     assert read("train_other_ms", run) == pytest.approx(1.7 / 10)
     # 6 x matmul params x tokens dominates; attention adds its pairs
     assert per_step == pytest.approx(
-        6 * (4 * flops.layer_matmul_params(CFG) + 4096 * 92416) * 4096
+        6 * (4 * model.layer_matmul_params(CFG) + 4096 * 92416) * 4096
         + 3 * 4 * 4 * 32 * 128 * 4096 * 4097 // 2)
 
 

@@ -20,6 +20,8 @@ MOE = {"arch": "granite-moe-1b-a400m", "hidden_size": 64,
        "vocab_size": 512, "num_local_experts": 8, "num_experts_per_tok": 2,
        "capacity_factor": 1.25, "rope_theta": 1e4, "rms_norm_eps": 1e-5,
        "attention_bias": False, "tie_word_embeddings": True}
+# the real configuration whose weights' init rules each tiny one takes
+REAL = {"dense": "codeqwen1.5-7b", "moe": "granite-moe-1b-a400m"}
 SERVE = {"kind": "serve", "slots": 4, "max_len": 160, "callers": 3,
          "morsel": 2, "block": 16, "calls": "calls.jsonl",
          "check": {"every": 1, "max_rows": 400, "tokens": 40}}
@@ -56,12 +58,14 @@ def _write(path: Path, obj) -> None:
 
 def make_root(tmp: Path, dtype: str = "bfloat16") -> Path:
     """A root holding BENCHMARK.json and the tiny cells' files; the real
-    metric readers copied beside them."""
+    metric readers and references copied beside them."""
     real = json.loads((spec.ROOT / "BENCHMARK.json").read_text())
-    shutil.copytree(spec.ROOT / "bench" / "metrics", tmp / "bench" / "metrics")
-    init = {name: json.loads((spec.ROOT / c["file"]).read_text())["init"]
-            for name, c in (("dense", real["configs"][0]),
-                            ("moe", real["configs"][1]))}
+    for part in ("metrics", "reference"):
+        shutil.copytree(spec.ROOT / "bench" / part, tmp / "bench" / part,
+                        ignore=shutil.ignore_patterns("__pycache__"))
+    files = {c["name"]: c["file"] for c in real["configs"]}
+    init = {name: json.loads((spec.ROOT / files[real_name]).read_text())[
+        "init"] for name, real_name in REAL.items()}
     configs = []
     for name, dims in (("dense", DENSE), ("moe", MOE)):
         _write(tmp / "bench" / "configs" / f"{name}.json",
